@@ -1,0 +1,67 @@
+"""Device selection and host-device sync accounting for the port.
+
+The counterpart of ``repro.launch.platform``'s sync accounting
+(``device_fetch`` / ``sync_count`` / ``reset_sync_count``) plus the port's
+device rule:
+
+* ``default_device()`` is ``cuda``.  Without a CUDA device it raises: the
+  entry points never fall back to the CPU on their own; a caller that wants
+  the CPU (the tests) asks for ``device="cpu"``.
+* ``device_fetch`` is the one counted device->host copy.  The evaluator
+  routes each scored batch through it, so ``sync_count`` counts one fetch
+  per scoring batch, as in the reference.  Both read the
+  ``launch.platform.sync_count`` registry counter.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.obs import registry as _obs_registry
+
+__all__ = ["default_device", "resolve_device", "device_fetch", "sync_count",
+           "reset_sync_count"]
+
+_SYNC = _obs_registry.counter("launch.platform.sync_count")
+
+
+def default_device() -> torch.device:
+    """``cuda:<current>``; raises when no CUDA device is present."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU by default; pass "
+            "device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_device(device: Optional[Union[str, torch.device]]
+                   ) -> torch.device:
+    """The caller's device, or ``default_device()`` when None."""
+    if device is None:
+        return default_device()
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+    return dev
+
+
+def device_fetch(*tensors: torch.Tensor) -> tuple[np.ndarray, ...]:
+    """Copy tensors to host numpy arrays: one counted synchronisation.
+
+    ``Tensor.cpu()`` blocks until the producing kernels are done, so no
+    separate ``torch.cuda.synchronize`` is needed.
+    """
+    _SYNC.inc()
+    return tuple(t.detach().cpu().numpy() for t in tensors)
+
+
+def sync_count() -> int:
+    """Number of ``device_fetch`` calls since the last reset."""
+    return _SYNC.value
+
+
+def reset_sync_count() -> None:
+    """Zero the sync counter (tests/benchmarks bracket a measured region)."""
+    _SYNC.reset()
