@@ -3,19 +3,29 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain torch version on the card, then drives the scheduler end
-to end and holds its plans and float64 metrics against the golden file the
-JAX reference wrote (``tests/fixtures/torch_port_golden.json``).  It imports
-neither JAX nor the reference package.  Phases, each printed as it runs:
+to end, with the host beam (``algo="beam"``) and with the fused device
+search (``algo="beam_jax"``), and holds its plans and float64 metrics
+against the golden file the JAX reference wrote
+(``tests/fixtures/torch_port_golden.json``).  It imports neither JAX nor
+the reference package.  Phases, each printed as it runs:
 
-1. card: ``nvidia-smi`` name and power limit, library versions, kernel build
-2. kernel: ``scar_eval`` against ``scar_eval_plain`` over a sweep of shapes
-   and on the packed inputs of the largest 16x16 production batch, with
-   CUDA-event times of both and the card's bound for the same work
+1. card: ``nvidia-smi`` name, power limit and SM clock, library versions,
+   kernel builds (one ``nvcc`` per source, all at once)
+2. kernels: ``scar_eval`` against ``scar_eval_plain`` over a sweep of
+   shapes and on the packed inputs of the largest 16x16 production batch;
+   ``scar_search`` against ``conflict_counts_plain`` over a sweep and on
+   the screen inputs of the 16x16 fused run's largest beam stage; CUDA-event
+   and profiler times and the card's bound for the same work
 3. paper package: the ten Table II scenarios on the 6x6 ``het_cross`` MCM,
-   under ``eval_backend="auto"`` (as the golden file was made) and with
-   every batch on the kernel (``eval_backend="cuda"``)
+   under ``eval_backend="auto"`` (as the golden file was made), with every
+   batch on the kernel (``eval_backend="cuda"``), and with
+   ``algo="beam_jax"`` (one fetch per window)
 4. production size: ``dc4_lms_seg_image`` on the 16x16 ``het_cb`` pod at
-   ``path_cap=1024`` under ``eval_backend="auto"``
+   ``path_cap=1024``, with ``algo="beam"`` under ``auto`` and with
+   ``algo="beam_jax"``; each run counts its kernel launches from zero.  One
+   window's fused program runs under ``torch.cuda.set_sync_debug_mode
+   ("error")``, so a hidden sync raises; traced span breakdowns of both
+   paths and the fused run's device time from ``torch.profiler``
 5. summary: one JSON line of per-kernel numbers
 6. last line: ``{"ok": true, "device": {...}}``
 
@@ -47,6 +57,12 @@ SWEEP_B = (1, 127, 128, 7872, 65536)
 SWEEP_LW = (1, 11, 56, 80, 300)
 SWEEP_S = (1, 6, 8)
 SWEEP_C = (2, 3)
+SEARCH_BM = (1, 48, 64)
+SEARCH_N = (1, 255, 2048, 2049, 65536)
+SEARCH_W = (2, 8)
+POPC_PER_CLOCK_PER_SM = 16      # 32-bit population count, compute 9.0
+H100_SMS = 132
+PROD_KEY = "het_cb_16x16_cap1024/dc4_lms_seg_image"
 # Scenarios whose all-float32 run (eval_backend="cuda") breaks an exact tie
 # in the beam the other way: an equal-metric plan (ROADMAP.md, "Faults found
 # in the port"; tests/test_torch_schedule.py pins the same on the CPU).
@@ -159,6 +175,136 @@ def bound_ms(args) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def search_bound_ms(beam, cand, sm_clock_hz) -> tuple[float, str]:
+    """``scar_search``'s least time: its words read once and counts
+    written once, against its ``Bm * N * W`` popcounts at 16 per clock per
+    SM on 132 SMs at the card's maximum SM clock."""
+    bm, w = beam.shape
+    n = cand.shape[0]
+    t_bytes = 4 * (bm * w + n * w + bm * n) / HBM_BYTES_PER_S * 1e3
+    t_ops = bm * n * w / (POPC_PER_CLOCK_PER_SM * H100_SMS
+                          * sm_clock_hz) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def random_words(rows, w, seed, dev):
+    """Seeded int32-held uint32 words on the card: dense, sparse (ANDs of
+    three draws), and an all-zero and an all-ones row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw():
+        return torch.randint(-2 ** 31, 2 ** 31, (rows, w), generator=g,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+    dense = draw()
+    sparse = dense & draw() & draw()
+    pick = torch.rand((rows, 1), generator=g, device=dev) < 0.5
+    out = torch.where(pick, dense, sparse)
+    out[0] = 0
+    if rows > 1:
+        out[1] = -1
+    return out.contiguous()
+
+
+def largest_screen(case, dev):
+    """The ``(beam words, candidate words)`` of the largest beam stage
+    (by ``Bm * N``) of the fused 16x16 run, recorded from the stage's
+    ``conflict_counts`` call in a run of its own."""
+    from repro_torch.core import device_search, get_scenario, make_mcm
+    from repro_torch.core import schedule
+    from repro_torch.core.scheduler import SearchConfig
+    seen = {}
+    real = device_search.conflict_counts
+
+    def record(beam, cand, *, use_kernel):
+        if beam.shape[0] * cand.shape[0] > seen.get("size", -1):
+            seen.update(size=beam.shape[0] * cand.shape[0],
+                        args=(beam.clone(), cand.clone()))
+        return real(beam, cand, use_kernel=use_kernel)
+
+    device_search.conflict_counts = record
+    try:
+        schedule(get_scenario(case["scenario"]),
+                 make_mcm(case["pattern"], rows=case["rows"],
+                          cols=case["cols"], n_pe=case["n_pe"]),
+                 SearchConfig(path_cap=case["path_cap"], algo="beam_jax"),
+                 device=dev)
+    finally:
+        device_search.conflict_counts = real
+    return seen["args"]
+
+
+def span_totals(run) -> str:
+    """Seconds by span name of one traced ``run()`` (nested spans
+    overlap)."""
+    from repro_torch import obs
+    obs.enable()
+    try:
+        run()
+        totals: dict[str, float] = {}
+        for ev in obs.tracer().events:
+            if "dur" in ev:
+                totals[ev["name"]] = totals.get(ev["name"], 0.0) + ev["dur"]
+    finally:
+        obs.disable()
+    return ", ".join(f"{k} {v:.4f}" for k, v in
+                     sorted(totals.items(), key=lambda kv: -kv[1]))
+
+
+def device_time_of(run) -> tuple[float, float, list]:
+    """``(wall s, device-busy s, top kernels)`` of one ``run()`` under
+    ``torch.profiler``: the sum of the device's own events (kernels,
+    copies, memsets) and the five largest by total time.  The profiler
+    slows the host, so the wall time here is longer than unprofiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:    # host-side operator rows
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        rows.append((ev.key[:60], ev.count, dev_us / 1e6))
+    rows.sort(key=lambda r: -r[2])
+    return wall, sum(r[2] for r in rows), rows[:5]
+
+
+def fused_window_without_sync(case, dev) -> None:
+    """Window 0 of the 16x16 fused run: upload its inputs, then run its
+    device program with synchronising CUDA calls turned into errors."""
+    from repro_torch.core import device_search, get_scenario, make_mcm
+    from repro_torch.core.engine import DeviceBeamEngine
+    from repro_torch.core.reconfig import greedy_pack
+    from repro_torch.core.scheduler import SearchConfig, get_cost_db
+    from repro_torch.launch import platform
+    cfg = SearchConfig(path_cap=case["path_cap"], algo="beam_jax")
+    mcm = make_mcm(case["pattern"], rows=case["rows"], cols=case["cols"],
+                   n_pe=case["n_pe"])
+    db = get_cost_db(get_scenario(case["scenario"]), mcm)
+    ranges = greedy_pack(db, mcm.class_counts(), cfg.n_splits).ranges[0]
+    engine = DeviceBeamEngine(beam=cfg.beam, device=dev)
+    inputs, built, n_pad = engine.window_inputs(db, mcm, cfg, ranges, {})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = device_search.fused_program(
+            inputs, beam=cfg.beam, keep=cfg.keep_per_model,
+            metric=cfg.metric, max_exp=engine.max_expansions, n_pad=n_pad,
+            use_kernel=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    fails = platform.device_fetch(out[-1])[0]
+    check(not fails.any(), "the window program found no disjoint placement")
+    print(f"window 0 ({len(built)} models, n_pad {n_pad}): fused program "
+          "ran under set_sync_debug_mode('error') with no sync")
+
+
 def golden_record(outcome) -> dict:
     return {
         "plans": [[[p.model_idx, list(p.seg_ends), list(p.chiplets)]
@@ -244,7 +390,8 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device; nothing to measure")
     from repro_torch.kernels import build
     from repro_torch.kernels.scar_eval import scar_eval, scar_eval_plain
-    from repro_torch import obs
+    from repro_torch.kernels.scar_search import (conflict_counts_plain,
+                                                 scar_search)
     from repro_torch.core import SearchConfig
     from repro_torch.core.scheduler import clear_caches
     from repro_torch.launch import platform
@@ -256,20 +403,26 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    sm_clock_hz = float(clock) * 1e6
+    print(f"max SM clock {clock} MHz")
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  numpy {np.__version__}  "
           f"device {torch.cuda.get_device_name(0)}")
     check(hasattr(np, "bitwise_count"),
           "numpy lacks bitwise_count (engine.batched_fitness needs >= 2.0)")
     t0 = time.perf_counter()
-    build.build(["scar_eval"])
+    build.build(["scar_eval", "scar_search"])
     print(f"kernel build {time.perf_counter() - t0:.3f} s "
           f"(nvcc: {build.build_seconds})")
     for name, log in build.build_log.items():
         for line in log.strip().splitlines():
             print(f"  [{name}] {line}")
 
-    phase("2 kernel: scar_eval vs scar_eval_plain")
+    phase("2a kernel: scar_eval vs scar_eval_plain")
     worst = 0.0
     n_cases = 0
     for B in SWEEP_B:
@@ -284,8 +437,7 @@ def main() -> None:
                         n_cases += 1
     print(f"sweep: {n_cases} cases, max |kernel - plain| = {worst!r}")
     golden = json.loads(GOLDEN.read_text())["cases"]
-    prod_key = "het_cb_16x16_cap1024/dc4_lms_seg_image"
-    batches = production_batches(golden[prod_key], dev)
+    batches = production_batches(golden[PROD_KEY], dev)
     big = max(batches, key=lambda p: p.seg_cls.shape[0] * p.lat_tab.shape[0])
     real_err = compare(big[:7], big.pipelined, scar_eval, scar_eval_plain)
     worst = max(worst, real_err)
@@ -306,57 +458,139 @@ def main() -> None:
               f"S={p.seg_cls.shape[1]}: kernel {ms:.6f} ms, bound "
               f"{bound_ms(p[:7])[0]:.6f} ms")
 
-    phase("3 paper package: ten scenarios, 6x6 het_cross, auto and cuda")
-    for backend in ("auto", "cuda"):
+    phase("2b kernel: scar_search vs conflict_counts_plain")
+    n_cases = 0
+    for bm in SEARCH_BM:
+        for n in SEARCH_N:
+            for w in SEARCH_W:
+                beam = random_words(bm, w, 2 * n_cases, dev)
+                cand = random_words(n, w, 2 * n_cases + 1, dev)
+                out = scar_search(beam, cand)
+                plain = conflict_counts_plain(beam, cand)
+                torch.cuda.synchronize()
+                check(torch.equal(out, plain),
+                      f"scar_search disagrees at Bm={bm} N={n} W={w}")
+                n_cases += 1
+    print(f"sweep: {n_cases} cases (Bm {SEARCH_BM}, N {SEARCH_N}, W "
+          f"{SEARCH_W}), kernel == plain on all")
+    s_beam, s_cand = largest_screen(golden[PROD_KEY], dev)
+    s_out = scar_search(s_beam, s_cand)
+    s_plain = conflict_counts_plain(s_beam, s_cand)
+    torch.cuda.synchronize()
+    check(torch.equal(s_out, s_plain),
+          "scar_search disagrees on the 16x16 screen inputs")
+    s_err = float((s_out - s_plain).abs().max().item())
+    s_ms = cuda_ms(lambda: scar_search(s_beam, s_cand))
+    s_p_ms = cuda_ms(lambda: conflict_counts_plain(s_beam, s_cand))
+    s_dev_ms = profiled_device_ms(lambda: scar_search(s_beam, s_cand),
+                                  "scar_search")
+    s_b_ms, s_b_by = search_bound_ms(s_beam, s_cand, sm_clock_hz)
+    print(f"largest 16x16 beam stage Bm={s_beam.shape[0]} "
+          f"N={s_cand.shape[0]} W={s_beam.shape[1]}: kernel == plain; per "
+          f"call (CUDA events, median of 25): kernel {s_ms:.6f} ms, plain "
+          f"{s_p_ms:.6f} ms; kernel device time (profiler) {s_dev_ms!r} ms;"
+          f" bound {s_b_ms:.6f} ms ({s_b_by}) on {smi}; torch has "
+          f"bitwise_count: {hasattr(torch, 'bitwise_count')}")
+
+    phase("3 paper package: ten scenarios, 6x6 het_cross, auto, cuda, "
+          "beam_jax")
+    for backend, algo in (("auto", "beam"), ("cuda", "beam"),
+                          ("auto", "beam_jax")):
         clear_caches()
         scar_eval.launches = 0
+        scar_search.launches = 0
         for key, case in golden.items():
             if not key.startswith("het_cross_6x6/"):
                 continue
             exact = backend == "auto" or \
                 case["scenario"] not in F32_TIE_SCENARIOS
+            platform.reset_sync_count()
             out, wall = run_case(case, SearchConfig(
-                path_cap=case["path_cap"], eval_backend=backend), dev,
-                exact_plans=exact)
-            print(f"  {backend} {case['scenario']}: edp {out.edp!r} = "
-                  f"golden{'' if exact else ' (plans: known float32 tie)'}, "
-                  f"{wall:.3f} s")
-        check(scar_eval.launches > 0, f"the {backend} runs launched no kernel")
-        print(f"{backend}: scar_eval launches {scar_eval.launches}")
+                path_cap=case["path_cap"], eval_backend=backend, algo=algo),
+                dev, exact_plans=exact)
+            syncs = platform.sync_count()
+            if algo == "beam_jax":
+                check(syncs == len(out.windows),
+                      f"{case['scenario']}: {syncs} fetches for "
+                      f"{len(out.windows)} windows")
+            print(f"  {algo} {backend} {case['scenario']}: edp {out.edp!r} "
+                  f"= golden{'' if exact else ' (plans: known float32 tie)'}"
+                  f", {wall:.3f} s, {syncs} fetches")
+        check(scar_eval.launches > 0, f"the {algo} {backend} runs launched "
+              "no scar_eval kernel")
+        if algo == "beam_jax":
+            check(scar_search.launches > 0, "the beam_jax runs launched no "
+                  "scar_search kernel")
+        print(f"{algo} {backend}: scar_eval launches {scar_eval.launches}, "
+              f"scar_search launches {scar_search.launches}")
 
-    phase("4 production size: dc4, 16x16 het_cb, path_cap=1024, auto")
-    case = golden[prod_key]
-    clear_caches()
-    platform.reset_sync_count()
-    scar_eval.launches = 0
-    out, wall = run_case(case, SearchConfig(path_cap=case["path_cap"]), dev)
-    launches = scar_eval.launches
-    syncs = platform.sync_count()
-    check(launches >= 10, f"only {launches} scar_eval launches on the "
-          "16x16 run (want >= 10, the batches above the auto threshold)")
-    print(f"edp {out.edp!r} = golden; wall {wall:.3f} s; scar_eval "
-          f"launches {launches}; device_fetch syncs {syncs}")
-    # a second, traced run: where the host's time goes, by span name
-    obs.enable()
-    clear_caches()
-    run_case(case, SearchConfig(path_cap=case["path_cap"]), dev)
-    totals: dict[str, float] = {}
-    for ev in obs.tracer().events:
-        if "dur" in ev:
-            totals[ev["name"]] = totals.get(ev["name"], 0.0) + ev["dur"]
-    obs.disable()
-    print("traced run, seconds by span (nested spans overlap): " + ", ".join(
-        f"{k} {v:.4f}" for k, v in sorted(totals.items(),
-                                           key=lambda kv: -kv[1])))
+    phase("4 production size: dc4, 16x16 het_cb, path_cap=1024, beam and "
+          "beam_jax")
+    case = golden[PROD_KEY]
+    launches = {}
+    walls = {}
+    for algo in ("beam", "beam_jax"):
+        cfg = SearchConfig(path_cap=case["path_cap"], algo=algo)
+        clear_caches()
+        platform.reset_sync_count()
+        scar_eval.launches = 0
+        scar_search.launches = 0
+        out, walls[algo] = run_case(case, cfg, dev)
+        launches[algo] = {"scar_eval": scar_eval.launches,
+                          "scar_search": scar_search.launches}
+        syncs = platform.sync_count()
+        print(f"{algo}: edp {out.edp!r} = golden; wall {walls[algo]:.3f} s;"
+              f" launches {launches[algo]}; device_fetch syncs {syncs}")
+        if algo == "beam":
+            check(launches[algo]["scar_eval"] >= 10,
+                  f"only {launches[algo]['scar_eval']} scar_eval launches "
+                  "on the 16x16 beam run (want >= 10, the batches above the "
+                  "auto threshold)")
+        else:
+            check(syncs == 5, f"{syncs} fetches on the 16x16 beam_jax run "
+                  "(want one per window: 5)")
+            check(launches[algo]["scar_eval"] >= 11,
+                  f"only {launches[algo]['scar_eval']} scar_eval launches "
+                  "on the 16x16 beam_jax run (want >= 11, every batch)")
+            check(launches[algo]["scar_search"] > 0,
+                  "the 16x16 beam_jax run launched no scar_search kernel")
+    print(f"16x16 wall: beam {walls['beam']:.3f} s, beam_jax "
+          f"{walls['beam_jax']:.3f} s")
+    fused_window_without_sync(case, dev)
+    for algo in ("beam", "beam_jax"):
+        cfg = SearchConfig(path_cap=case["path_cap"], algo=algo)
+        clear_caches()
+        print(f"traced {algo} run, seconds by span (nested spans overlap): "
+              + span_totals(lambda: run_case(case, cfg, dev)))
+    for algo in ("beam", "beam_jax"):
+        cfg = SearchConfig(path_cap=case["path_cap"], algo=algo)
+        clear_caches()
+        wall, busy, top = device_time_of(lambda: run_case(case, cfg, dev))
+        print(f"profiled {algo} run: wall {wall:.4f} s, device busy "
+              f"{busy:.6f} s ({100 * busy / wall:.2f}%), top by device time:"
+              + "; ".join(f" {k} x{c} {t:.6f} s" for k, c, t in top))
 
     phase("5 summary")
     print(json.dumps({"kernels": [{
         "name": "scar_eval", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scar_eval.cu",
         "replaces": "src/repro/kernels/scar_eval/kernel.py:64",
-        "launches": launches, "max_abs_err": worst, "ms": k_ms,
+        "launches": launches["beam_jax"]["scar_eval"],
+        "max_abs_err": worst, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "device_ms": dev_ms}]}))
+        "library_ms": None, "device_ms": dev_ms,
+        "launches_by_path": {a: launches[a]["scar_eval"] for a in launches},
+    }, {
+        "name": "scar_search", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/scar_search.cu",
+        "replaces": "src/repro/kernels/scar_search/kernel.py:37",
+        "launches": launches["beam_jax"]["scar_search"],
+        "max_abs_err": s_err, "ms": s_ms,
+        "plain_ms": s_p_ms, "bound_ms": s_b_ms, "bound_by": s_b_by,
+        "library_ms": None, "device_ms": s_dev_ms,
+        "launches_by_path": {a: launches[a]["scar_search"]
+                             for a in launches},
+    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

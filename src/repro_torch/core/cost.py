@@ -334,6 +334,28 @@ def segment_reductions(seg_id: np.ndarray, n_segs: np.ndarray,
     return seg_w, seg_last_out
 
 
+def _per_bandwidth(pkg, fdt: torch.dtype, device: torch.device):
+    """``(sz -> sz / dram_bw, sz -> sz / nop_bw)`` in the reference's
+    rounding for ``fdt``.
+
+    Float64 divides, as the numpy oracle does.  Float32 multiplies by the
+    float32 reciprocal (``float32(1) / float32(bw)``), as the reference's
+    compiled float32 program does: XLA rewrites division by a constant
+    that way.  Both operands are device tensors: CUDA divides by a Python
+    scalar through its reciprocal, which is not the IEEE quotient the CPU
+    computes.
+    """
+    def const(v):
+        return torch.tensor(v, dtype=fdt, device=device)
+
+    if fdt == torch.float32:
+        inv_dram = const(np.float32(1) / np.float32(pkg.dram_bw))
+        inv_nop = const(np.float32(1) / np.float32(pkg.nop_bw))
+        return (lambda sz: sz * inv_dram), (lambda sz: sz * inv_nop)
+    dram_bw, nop_bw = const(pkg.dram_bw), const(pkg.nop_bw)
+    return (lambda sz: sz / dram_bw), (lambda sz: sz / nop_bw)
+
+
 def comm_from_parts(pkg, cols: int, cpos: torch.Tensor, seg_w: torch.Tensor,
                     seg_last_out: torch.Tensor, n_segs: torch.Tensor,
                     n_active: int, act_in: float,
@@ -368,19 +390,16 @@ def comm_from_parts(pkg, cols: int, cpos: torch.Tensor, seg_w: torch.Tensor,
     delta_nop = pkg.contention_delta * max(0, n_active - 1) / pkg.nop_bw
     delta_dram = pkg.contention_delta * max(0, n_active - 1) / pkg.dram_bw
     zero = torch.zeros((), dtype=fdt, device=seg_w.device)
-    # divisors as device tensors: CUDA divides by a Python scalar through
-    # its reciprocal, which is not the IEEE quotient the CPU computes
-    dram_bw = torch.tensor(pkg.dram_bw, dtype=fdt, device=seg_w.device)
-    nop_bw = torch.tensor(pkg.nop_bw, dtype=fdt, device=seg_w.device)
+    per_dram, per_nop = _per_bandwidth(pkg, fdt, seg_w.device)
 
     def dram_lat(sz, hops):
         return torch.where(sz > 0,
-                           sz / dram_bw + hops * pkg.nop_hop_lat_s
+                           per_dram(sz) + hops * pkg.nop_hop_lat_s
                            + pkg.dram_lat_s + delta_dram * sz, zero)
 
     def nop_lat(sz, hops):
         return torch.where((sz > 0) & (hops > 0),
-                           sz / nop_bw + hops * pkg.nop_hop_lat_s
+                           per_nop(sz) + hops * pkg.nop_hop_lat_s
                            + delta_nop * sz, zero)
 
     def dram_e(sz, hops):

@@ -2,8 +2,8 @@
 
 SCAR's hot path is window combination: pick one scored placement candidate
 per model subject to exclusive chiplet occupancy.  The port keeps the
-reference's host numpy engines, which are bit-identical to its Python
-oracle:
+reference's engines, each bit-identical to its Python oracle where the
+reference's is:
 
 * ``CandidateTensors`` packs a window's per-model ``ModelCandidateSet`` list
   into ``[M, N, W]`` uint64 occupancy-mask words plus ``[M, N]`` latency /
@@ -13,19 +13,27 @@ oracle:
 * ``BeamEngine`` is the vectorized beam search: beam x candidate
   disjointness via one broadcast ``mask & masks == 0`` pass, stable top-k
   via ``argsort``.  It reproduces ``reference_combine`` bit-identically.
+* ``DeviceBeamEngine`` (``algo="beam_jax"``) moves the window search onto
+  the device (``core.device_search``): scoring, disjointness screening
+  (the ``scar_search`` kernel), beam expansion and top-k run between one
+  upload and one fetch per window.  Its protocol-form ``combine`` is
+  bit-identical to ``reference_combine`` in float64.
 
 ``get_engine`` maps ``SearchConfig.algo`` to an engine.  The reference's
-device beam (``beam_jax``) and its stochastic engines (``evolutionary``,
-``anneal``) are not ported yet and raise ``NotImplementedError``.
+stochastic engines (``evolutionary``, ``anneal``) are not ported yet and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Protocol
+from typing import Optional, Protocol
 
 import numpy as np
+import torch
 
 from repro_torch import obs
+from repro_torch.launch import platform
+from repro_torch.launch.platform import resolve_device
 
 from .chiplet import MCM
 from .cost import ModelWindowPlan, WindowPlan, WindowResult, evaluate_window
@@ -369,25 +377,254 @@ def reference_combine(db: CostDB, mcm: MCM, sets: list[ModelCandidateSet],
     return WindowSearchResult(plan=plan, result=result, explored=explored)
 
 
+# ---------------------------------------------------------------------------
+# Whole-search-on-device beam
+# ---------------------------------------------------------------------------
+
+def _raise_no_disjoint(model_idx: int, n_cands: int):
+    # the exact BeamEngine / reference_combine failure contract
+    raise RuntimeError(
+        f"no disjoint placement for model {model_idx} even "
+        f"after scanning all {n_cands} candidates; "
+        f"increase path_cap or reduce provisioned nodes")
+
+
+def _backtrack(parents: np.ndarray, cands: np.ndarray) -> np.ndarray:
+    """Per-stage picks of beam row 0 from the device scan's link tables.
+
+    Walks the ([M, beam] each) (parent, cand) links backwards from the
+    best final beam item.
+    """
+    m = parents.shape[0]
+    picks = np.zeros(m, dtype=np.int64)
+    row = 0
+    for st in range(m - 1, -1, -1):
+        picks[st] = cands[st, row]
+        row = int(parents[st, row])
+    return picks
+
+
+def _explored(tlats: np.ndarray, tes: np.ndarray,
+              counts: np.ndarray) -> list[tuple[float, float]]:
+    """Per-stage (lat, energy) cloud, first ``counts[m]`` beam rows each.
+
+    The rows past a stage's live count are top-k filler.
+    """
+    explored: list[tuple[float, float]] = []
+    for m in range(tlats.shape[0]):
+        n = int(counts[m])
+        explored.extend(zip(tlats[m, :n].tolist(), tes[m, :n].tolist()))
+    return explored
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceBeamEngine:
+    """Beam search whose window combine runs on the device.
+
+    Two entry points share ``core.device_search.beam_scan``:
+
+    * ``combine`` — the ``SearchEngine`` protocol form.  Consumes
+      host-scored candidate sets and runs the *combination*
+      (disjointness screen via the ``kernels.scar_search`` kernel,
+      keep/budget accounting, beam expansion, top-k) on the device in
+      float64, with the reference's exact IEEE operations and its
+      lowest-index tie rule, so plans, metrics and the explored cloud are
+      bit-identical to ``reference_combine``.
+    * ``combine_window`` — the fused form ``scheduler.schedule`` routes
+      ``algo="beam_jax"`` through.  The host constructs candidates (PROV +
+      SEG + tensor assembly) and uploads them; scoring (``scar_eval``),
+      quantised (tier, score) candidate ordering, model ordering, the beam
+      scan and top-k then run on the device in float32, and the window's
+      result returns in one counted ``launch.platform.device_fetch``.  The
+      final plan is re-scored and validated by the float64 host accounting
+      (``evaluate_window``), so reported metrics stay exact.
+
+    ``device`` is where both run (CUDA unless the caller asks for the
+    CPU).  ``use_kernel=None`` launches the CUDA kernels on a CUDA device
+    and runs their plain torch versions on the CPU; ``True`` on the CPU
+    raises.
+    """
+
+    beam: int = 64
+    max_expansions: int = 20000
+    use_kernel: Optional[bool] = None
+    comm_model: str = "analytic"
+    device: Optional[str | torch.device] = None
+
+    def _setup(self) -> tuple[torch.device, bool]:
+        dev = resolve_device(self.device)
+        if self.use_kernel is None:
+            return dev, dev.type == "cuda"
+        if self.use_kernel and dev.type != "cuda":
+            raise RuntimeError("use_kernel=True needs a CUDA device; the "
+                               f"engine runs on {dev}")
+        return dev, self.use_kernel
+
+    def combine(self, db: CostDB, mcm: MCM, sets: list[ModelCandidateSet],
+                prev_end: dict[int, int],
+                metric: str = "edp") -> WindowSearchResult:
+        from . import device_search as ds
+
+        dev, use_kernel = self._setup()
+        sets = sorted(sets, key=lambda s: -float(np.min(s.lat)))
+        n_words = max(1, (mcm.n_chiplets + 63) // 64)
+        m_models = len(sets)
+        n_pad = ds.bucket_size(max(cs.n_cands for cs in sets))
+        masks = np.zeros((m_models, n_pad, 2 * n_words), dtype=np.uint32)
+        lat = np.full((m_models, n_pad), np.inf)
+        energy = np.full((m_models, n_pad), np.inf)
+        valid = np.zeros((m_models, n_pad), dtype=bool)
+        keeps = np.zeros(m_models, dtype=np.int64)
+        for m, cs in enumerate(sets):
+            n = cs.n_cands
+            masks[m, :n] = ds.split_words_u32(cs.words(n_words))
+            lat[m, :n] = cs.lat
+            energy[m, :n] = cs.energy
+            valid[m, :n] = True
+            keeps[m] = cs.keep
+        with obs.span("device_combine", cat="engine", engine="beam_jax",
+                      models=m_models, n_pad=n_pad):
+            out = ds.beam_scan(
+                tuple(torch.from_numpy(a).to(dev) for a in
+                      (masks.view(np.int32), lat, energy, valid, keeps)),
+                beam=self.beam, metric=metric, max_exp=self.max_expansions,
+                use_kernel=use_kernel)
+            # the single host transfer of the whole combination
+            parents, cands, tlats, tes, counts, fails = \
+                platform.device_fetch(*out)
+        failed = np.flatnonzero(fails)
+        if failed.size:
+            cs = sets[int(failed[0])]
+            _raise_no_disjoint(cs.model_idx, cs.n_cands)
+        plan = _plans_from_picks(sets, _backtrack(parents, cands))
+        result = evaluate_window(db, mcm, plan, prev_end, validate=True,
+                                 comm_model=self.comm_model)
+        return WindowSearchResult(plan=plan, result=result,
+                                  explored=_explored(tlats, tes, counts))
+
+    def window_inputs(self, db: CostDB, mcm: MCM, cfg,
+                      ranges: dict[int, tuple[int, int]],
+                      prev_end: dict[int, int]) -> tuple[list, list, int]:
+        """Host half of ``combine_window``: build and upload one window.
+
+        PROV + SEG + candidate assembly on the host, then every input of
+        the window's device program copied to the device (these copies
+        block the host; the program itself then makes no sync).  Returns
+        ``(inputs, built, n_pad)``: ``fused_program``'s per-model inputs,
+        the per-model ``(cand, chips, seg_arr)`` host arrays the plan is
+        rebuilt from, and the padded candidate width.
+        """
+        from repro_torch.kernels.scar_eval import pack_candidates
+
+        from . import device_search as ds
+        from .provision import provision
+        from .quantize import pow10_table
+        from .sched import assemble_candidates
+        from .segmentation import top_k_segmentations
+
+        dev, _ = self._setup()
+        alloc = provision(db, mcm.class_counts(), ranges, mcm.n_chiplets,
+                          metric=cfg.metric,
+                          max_nodes_per_model=cfg.max_nodes_per_model)
+        n_active = len(ranges)
+        inputs, built = [], []
+        for mi, (s, e) in sorted(ranges.items()):
+            with obs.span("window_build", cat="engine", model=mi,
+                          layers=e - s):
+                segs = top_k_segmentations(db, mcm, s, e, alloc[mi],
+                                           k=cfg.seg_top_k, cap=cfg.seg_cap,
+                                           metric=cfg.metric)
+                cand, tiers, (words, chips, seg_arr) = assemble_candidates(
+                    mcm, mi, (s, e), segs, prev_end.get(mi),
+                    path_cap=cfg.path_cap, frontier_cap=cfg.frontier_cap)
+                packed = pack_candidates(db, mcm, cand, n_active,
+                                         prev_end=prev_end.get(mi),
+                                         device=dev)
+                w32 = ds.split_words_u32(words).view(np.int32)
+                inputs.append((packed, torch.from_numpy(w32).to(dev),
+                               torch.from_numpy(
+                                   tiers.astype(np.int32)).to(dev)))
+                built.append((cand, chips, seg_arr))
+        pow10_table(dev, torch.float32)      # the quantiser's table
+        n_pad = ds.bucket_size(max(i[1].shape[0] for i in inputs))
+        return inputs, built, n_pad
+
+    def combine_window(self, db: CostDB, mcm: MCM, cfg,
+                       ranges: dict[int, tuple[int, int]],
+                       prev_end: dict[int, int],
+                       metric: Optional[str] = None) -> WindowSearchResult:
+        metric = metric or cfg.metric
+        with obs.span("combine_window", cat="engine", engine="beam_jax",
+                      models=len(ranges), beam=self.beam):
+            return self._combine_window(db, mcm, cfg, ranges, prev_end,
+                                        metric)
+
+    def _combine_window(self, db: CostDB, mcm: MCM, cfg,
+                        ranges: dict[int, tuple[int, int]],
+                        prev_end: dict[int, int],
+                        metric: str) -> WindowSearchResult:
+        from . import device_search as ds
+
+        _, use_kernel = self._setup()
+        inputs, built, n_pad = self.window_inputs(db, mcm, cfg, ranges,
+                                                  prev_end)
+        with obs.span("device_combine", cat="engine", engine="beam_jax",
+                      models=len(inputs), n_pad=n_pad):
+            out = ds.fused_program(
+                inputs, beam=self.beam, keep=int(cfg.keep_per_model),
+                metric=metric, max_exp=self.max_expansions, n_pad=n_pad,
+                use_kernel=use_kernel,
+                congestion=self.comm_model == "congestion")
+            # the single counted host transfer of the whole window search
+            (morder, parents, cands, tlats, tes,
+             counts, fails) = platform.device_fetch(*out)
+        failed = np.flatnonzero(fails)
+        if failed.size:
+            cand = built[int(morder[int(failed[0])])][0]
+            _raise_no_disjoint(cand.model_idx, cand.seg_id.shape[0])
+        picks = _backtrack(parents, cands)
+        plans = []
+        for st in range(len(built)):
+            cand, chips, seg_arr = built[int(morder[st])]
+            # the scan emits assembled-candidate row indices directly
+            r = int(picks[st])
+            ns = int(cand.n_segs[r])
+            plans.append(ModelWindowPlan(
+                model_idx=cand.model_idx, start=cand.start, end=cand.end,
+                seg_ends=tuple(int(x) for x in seg_arr[r, :ns]),
+                chiplets=tuple(int(c) for c in chips[r, :ns]),
+                pipelined=True))
+        plan = WindowPlan(plans=tuple(sorted(plans,
+                                             key=lambda p: p.model_idx)))
+        result = evaluate_window(db, mcm, plan, prev_end, validate=True,
+                                 comm_model=self.comm_model)
+        return WindowSearchResult(plan=plan, result=result,
+                                  explored=_explored(tlats, tes, counts))
+
+
 # Engines of the reference that this port has not reached yet, with the
 # ROADMAP.md item each waits on.
 _UNPORTED_ALGOS = {
-    "beam_jax": "queue 1 item 7 (fused device search and scar_search)",
     "evolutionary": "queue 1 item 6b (EvolutionaryEngine)",
     "anneal": "queue 1 item 6b (AnnealEngine)",
 }
 
 
-def get_engine(cfg, seed: int = 0) -> SearchEngine:
+def get_engine(cfg, seed: int = 0,
+               device: Optional[str | torch.device] = None) -> SearchEngine:
     """Engine factory keyed on ``SearchConfig.algo``.
 
-    ``brute`` and ``beam`` select the host ``BeamEngine``.  ``seed`` is the
-    per-window seed of the stochastic engines, which are not ported yet.
+    ``brute`` and ``beam`` select the host ``BeamEngine``, ``beam_jax`` the
+    ``DeviceBeamEngine`` on ``device``.  ``seed`` is the per-window seed of
+    the stochastic engines, which are not ported yet.
     """
     algo = cfg.algo
+    comm_model = getattr(cfg, "comm_model", "analytic")
     if algo in ("brute", "beam"):
-        return BeamEngine(beam=cfg.beam,
-                          comm_model=getattr(cfg, "comm_model", "analytic"))
+        return BeamEngine(beam=cfg.beam, comm_model=comm_model)
+    if algo == "beam_jax":
+        return DeviceBeamEngine(beam=cfg.beam, comm_model=comm_model,
+                                device=device)
     if algo in _UNPORTED_ALGOS:
         raise NotImplementedError(
             f"algo={algo!r} is not ported yet (ROADMAP.md "

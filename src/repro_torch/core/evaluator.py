@@ -100,3 +100,19 @@ def eval_candidates(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
         (out,) = platform.device_fetch(
             scar_eval_ops.evaluate(packed, use_kernel=(resolved == "cuda")))
     return out[:, 0].astype(np.float64), out[:, 1].astype(np.float64)
+
+
+def traceable_scores(packed: scar_eval_ops.PackedCandidates, *,
+                     use_kernel: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(lat[B], energy[B])`` float32 tensors on the batch's device.
+
+    The counterpart of the reference's in-jit ``traceable_scores``: the
+    fused device search (``core.device_search.fused_program``) scores each
+    model's ``pack_candidates`` batch with it and keeps the scores on the
+    device, so nothing is fetched.  ``use_kernel`` launches the
+    ``scar_eval`` kernel (the engine sets it on a CUDA device), else its
+    plain version runs.  ``SearchConfig.eval_backend`` does not apply: as
+    in the reference, every batch of the fused path is scored in float32.
+    """
+    out = scar_eval_ops.evaluate(packed, use_kernel=use_kernel)
+    return out[:, 0], out[:, 1]

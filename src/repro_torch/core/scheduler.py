@@ -36,8 +36,10 @@ class SearchConfig:
     metric: str = "edp"                 # latency | energy | edp
     n_splits: int = 4                   # paper default (5 windows)
     packing: str = "greedy"             # greedy | uniform (ablation)
-    algo: str = "brute"                 # brute|beam (host numpy BeamEngine);
-    #                                     the reference's beam_jax |
+    algo: str = "brute"                 # brute|beam (host numpy BeamEngine)
+    #                                     | beam_jax (fused device search,
+    #                                     DeviceBeamEngine; the reference's
+    #                                     name); the reference's
     #                                     evolutionary | anneal are not
     #                                     ported yet and raise
     seg_top_k: int = 4
@@ -197,9 +199,9 @@ def build_window_sets(db: CostDB, mcm: MCM, cfg: SearchConfig,
 def check_config(cfg: SearchConfig) -> None:
     """Raise ``NotImplementedError`` for a search this port cannot run yet.
 
-    The reference's device beam, stochastic engines, refinement and
-    congestion model each wait on a ROADMAP.md item; none of them may
-    silently run something else.
+    The reference's stochastic engines, refinement and congestion model
+    (with any engine, ``beam_jax`` included) each wait on a ROADMAP.md
+    item; none of them may silently run something else.
     """
     get_engine(cfg)
     if cfg.refine_iters > 0:
@@ -278,12 +280,21 @@ def _schedule_inner(sc: Scenario, mcm: MCM, cfg: SearchConfig, *,
                 _WIN_MISS.inc()
             with obs.span("window_combine", cat="scheduler", window=w,
                           models=len(ranges)):
-                engine = get_engine(cfg, seed=cfg.seed + w)
-                sets = build_window_sets(db, mcm, cfg, ranges, anchors,
-                                         memo=window_memo,
-                                         memo_base=memo_base, device=device)
-                wr = engine.combine(db, mcm, sets, anchors,
-                                    metric=cfg.metric)
+                engine = get_engine(cfg, seed=cfg.seed + w, device=device)
+                if hasattr(engine, "combine_window"):
+                    # fused device path: PROV + SEG + candidate construction
+                    # stay on the host; scoring, ordering, beam combination
+                    # and top-k run on the device with a single fetch per
+                    # window (engine.DeviceBeamEngine.combine_window)
+                    wr = engine.combine_window(db, mcm, cfg, ranges, anchors,
+                                               metric=cfg.metric)
+                else:
+                    sets = build_window_sets(db, mcm, cfg, ranges, anchors,
+                                             memo=window_memo,
+                                             memo_base=memo_base,
+                                             device=device)
+                    wr = engine.combine(db, mcm, sets, anchors,
+                                        metric=cfg.metric)
             if key is not None:
                 window_memo[key] = wr
         window_results.append(wr)

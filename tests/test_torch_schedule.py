@@ -9,7 +9,8 @@ through its jax_ref form.
 
 The guards pin the no-fallback contract: no device without CUDA raises, the
 ``cuda`` backend on a CPU device raises, and the reference's engines and
-options that are not ported yet raise ``NotImplementedError``.  The import
+options that are not ported yet (the congestion comm model, with the fused
+``beam_jax`` search as with the host beam) raise ``NotImplementedError``.  The import
 guard checks that the port (and ``chip_smoke.py``) import neither ``jax``
 nor ``repro``.
 """
@@ -129,8 +130,9 @@ def test_cuda_backend_on_cpu_raises():
 
 
 @pytest.mark.parametrize("change", [
-    dict(algo="beam_jax"), dict(algo="evolutionary"), dict(algo="anneal"),
-    dict(refine_iters=10), dict(comm_model="congestion")])
+    dict(algo="beam_jax", comm_model="congestion"), dict(algo="evolutionary"),
+    dict(algo="anneal"), dict(refine_iters=10),
+    dict(comm_model="congestion")])
 def test_unported_options_raise(change):
     sc, mcm = small_case()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
