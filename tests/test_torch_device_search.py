@@ -157,6 +157,22 @@ def test_protocol_combine_budget_parity(budget):
         assert_same_window(ours, ref)
 
 
+@pytest.mark.parametrize("metric", ["latency", "energy"])
+def test_protocol_combine_other_metrics(metric):
+    """The scan's score is the metric's own float64 value, not EDP."""
+    for scn in ("xr10_vr_gaming", "dc4_lms_seg_image"):
+        tdb, tmcm, windows = reference_windows(scn)
+        engine = DeviceBeamEngine(beam=48, device="cpu")
+        mcm = R.make_mcm("het_sides", n_pe=n_pe_of(scn))
+        db = ref_get_cost_db(R.get_scenario(scn), mcm)
+        for sets, prev_end, _ in windows:
+            ref = reference_combine(db, mcm, sets, prev_end, metric=metric,
+                                    beam=48)
+            ours = engine.combine(tdb, tmcm, as_port_sets(sets), prev_end,
+                                  metric=metric)
+            assert_same_window(ours, ref)
+
+
 def test_protocol_combine_no_disjoint_failure_matches_reference():
     """Two models whose every candidate needs chiplet 0: the device scan
     flags the second stage and the engine raises the reference's error."""
