@@ -6,8 +6,10 @@ against its plain torch version on the card, then drives the scheduler end
 to end, with the host beam (``algo="beam"``) and with the fused device
 search (``algo="beam_jax"``), and holds its plans and float64 metrics
 against the golden file the JAX reference wrote
-(``tests/fixtures/torch_port_golden.json``).  It imports neither JAX nor
-the reference package.  Phases, each printed as it runs:
+(``tests/fixtures/torch_port_golden.json``); then serves zamba2-2.7b at
+full width and holds reduced zamba2's logits against the reference's
+(``tests/fixtures/torch_lm_golden.npz``).  It imports neither JAX nor the
+reference package.  Phases, each printed as it runs:
 
 1. card: ``nvidia-smi`` name, power limit and SM clock, library versions,
    kernel builds (one ``nvcc`` per source, all at once)
@@ -16,6 +18,15 @@ the reference package.  Phases, each printed as it runs:
    ``scar_search`` against ``conflict_counts_plain`` over a sweep and on
    the screen inputs of the 16x16 fused run's largest beam stage; CUDA-event
    and profiler times and the card's bound for the same work
+2c. ``flash_attention`` against ``attention_plain`` over a sweep (Sq == Skv
+   of 1 to 2048, Sq < Skv with ``q_offset`` and ``kv_len``, head_dim 16 to
+   128, GQA groups 1, 2, 8, causal or not, bf16 and float32) and on the
+   inputs of the full-width zamba2-2.7b prefill's first attention block,
+   with times, the bound, and ``F.scaled_dot_product_attention`` on the
+   same inputs as a yardstick (the port never calls it)
+2d. ``ssd_scan`` against ``ssd_scan_plain`` likewise (chunks 16 to 256, N
+   and P of 16 and 64, q and k broadcast over heads, the running-sum state
+   carry) and on the inputs of the first Mamba-2 block
 3. paper package: the ten Table II scenarios on the 6x6 ``het_cross`` MCM,
    under ``eval_backend="auto"`` (as the golden file was made), with every
    batch on the kernel (``eval_backend="cuda"``), and with
@@ -26,8 +37,17 @@ the reference package.  Phases, each printed as it runs:
    window's fused program runs under ``torch.cuda.set_sync_debug_mode
    ("error")``, so a hidden sync raises; traced span breakdowns of both
    paths and the fused run's device time from ``torch.profiler``
-5. summary: one JSON line of per-kernel numbers
-6. last line: ``{"ok": true, "device": {...}}``
+6. LM serving at full width: ``repro_torch.launch.serve.main`` on
+   zamba2-2.7b, batch 4, prompt 1024, 32 tokens, bf16, greedy: 45
+   ``ssd_scan`` and 9 ``flash_attention`` launches per prefill and none in
+   decode; profiles of one prefill and one decode step; the same prefill
+   with the plain versions on the card, compared on the last-token logits
+   in bf16 (same greedy tokens) and in float32 (within 1e-3)
+7. reference parity: reduced zamba2 in float32 on the card (kernels on,
+   TF32 off) against the logits the JAX reference wrote
+   (``tests/fixtures/torch_lm_golden.npz``)
+8. summary: one JSON line of per-kernel numbers
+9. last line: ``{"ok": true, "device": {...}}``
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without a CUDA device.
@@ -36,6 +56,8 @@ Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -49,8 +71,28 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 GOLDEN = ROOT / "tests" / "fixtures" / "torch_port_golden.json"
+LM_GOLDEN = ROOT / "tests" / "fixtures" / "torch_lm_golden.npz"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12        # H100 SXM, bf16 tensor cores, dense
+# kernel vs plain, elementwise |k - p| <= atol + rtol |p| (tests/test_kernels.py)
+LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# whole-model float32 logits against the reference fixture, as the CPU
+# tests hold them: max |port - reference| <= LM_MODEL_REL * max |reference|
+LM_MODEL_REL = 5e-5
+SERVE_ARGV = ["--arch", "zamba2-2.7b", "--batch", "4", "--prompt-len",
+              "1024", "--gen", "32"]
+FLASH_S = (1, 64, 1000, 2048)
+FLASH_D = (16, 64, 80, 128)
+FLASH_G = (1, 2, 8)
+# (Sq, Skv, q_offset, kv_len): a later query chunk, prefill into a longer
+# cache (the serve path), one row at a decode position
+FLASH_OFFSET = ((100, 300, 37, 200), (48, 1056, 0, 48), (1024, 1056, 0, 1024),
+                (1, 1056, 500, 501))
+# (B, L, H, N, P, chunk, q and k broadcast over heads)
+SSD_CASES = ((1, 128, 2, 16, 16, 16, False), (2, 256, 4, 64, 64, 64, False),
+             (2, 48, 8, 16, 16, 16, True), (1, 512, 4, 64, 64, 256, True),
+             (2, 1024, 8, 16, 64, 256, True), (1, 256, 3, 64, 16, 64, False))
 KERNEL_RTOL = 1e-5              # of max |plain|; both float32
 
 SWEEP_B = (1, 127, 128, 7872, 65536)
@@ -250,10 +292,11 @@ def span_totals(run) -> str:
                      sorted(totals.items(), key=lambda kv: -kv[1]))
 
 
-def device_time_of(run) -> tuple[float, float, list]:
-    """``(wall s, device-busy s, top kernels)`` of one ``run()`` under
-    ``torch.profiler``: the sum of the device's own events (kernels,
-    copies, memsets) and the five largest by total time.  The profiler
+def device_time_of(run) -> tuple[float, float, list, int]:
+    """``(wall s, device-busy s, top kernels, device events)`` of one
+    ``run()`` under ``torch.profiler``: the sum of the device's own events
+    (kernels, copies, memsets), the five largest by total time, and their
+    number.  The profiler
     slows the host, so the wall time here is longer than unprofiled."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -272,7 +315,7 @@ def device_time_of(run) -> tuple[float, float, list]:
                          getattr(ev, "self_cuda_time_total", 0.0))
         rows.append((ev.key[:60], ev.count, dev_us / 1e6))
     rows.sort(key=lambda r: -r[2])
-    return wall, sum(r[2] for r in rows), rows[:5]
+    return wall, sum(r[2] for r in rows), rows[:5], sum(r[1] for r in rows)
 
 
 def fused_window_without_sync(case, dev) -> None:
@@ -385,6 +428,153 @@ def production_batches(case, dev):
     return batches
 
 
+def kernel_err(out, ref, dtype, what: str) -> float:
+    """``max |out - ref|``; raises unless ``|out - ref| <= tol + tol |ref|``
+    everywhere, with ``tol`` the reference tests' 2e-5 (float32) or 2e-2
+    (bf16)."""
+    tol = LM_TOL[dtype]
+    o, r = out.float(), ref.float()
+    check(bool(torch.isfinite(o).all()), f"{what}: output not finite")
+    diff = (o - r).abs()
+    err = diff.max().item()
+    check(bool((diff <= tol + tol * r.abs()).all()),
+          f"{what}: max |kernel - plain| = {err}, beyond rtol = atol = {tol}")
+    return err
+
+
+def randn(shape, g, dtype, dev):
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def flash_bound_ms(q, k, causal, q_offset, kv_len) -> tuple[float, str]:
+    """``flash_attention``'s least time on these inputs: q read and o
+    written once, the kv rows the mask lets any query see read once, and
+    two multiply-adds per head_dim element of every unmasked (query, key)
+    pair, at the peak rate of the inputs' type."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1:3]
+    kv_end = min(Skv, kv_len)
+    if causal:
+        seen = np.minimum(kv_end, np.arange(Sq) + q_offset + 1)
+        pairs, kv_rows = int(seen.sum()), min(kv_end, Sq + q_offset)
+    else:
+        pairs, kv_rows = Sq * kv_end, kv_end
+    es = q.element_size()
+    nbytes = es * (2 * B * Sq * Hq * D + 2 * B * kv_rows * Hkv * D)
+    flops = 4 * B * Hq * D * pairs
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_bound_ms(q, k, v, chunk) -> tuple[float, str]:
+    """``ssd_scan``'s least time: q and k read once (once per batch row
+    when they are broadcast over heads), v and a read and o written once;
+    per (batch, head) the in-chunk causal pairs times (N + P) multiply-adds
+    plus the inter-chunk and state products, 4 L N P, at the peak rate of
+    the inputs' type."""
+    B, L, H, N = q.shape
+    P = v.shape[-1]
+    c = min(chunk, L)
+    es = v.element_size()
+    heads_q = 1 if q.stride(2) == 0 else H
+    heads_k = 1 if k.stride(2) == 0 else H
+    nbytes = (es * (B * L * (heads_q + heads_k) * N + 2 * B * L * H * P)
+              + 4 * B * L * H)
+    flops = B * H * (L * (c + 1) * (N + P) + 4 * L * N * P)
+    peak = BF16_FLOP_PER_S if v.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def serve_argv(gen: int) -> list[str]:
+    return SERVE_ARGV[:-1] + [str(gen)]
+
+
+def recorded_prefill():
+    """One full-width ``serve.main`` run without decode steps (``--gen 1``),
+    recording the inputs of the first ``flash_attention`` and ``ssd_scan``
+    calls of its prefill.  Returns ``{name: (args, kwargs)}`` and the
+    launches of that prefill."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import serve
+    from repro_torch.models import layers
+    real = {"flash_attention": layers.flash_attention,
+            "ssd_scan": layers.ssd_scan}
+    seen = {}
+
+    def keep(t):               # a copy; a head-broadcast view stays one
+        return t[:, :, :1].clone().expand_as(t) if t.stride(2) == 0 \
+            else t.clone()
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            if name not in seen:
+                seen[name] = (tuple(keep(a) for a in args), dict(kwargs))
+            return real[name](*args, **kwargs)
+        return call
+
+    flash_attention.launches = 0
+    ssd_scan.launches = 0
+    layers.flash_attention = recorder("flash_attention")
+    layers.ssd_scan = recorder("ssd_scan")
+    try:
+        serve.main(serve_argv(1))
+    finally:
+        layers.flash_attention = real["flash_attention"]
+        layers.ssd_scan = real["ssd_scan"]
+    torch.cuda.synchronize()
+    return seen, {"flash_attention": flash_attention.launches,
+                  "ssd_scan": ssd_scan.launches}
+
+
+def profile_serve(cfg, dims, params, batch, cache, tokens) -> None:
+    """Device busy time and the top kernels of one full-width prefill and
+    of one decode step (after three unprofiled ones), from
+    ``torch.profiler``."""
+    from repro_torch.models import decode_step, prefill
+    wall, busy, top, n = device_time_of(
+        lambda: prefill(cfg, dims, params, batch, 1056))
+    print(f"profiled prefill: wall {wall:.4f} s, device busy {busy:.6f} s "
+          f"({100 * busy / wall:.2f}%) in {n} device events, top by device "
+          "time:"
+          + "; ".join(f" {k} x{c} {t:.6f} s" for k, c, t in top))
+    for i in range(3):
+        _, cache = decode_step(cfg, dims, params, tokens[:, i:i + 1], cache,
+                               1024 + i)
+    t0 = time.perf_counter()
+    for i in range(3, 8):
+        _, cache = decode_step(cfg, dims, params, tokens[:, i:i + 1], cache,
+                               1024 + i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    wall, busy, top, n = device_time_of(lambda: decode_step(
+        cfg, dims, params, tokens[:, 8:9], cache, 1032))
+    print(f"decode step: {step_ms:.3f} ms unprofiled (mean of 5 after 3); "
+          f"profiled wall {wall:.4f} s, device busy {busy:.6f} s "
+          f"({100 * busy / wall:.2f}%) in {n} device events, top by device "
+          "time:"
+          + "; ".join(f" {k} x{c} {t:.6f} s" for k, c, t in top))
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The model layers take the kernels' plain versions inside (on the
+    card: the comparison prefill of phase 6)."""
+    from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.models import layers
+    real = layers.flash_attention, layers.ssd_scan
+    layers.flash_attention, layers.ssd_scan = attention_plain, ssd_scan_plain
+    try:
+        yield
+    finally:
+        layers.flash_attention, layers.ssd_scan = real
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing to measure")
@@ -415,7 +605,8 @@ def main() -> None:
     check(hasattr(np, "bitwise_count"),
           "numpy lacks bitwise_count (engine.batched_fitness needs >= 2.0)")
     t0 = time.perf_counter()
-    build.build(["scar_eval", "scar_search"])
+    build.build(["scar_eval", "scar_search", "flash_attention",
+                 "ssd_scan"])
     print(f"kernel build {time.perf_counter() - t0:.3f} s "
           f"(nvcc: {build.build_seconds})")
     for name, log in build.build_log.items():
@@ -492,6 +683,122 @@ def main() -> None:
           f" bound {s_b_ms:.6f} ms ({s_b_by}) on {smi}; torch has "
           f"bitwise_count: {hasattr(torch, 'bitwise_count')}")
 
+    phase("2c kernel: flash_attention vs attention_plain")
+    from repro_torch.kernels.flash_attention import (attention_plain,
+                                                     flash_attention)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    g = torch.Generator(device=dev).manual_seed(13)
+    f_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_cases = 0
+    flash_cases = []
+    for si, S in enumerate(FLASH_S):
+        for di, D in enumerate(FLASH_D):
+            G = FLASH_G[(si + di) % len(FLASH_G)]
+            for causal in (True, False):
+                flash_cases.append((2 if S < 1000 else 1, S, S, 8, 8 // G, D,
+                                    causal, 0, None))
+    for Sq, Skv, off, kvl in FLASH_OFFSET:
+        for D, G in ((80, 1), (128, 2), (64, 8)):
+            flash_cases.append((2, Sq, Skv, 8, 8 // G, D, True, off, kvl))
+    for B, Sq, Skv, Hq, Hkv, D, causal, off, kvl in flash_cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q = randn((B, Sq, Hq, D), g, dt, dev)
+            k = randn((B, Skv, Hkv, D), g, dt, dev)
+            v = randn((B, Skv, Hkv, D), g, dt, dev)
+            kw = dict(causal=causal, q_offset=off, kv_len=kvl)
+            out = flash_attention(q, k, v, **kw)
+            ref = attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            f_err[dt] = max(f_err[dt], kernel_err(
+                out, ref, dt, f"flash_attention B={B} Sq={Sq} Skv={Skv} "
+                f"Hq={Hq} Hkv={Hkv} D={D} {kw} {dt}"))
+            n_cases += 1
+    print(f"sweep: {n_cases} cases (Sq == Skv in {FLASH_S}, offset cases "
+          f"{FLASH_OFFSET}, D {FLASH_D}, groups {FLASH_G}, causal and not, "
+          f"float32 and bf16): max |kernel - plain| float32 "
+          f"{f_err[torch.float32]!r}, bf16 {f_err[torch.bfloat16]!r} "
+          f"(tolerance rtol = atol = 2e-5 / 2e-2)")
+    real, prefill_launches = recorded_prefill()
+    (fq, fk, fv), fkw = real["flash_attention"]
+    f_out = flash_attention(fq, fk, fv, **fkw)
+    f_ref = attention_plain(fq, fk, fv, **fkw)
+    torch.cuda.synchronize()
+    f_real_err = kernel_err(f_out, f_ref, fq.dtype,
+                            "flash_attention on the serve prefill's inputs")
+    f_max_err = max(f_real_err, *f_err.values())
+    f_ms = cuda_ms(lambda: flash_attention(fq, fk, fv, **fkw))
+    f_p_ms = cuda_ms(lambda: attention_plain(fq, fk, fv, **fkw), reps=10)
+    f_dev_ms = profiled_device_ms(lambda: flash_attention(fq, fk, fv, **fkw),
+                                  "flash_kernel")
+    f_b_ms, f_b_by = flash_bound_ms(fq, fk, fkw["causal"], fkw["q_offset"],
+                                    fkw["kv_len"])
+    kv_len = fkw["kv_len"]
+    lq, lk, lv = (t.transpose(1, 2) for t in (fq, fk[:, :kv_len],
+                                               fv[:, :kv_len]))
+    f_lib_ref = torch.nn.functional.scaled_dot_product_attention(
+        lq, lk, lv, is_causal=True).transpose(1, 2)
+    f_lib_err = (f_lib_ref.float() - f_out.float()).abs().max().item()
+    f_lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        lq, lk, lv, is_causal=True))
+    print(f"serve prefill's first attention: q {tuple(fq.shape)} k/v "
+          f"{tuple(fk.shape)} {fq.dtype} {fkw}: max |kernel - plain| = "
+          f"{f_real_err!r}; per call (CUDA events, median): kernel "
+          f"{f_ms:.6f} ms, plain {f_p_ms:.6f} ms, "
+          f"F.scaled_dot_product_attention {f_lib_ms:.6f} ms (max |sdpa - "
+          f"kernel| = {f_lib_err!r}); kernel device time (profiler) "
+          f"{f_dev_ms!r} ms; bound {f_b_ms:.6f} ms ({f_b_by}) on {smi}")
+
+    phase("2d kernel: ssd_scan vs ssd_scan_plain")
+    s_err_by = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_cases = 0
+    for B, L, H, N, P, chunk, shared in SSD_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            hq = 1 if shared else H
+            q = randn((B, L, hq, N), g, dt, dev).expand(B, L, H, N)
+            k = randn((B, L, hq, N), g, dt, dev).expand(B, L, H, N)
+            v = randn((B, L, H, P), g, dt, dev)
+            a = -torch.nn.functional.softplus(randn((B, L, H), g,
+                                                    torch.float32, dev))
+            out = ssd_scan(q, k, v, a, chunk=chunk)
+            ref = ssd_scan_plain(q, k, v, a, chunk=chunk)
+            torch.cuda.synchronize()
+            s_err_by[dt] = max(s_err_by[dt], kernel_err(
+                out, ref, dt, f"ssd_scan B={B} L={L} H={H} N={N} P={P} "
+                f"chunk={chunk} shared q/k={shared} {dt}"))
+            n_cases += 1
+    ones = torch.ones((1, 512, 1, 8), device=dev)
+    carry = ssd_scan(ones / 8, ones, ones, torch.zeros((1, 512, 1),
+                                                        device=dev), chunk=64)
+    check(torch.allclose(carry[0, :, 0, 0].cpu(),
+                         torch.arange(1, 513, dtype=torch.float32),
+                         rtol=1e-5), "ssd_scan loses the state across chunks")
+    print(f"sweep: {n_cases} cases {SSD_CASES}, float32 and bf16: max "
+          f"|kernel - plain| float32 {s_err_by[torch.float32]!r}, bf16 "
+          f"{s_err_by[torch.bfloat16]!r}; a = 0 gives the running sum "
+          "across 8 chunks")
+    (sq, sk, sv, sa), skw = real["ssd_scan"]
+    s_out = ssd_scan(sq, sk, sv, sa, **skw)
+    s_ref = ssd_scan_plain(sq, sk, sv, sa, **skw)
+    torch.cuda.synchronize()
+    s_real_err = kernel_err(s_out, s_ref, sv.dtype,
+                            "ssd_scan on the serve prefill's inputs")
+    ssd_max_err = max(s_real_err, *s_err_by.values())
+    ssd_ms = cuda_ms(lambda: ssd_scan(sq, sk, sv, sa, **skw))
+    ssd_p_ms = cuda_ms(lambda: ssd_scan_plain(sq, sk, sv, sa, **skw), reps=10)
+    ssd_dev_ms = profiled_device_ms(lambda: ssd_scan(sq, sk, sv, sa, **skw),
+                                    "ssd_kernel")
+    ssd_b_ms, ssd_b_by = ssd_bound_ms(sq, sk, sv, skw["chunk"])
+    print(f"serve prefill's first Mamba-2 scan: q/k {tuple(sq.shape)} (head "
+          f"stride {sq.stride(2)}), v {tuple(sv.shape)} {sv.dtype}, {skw}: "
+          f"max |kernel - plain| = {s_real_err!r}; per call (CUDA events, "
+          f"median): kernel {ssd_ms:.6f} ms, plain {ssd_p_ms:.6f} ms; kernel "
+          f"device time (profiler) {ssd_dev_ms!r} ms; bound {ssd_b_ms:.6f} ms"
+          f" ({ssd_b_by}) on {smi}; library: none (no one torch call "
+          "computes it)")
+    del real, fq, fk, fv, f_out, f_ref, f_lib_ref, lq, lk, lv
+    del sq, sk, sv, sa, s_out, s_ref
+    torch.cuda.empty_cache()
+
     phase("3 paper package: ten scenarios, 6x6 het_cross, auto, cuda, "
           "beam_jax")
     for backend, algo in (("auto", "beam"), ("cuda", "beam"),
@@ -565,12 +872,129 @@ def main() -> None:
     for algo in ("beam", "beam_jax"):
         cfg = SearchConfig(path_cap=case["path_cap"], algo=algo)
         clear_caches()
-        wall, busy, top = device_time_of(lambda: run_case(case, cfg, dev))
+        wall, busy, top, _ = device_time_of(lambda: run_case(case, cfg,
+                                                             dev))
         print(f"profiled {algo} run: wall {wall:.4f} s, device busy "
               f"{busy:.6f} s ({100 * busy / wall:.2f}%), top by device time:"
               + "; ".join(f" {k} x{c} {t:.6f} s" for k, c, t in top))
 
-    phase("5 summary")
+    phase("6 serve: zamba2-2.7b at full width, batch 4, prompt 1024, "
+          "32 tokens, bf16, greedy")
+    from repro_torch.launch import serve
+    from repro_torch.models import ModelDims, get_arch, init_params, prefill
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.testing import (numpy_tree, reduced, synth_batch,
+                                            teacher_forced)
+    print(f"prefill only (--gen 1, phase 2c's recorded run): launches "
+          f"{prefill_launches}")
+    check(prefill_launches == {"flash_attention": 9, "ssd_scan": 45},
+          f"one full-width prefill launched {prefill_launches}, want 9 "
+          "flash_attention (shared-attention blocks) and 45 ssd_scan "
+          "(Mamba-2 blocks)")
+    flash_attention.launches = 0
+    ssd_scan.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = serve.main(SERVE_ARGV)
+    torch.cuda.synchronize()
+    serve_launches = {"flash_attention": flash_attention.launches,
+                      "ssd_scan": ssd_scan.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = res["tokens"]
+    cfg = get_arch("zamba2-2.7b")
+    check(tuple(tokens.shape) == (4, 32) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab)).all()),
+        f"serve returned tokens {tuple(tokens.shape)}")
+    check(serve_launches == prefill_launches,
+          f"serve with 31 decode steps launched {serve_launches}, its "
+          f"prefill alone {prefill_launches}: decode must launch none")
+    dec_tok_s = 4 * 31 / res["decode_s"]
+    print(f"serve: launches {serve_launches} = the prefill's, so 0 in "
+          f"31 decode steps; prefill {res['prefill_s'] * 1e3:.3f} ms, decode "
+          f"{res['decode_s'] * 1e3:.3f} ms = {dec_tok_s:.1f} tokens/s "
+          f"(batch 4), {res['decode_s'] * 1e3 / 31:.3f} ms per step; peak "
+          f"memory {peak_gb:.3f} GiB; on {smi}")
+    torch.backends.cuda.matmul.allow_tf32 = False     # full float32 products
+    torch.backends.cudnn.allow_tf32 = False
+    dims = ModelDims.create(cfg)
+    batch = synth_batch(cfg, batch=4, seq=1024, seed=0, device=dev)
+    batch.pop("labels")
+    compared = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dcfg = dataclasses.replace(cfg, dtype=str(dt).split(".")[-1])
+        with torch.inference_mode():
+            params = init_params(dcfg, dims, generator=torch.Generator(
+                device=dev).manual_seed(0), dtype=dt)
+            last_k, cache = prefill(dcfg, dims, params, batch, 1056)
+            if dt == torch.bfloat16:
+                profile_serve(cfg, dims, params, batch, cache, tokens)
+            del cache
+            with plain_kernels():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                last_p, cache = prefill(dcfg, dims, params, batch, 1056)
+                torch.cuda.synchronize()
+                plain_prefill_s = time.perf_counter() - t0
+            del cache, params
+        torch.cuda.empty_cache()
+        if dt == torch.bfloat16:
+            check(torch.equal(last_k.argmax(-1), tokens[:, 0]),
+                  "the serve run's first tokens are not this prefill's "
+                  "argmax")
+        lk, lp = last_k.float(), last_p.float()
+        check(bool(torch.isfinite(lk).all()), "prefill logits not finite")
+        d = (lk - lp).abs()
+        compared[dt] = {
+            "max_abs": d.max().item(), "max_logit": lp.abs().max().item(),
+            "rel_l2": ((lk - lp).norm() / lp.norm()).item(),
+            "within_2e-2": (d <= 2e-2 + 2e-2 * lp.abs()).float().mean().item(),
+            "top1": (lk.argmax(-1) == lp.argmax(-1)).float().mean().item(),
+            "plain_prefill_ms": plain_prefill_s * 1e3}
+        print(f"last-token logits [4, {cfg.vocab}] of the full-width prefill "
+              f"in {dt} (TF32 off), kernels vs plain versions, same weights "
+              f"and prompt: {compared[dt]}")
+    # bf16: both paths round each layer's output to bf16; a one-ulp flip
+    # (0.4%) grows through 54 layers of random weights, as the float32 run
+    # shows for its own last-bit differences, so the bf16 logits are held
+    # to the greedy choice; float32 to 1e-3 of the largest logit.
+    check(compared[torch.bfloat16]["top1"] == 1.0,
+          "bf16 prefill: the kernels and the plain versions pick different "
+          "greedy tokens")
+    f32 = compared[torch.float32]
+    check(f32["max_abs"] <= 1e-3 * f32["max_logit"] and f32["top1"] == 1.0,
+          f"float32 full-width prefill, kernels vs plain versions: {f32}")
+    torch.cuda.empty_cache()
+
+    phase("7 reference parity: reduced zamba2, float32, on the card")
+    with np.load(LM_GOLDEN) as f:
+        fix = {k: f[k] for k in f.files}
+    rcfg = dataclasses.replace(reduced(get_arch(str(fix["arch"]))),
+                               dtype="float32")
+    rparams = params_from_numpy(rcfg, numpy_tree(rcfg,
+                                                 int(fix["weight_seed"])),
+                                device=dev, dtype=torch.float32)
+    flash_attention.launches = 0
+    ssd_scan.launches = 0
+    with torch.inference_mode():
+        out = teacher_forced(rcfg, rparams, torch.tensor(fix["tokens"],
+                                                         device=dev),
+                             int(fix["prompt_len"]), int(fix["max_len"]))
+    torch.cuda.synchronize()
+    check(flash_attention.launches > 0 and ssd_scan.launches > 0,
+          "the reduced run launched no kernel")
+    errs = {}
+    for key in ("forward", "prefill_last", "decode"):
+        ref = fix[key]
+        errs[key] = float(np.abs(out[key].cpu().numpy() - ref).max())
+        check(errs[key] <= LM_MODEL_REL * np.abs(ref).max(),
+              f"reduced zamba2 {key} logits: max |port - reference| "
+              f"{errs[key]} > {LM_MODEL_REL} * {np.abs(ref).max()}")
+    print(f"{rcfg.name} float32 (TF32 off) against the JAX reference's "
+          f"logits: max |port - reference| {errs} (limit {LM_MODEL_REL} * "
+          f"max |reference| = {LM_MODEL_REL * np.abs(fix['forward']).max()}"
+          f"); launches flash_attention {flash_attention.launches}, ssd_scan "
+          f"{ssd_scan.launches} (forward and prefill; decode is plain)")
+
+    phase("8 summary")
     print(json.dumps({"kernels": [{
         "name": "scar_eval", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scar_eval.cu",
@@ -590,6 +1014,22 @@ def main() -> None:
         "library_ms": None, "device_ms": s_dev_ms,
         "launches_by_path": {a: launches[a]["scar_search"]
                              for a in launches},
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
+        "launches": serve_launches["flash_attention"],
+        "max_abs_err": f_max_err, "ms": f_ms,
+        "plain_ms": f_p_ms, "bound_ms": f_b_ms, "bound_by": f_b_by,
+        "library_ms": f_lib_ms, "device_ms": f_dev_ms,
+    }, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:63",
+        "launches": serve_launches["ssd_scan"],
+        "max_abs_err": ssd_max_err, "ms": ssd_ms,
+        "plain_ms": ssd_p_ms, "bound_ms": ssd_b_ms, "bound_by": ssd_b_by,
+        "library_ms": None, "device_ms": ssd_dev_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

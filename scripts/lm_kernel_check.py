@@ -1,0 +1,99 @@
+"""Short first check of the LM kernels on the card: build, compare, time.
+
+Builds ``flash_attention`` and ``ssd_scan`` from ``src/repro_torch/kernels/
+csrc`` (printing ``ptxas``'s register and spill report), compares each with
+its plain torch version on a few shapes in float32 and bf16 (printing the
+max |kernel - plain|), and times one call of each at the zamba2-2.7b serve
+shapes (batch 4, prompt 1024) with CUDA events over five calls.  It is the
+quick call to make after editing a kernel; ``chip_smoke.py`` is the full
+check.  Needs a CUDA device.
+
+Usage: python scripts/lm_kernel_check.py
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", "src"))
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+# (B, Sq, Skv, Hq, Hkv, D, causal, q_offset, kv_len)
+FLASH = [(1, 64, 64, 2, 1, 16, True, 0, None),
+         (2, 1000, 1000, 4, 2, 80, True, 0, None),
+         (1, 1, 1, 1, 1, 64, True, 0, None),
+         (2, 100, 300, 4, 4, 128, True, 37, 200),
+         (2, 48, 68, 4, 2, 16, True, 0, 48),
+         (4, 1024, 1056, 32, 32, 80, True, 0, 1024),
+         (1, 2048, 2048, 8, 1, 64, False, 0, None)]
+# (B, L, H, N, P, chunk, q and k broadcast over heads)
+SSD = [(1, 128, 1, 16, 16, 64, False), (2, 256, 2, 64, 64, 128, False),
+       (2, 48, 4, 16, 16, 16, True), (4, 1024, 80, 64, 64, 256, True),
+       (1, 512, 2, 64, 64, 256, False)]
+
+
+def events_ms(fn, n: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("lm_kernel_check: no CUDA device")
+    t0 = time.perf_counter()
+    build.build(["flash_attention", "ssd_scan"])
+    print("build", time.perf_counter() - t0, build.build_seconds)
+    for name, log in build.build_log.items():
+        print(name, log)
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape, dt=torch.float32):
+        return torch.randn(*shape, generator=g, device="cuda").to(dt)
+
+    for dt in (torch.float32, torch.bfloat16):
+        for B, Sq, Skv, Hq, Hkv, D, causal, off, kvl in FLASH:
+            q = rn(B, Sq, Hq, D, dt=dt)
+            k, v = rn(B, Skv, Hkv, D, dt=dt), rn(B, Skv, Hkv, D, dt=dt)
+            kw = dict(causal=causal, q_offset=off, kv_len=kvl)
+            err = (flash_attention(q, k, v, **kw).float()
+                   - attention_plain(q, k, v, **kw).float()).abs().max()
+            print("flash", dt, B, Sq, Skv, Hq, Hkv, D, kw, "err", err.item())
+        for B, L, H, N, P, c, shared in SSD:
+            hq = 1 if shared else H
+            q = rn(B, L, hq, N, dt=dt).expand(B, L, H, N)
+            k = rn(B, L, hq, N, dt=dt).expand(B, L, H, N)
+            v = rn(B, L, H, P, dt=dt)
+            a = -torch.nn.functional.softplus(rn(B, L, H))
+            ref = ssd_scan_plain(q, k, v, a, chunk=c).float()
+            err = (ssd_scan(q, k, v, a, chunk=c).float() - ref).abs().max()
+            print("ssd", dt, B, L, H, N, P, c, shared, "err", err.item(),
+                  "scale", ref.abs().max().item())
+    bf = torch.bfloat16
+    q = rn(4, 1024, 32, 80, dt=bf)
+    k, v = rn(4, 1056, 32, 80, dt=bf), rn(4, 1056, 32, 80, dt=bf)
+    print("flash ms", events_ms(
+        lambda: flash_attention(q, k, v, causal=True, kv_len=1024)))
+    q = rn(4, 1024, 1, 64, dt=bf).expand(4, 1024, 80, 64)
+    k = rn(4, 1024, 1, 64, dt=bf).expand(4, 1024, 80, 64)
+    v = rn(4, 1024, 80, 64, dt=bf)
+    a = -torch.nn.functional.softplus(rn(4, 1024, 80))
+    print("ssd ms", events_ms(lambda: ssd_scan(q, k, v, a, chunk=256)))
+
+
+if __name__ == "__main__":
+    main()

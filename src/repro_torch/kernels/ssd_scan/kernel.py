@@ -1,0 +1,177 @@
+"""The ``ssd_scan`` CUDA kernel's wrapper and its plain torch version.
+
+Counterpart of the Pallas kernel ``repro/kernels/ssd_scan/kernel.py``.
+Both functions here compute chunked gated linear attention (the Mamba-2 SSD
+scan), ``o_t = q_t . S_t`` with ``S_t = exp(a_t) S_{t-1} + k_t^T v_t``:
+per chunk an intra-chunk causal quadratic gated by ``exp(cum_i - cum_j)``,
+plus ``q exp(cum)`` against the ``[N, P]`` float32 state carried from the
+chunks before.  This is the function of the model layer ``gla_chunked``
+(``repro/models/layers.py``), which the reference's oracle
+(``ssd_scan/ref.py``) delegates to.
+
+Layouts: ``[BH, L, N]`` (the TPU kernel's; ``a`` ``[BH, L]``) or
+``[B, L, H, N]`` (the model's; ``a`` ``[B, L, H]``).  The in-chunk prefix
+sums ``cum`` follow ``blocked_cumsum``'s association, which is that of
+``jnp.cumsum`` on the CPU: the gates take differences of prefix sums that
+reach -100 and more, so another association moves them by 1e-4 relative.
+q, k and v are bf16 or float32, ``a`` (<= 0) is float32; the output has
+v's type; all arithmetic is float32.
+
+``ssd_scan`` launches the kernel for CUDA tensors and takes the plain
+version only for tensors on the CPU; a CUDA tensor never falls back.  The
+kernel reads any batch, sequence and head strides (last dimension
+contiguous), so Mamba-2's q and k, broadcast over heads (head stride 0),
+go in without a copy.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..build import load_library
+from ..scar_eval.kernel import blocked_cumsum
+
+__all__ = ["ssd_scan", "ssd_scan_plain"]
+
+_SMEM_LIMIT = 232448           # dynamic shared memory a block may use
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _as_4d(t: torch.Tensor, three: bool) -> torch.Tensor:
+    """``[BH, L, X]`` as ``[BH, L, 1, X]`` (``a``: ``[BH, L]`` as
+    ``[BH, L, 1]``); the model layout as it is."""
+    return t.unsqueeze(2) if three else t
+
+
+def ssd_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   a: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
+    """Plain torch version of the kernel: the same chunk loop and carried
+    state, in float32, in either layout."""
+    three = v.dim() == 3
+    q4, k4, v4, a3 = (_as_4d(t, three) for t in (q, k, v, a))
+    L = q4.shape[1]
+    c = min(chunk, L)
+    if L % c:
+        raise ValueError(f"ssd_scan: seq len {L} is not a multiple of the "
+                         f"chunk {c}")
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q4, k4, v4))
+    af = a3.float().transpose(1, 2)                          # [B, H, L]
+    B, H, _, N = qf.shape
+    P = vf.shape[-1]
+    state = qf.new_zeros((B, H, N, P))
+    tril = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
+    outs = []
+    for c0 in range(0, L, c):
+        qc, kc, vc = (t[:, :, c0:c0 + c] for t in (qf, kf, vf))
+        cum = blocked_cumsum(af[:, :, c0:c0 + c].movedim(-1, 0)).movedim(
+            0, -1)
+        total = cum[..., -1:]
+        rel = cum[..., :, None] - cum[..., None, :]
+        # exp only on the causal triangle: above it rel > 0 may overflow
+        gate = torch.where(tril, torch.exp(torch.where(tril, rel, 0.0)), 0.0)
+        intra = ((qc @ kc.transpose(-1, -2)) * gate) @ vc
+        inter = (qc * torch.exp(cum)[..., None]) @ state
+        outs.append(intra + inter)
+        k_dec = kc * torch.exp(total - cum)[..., None]
+        state = (state * torch.exp(total)[..., None]
+                 + k_dec.transpose(-1, -2) @ vc)
+    out = torch.cat(outs, dim=2).transpose(1, 2).to(v.dtype)  # [B, L, H, P]
+    return out[:, :, 0] if three else out
+
+
+def _check(q, k, v, a, chunk: int) -> None:
+    if v.dim() not in (3, 4) or q.shape != k.shape or \
+            q.shape[:-1] != v.shape[:-1] or a.shape != v.shape[:-1]:
+        raise ValueError(f"ssd_scan: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, a "
+                         f"{tuple(a.shape)}; want [B, L, H, N] x2, "
+                         "[B, L, H, P], [B, L, H] (or without H)")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"ssd_scan: q, k, v are {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}; want all float32 or all bfloat16")
+    if a.dtype != torch.float32:
+        raise TypeError(f"ssd_scan: a is {a.dtype}, want float32")
+    if not (q.device == k.device == v.device == a.device):
+        raise ValueError("ssd_scan: inputs on different devices")
+    L = v.shape[1]
+    c = min(chunk, L)
+    if c < 1 or L % c:
+        raise ValueError(f"ssd_scan: seq len {L} is not a multiple of the "
+                         f"chunk {c}")
+
+
+def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             a: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
+    """SSD scan output (v's layout and type): the CUDA kernel on CUDA
+    tensors.
+
+    Tensors on the CPU take ``ssd_scan_plain``.  ``ssd_scan.launches``
+    counts kernel launches.
+    """
+    _check(q, k, v, a, chunk)
+    dev = v.device
+    if dev.type == "cpu":
+        return ssd_scan_plain(q, k, v, a, chunk=chunk)
+    if dev.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for {dev}")
+    three = v.dim() == 3
+    q4, k4, v4, a3 = (_as_4d(t, three) for t in (q, k, v, a))
+    B, L, H, N = q4.shape
+    P = v4.shape[-1]
+    c = min(chunk, L)
+    lib = _lib()
+    limit = lib.ssd_scan_max_np()
+    if N > limit or P > limit:
+        raise ValueError(f"ssd_scan: N {N} or P {P} above {limit}")
+    if c > lib.ssd_scan_max_chunk():
+        raise ValueError(f"ssd_scan: chunk {c} above "
+                         f"{lib.ssd_scan_max_chunk()}")
+    smem = lib.ssd_scan_smem_bytes(N, P, c)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"ssd_scan: N {N}, P {P}, chunk {c} need {smem} B "
+                         f"of shared memory (limit {_SMEM_LIMIT})")
+    for name, t in (("q", q4), ("k", k4), ("v", v4)):
+        if t.stride(3) != 1:
+            raise ValueError(f"ssd_scan: {name}'s last dimension is not "
+                             "contiguous")
+    out = torch.empty((B, L, H, P), dtype=v.dtype, device=dev)
+
+    def strides(t):                  # batch, sequence, head (elements)
+        return (ctypes.c_longlong * 3)(t.stride(0), t.stride(1), t.stride(2))
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ssd_scan_launch(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), a3.data_ptr(),
+            out.data_ptr(), _DTYPES[v.dtype], B, L, H, N, P, c, strides(q4),
+            strides(k4), strides(v4), strides(a3), stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+    ssd_scan.launches += 1
+    return out[:, :, 0] if three else out
+
+
+ssd_scan.launches = 0
+
+
+_LIB = None
+
+
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, built at first use, with typed entry points."""
+    global _LIB
+    if _LIB is None:
+        lib = load_library("ssd_scan")
+        p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(
+            ctypes.c_longlong)
+        lib.ssd_scan_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                                        s, s, s, s, p]
+        lib.ssd_scan_launch.restype = i
+        lib.ssd_scan_smem_bytes.argtypes = [i, i, i]
+        lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
+        for name in ("ssd_scan_max_np", "ssd_scan_max_chunk"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
+        _LIB = lib
+    return _LIB

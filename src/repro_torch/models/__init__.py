@@ -1,0 +1,13 @@
+"""The LM stack of the port (counterpart of ``repro.models``): plain
+functions over dictionaries of tensors.  Ported: attention (``ATTN``,
+``SHARED_ATTN``) and Mamba-2 blocks, prefill and decode."""
+from .config import (ArchConfig, BlockKind, MLPKind, MoEConfig, SSMConfig,
+                     get_arch, list_archs)
+from .steps import make_decode_step, make_forward, make_prefill_step
+from .transformer import (ModelDims, decode_step, forward, init_cache,
+                          init_params, prefill)
+
+__all__ = ["ArchConfig", "BlockKind", "MLPKind", "MoEConfig", "ModelDims",
+           "SSMConfig", "decode_step", "forward", "get_arch", "init_cache",
+           "init_params", "list_archs", "make_decode_step", "make_forward",
+           "make_prefill_step", "prefill"]

@@ -1,0 +1,162 @@
+"""Reduced configs, synthetic batches and seeded weights for tests and
+smoke runs (counterpart of ``repro.models.testing``).
+
+``reduced`` is the reference's reduction.  ``synth_batch`` and
+``numpy_tree`` draw from numpy generators, so a test or a fixture script
+can hand the same tokens and weights to the JAX package and to the port.
+``teacher_forced`` runs a model the three ways the reference fixture
+(``scripts/make_torch_lm_golden.py``) records.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from .config import ArchConfig, BlockKind, MLPKind, MoEConfig, SSMConfig
+from .transformer import ModelDims, decode_step, forward, prefill
+
+
+def reduced(cfg: ArchConfig, n_super: int = 2) -> ArchConfig:
+    p = len(cfg.block_pattern)
+    hd = 16
+    n_heads = 4
+    n_kv = max(1, min(cfg.n_kv_heads * n_heads // max(cfg.n_heads, 1), n_heads))
+    moe = None
+    if cfg.moe is not None:
+        moe = MoEConfig(n_experts=8, top_k=min(cfg.moe.top_k, 2),
+                        expert_d_ff=96,
+                        n_shared_experts=min(cfg.moe.n_shared_experts, 1),
+                        dense_residual=cfg.moe.dense_residual, dense_d_ff=96,
+                        capacity_factor=4.0)
+    ssm = None
+    if cfg.ssm is not None:
+        ssm = SSMConfig(d_state=16, d_conv=4, expand=2, head_dim=16, chunk=16)
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-smoke", n_layers=p * n_super, d_model=64,
+        n_heads=n_heads, n_kv_heads=n_kv, head_dim=hd,
+        d_ff=0 if cfg.d_ff == 0 else 128, vocab=512, moe=moe, ssm=ssm,
+        cross_ctx_len=16 if cfg.cross_ctx_len else 0, attn_q_chunk=64)
+
+
+def synth_batch(cfg: ArchConfig, batch: int = 2, seq: int = 32,
+                seed: int = 0, device=None) -> dict:
+    """Seeded ``tokens`` and ``labels`` (int64 ``[batch, seq]``) on
+    ``device``; ``frames`` ([batch, seq, d], bf16) for frontend stubs."""
+    rng = np.random.default_rng(seed)
+    out: dict = {}
+    if cfg.frontend_stub:
+        out["frames"] = torch.tensor(
+            rng.standard_normal((batch, seq, cfg.d_model), np.float32),
+            device=device).to(torch.bfloat16)
+    else:
+        out["tokens"] = torch.tensor(
+            rng.integers(0, cfg.vocab, (batch, seq)), device=device)
+    out["labels"] = torch.tensor(rng.integers(0, cfg.vocab, (batch, seq)),
+                                 device=device)
+    return out
+
+
+def numpy_tree(cfg: ArchConfig, seed: int = 0) -> dict:
+    """Seeded float32 weights in the JAX package's parameter layout.
+
+    The tree ``repro.models.init_params`` returns (per pattern position the
+    parameters stacked over super-blocks), drawn from a numpy generator:
+    dense weights at the reference's scale, and norm scales, ``A_log``,
+    ``D`` and ``dt_bias`` spread around the reference's constants so that
+    every term shows.  ``jax.tree.map(jnp.asarray, tree)`` gives the
+    reference its parameters; ``models.convert.params_from_numpy`` gives
+    the port its own.  Only the block kinds the port has are drawn.
+    """
+    rng = np.random.default_rng(seed)
+    d, hd = cfg.d_model, cfg.hd
+
+    def normal(shape, scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def dense(d_in, d_out, bias=False):
+        p = {"w": normal((d_in, d_out), 1.0 / math.sqrt(d_in))}
+        if bias:
+            p["b"] = normal((d_out,), 0.1)
+        return p
+
+    def norm(n):
+        return {"scale": (1.0 + normal((n,), 0.1))}
+
+    def attn_block():
+        p = {"ln1": norm(d), "ln2": norm(d), "attn": {
+            "wq": dense(d, cfg.n_heads * hd, cfg.qkv_bias),
+            "wk": dense(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+            "wv": dense(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+            "wo": dense(cfg.n_heads * hd, d)}}
+        if cfg.mlp in (MLPKind.SWIGLU, MLPKind.GEGLU):
+            p["mlp"] = {"wi": dense(d, cfg.d_ff), "wg": dense(d, cfg.d_ff),
+                        "wo": dense(cfg.d_ff, d)}
+        elif cfg.mlp != MLPKind.NONE:
+            p["mlp"] = {"wi": dense(d, cfg.d_ff), "wo": dense(cfg.d_ff, d)}
+        return p
+
+    def mamba_block():
+        s = cfg.ssm
+        d_inner = s.expand * d
+        H = d_inner // s.head_dim
+        return {"ln": norm(d),
+                "in_proj": dense(d, 2 * d_inner + 2 * s.d_state + H),
+                "conv_w": normal((s.d_conv, d_inner + 2 * s.d_state),
+                                 1.0 / math.sqrt(s.d_conv)),
+                "A_log": rng.uniform(-1.0, 0.5, H).astype(np.float32),
+                "D": rng.uniform(0.5, 1.5, H).astype(np.float32),
+                "dt_bias": normal((H,), 0.5),
+                "out_proj": dense(d_inner, d)}
+
+    def stacked(make):
+        trees = [make() for _ in range(cfg.n_super_blocks)]
+        return _stack(trees)
+
+    layers = {}
+    for pi, kind in enumerate(cfg.block_pattern):
+        if kind == BlockKind.ATTN:
+            layers[f"p{pi}"] = stacked(attn_block)
+        elif kind == BlockKind.MAMBA2:
+            layers[f"p{pi}"] = stacked(mamba_block)
+        elif kind == BlockKind.SHARED_ATTN:
+            layers[f"p{pi}"] = {}
+        else:
+            raise NotImplementedError(f"block kind {kind.value!r} is not "
+                                      "ported yet (ROADMAP.md, item 13)")
+    tree = {"embed": normal((cfg.vocab, d), 0.02), "layers": layers,
+            "final_ln": norm(d)}
+    if BlockKind.SHARED_ATTN in cfg.block_pattern:
+        tree["shared_attn"] = attn_block()
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = dense(d, cfg.vocab)
+    return tree
+
+
+def _stack(trees: list) -> dict:
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return np.stack(trees)
+
+
+def teacher_forced(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+                   prompt_len: int, max_len: int) -> dict:
+    """Logits of one model on ``tokens`` [B, S], three ways: the full
+    forward (``forward``, [B, S, vocab]), a prefill of the first
+    ``prompt_len`` tokens into a cache of ``max_len`` positions
+    (``prefill_last``, [B, vocab]) and teacher-forced decode steps over
+    the rest (``decode``, [S - prompt_len, B, vocab])."""
+    dims = ModelDims.create(cfg)
+    full, _ = forward(cfg, dims, params, {"tokens": tokens})
+    last, cache = prefill(cfg, dims, params,
+                          {"tokens": tokens[:, :prompt_len]}, max_len)
+    steps = []
+    for i in range(prompt_len, tokens.shape[1]):
+        logits, cache = decode_step(cfg, dims, params, tokens[:, i:i + 1],
+                                    cache, i)
+        steps.append(logits)
+    return {"forward": full, "prefill_last": last,
+            "decode": torch.stack(steps)}

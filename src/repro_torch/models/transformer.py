@@ -1,0 +1,181 @@
+"""Config-driven model stack: init / forward / prefill / decode
+(counterpart of ``repro.models.transformer``).
+
+Parameters are plain dictionaries of tensors.  Where the reference stacks
+each pattern position's parameters over the super-block axis and runs the
+stack under ``jax.lax.scan``, the port keeps one dictionary per layer
+(``params["layers"][super_block][position]``) and runs the super-blocks in a
+Python loop.  The port runs at tp=1 on one card: no padding of heads,
+vocab or experts, no sharding.
+
+Caches mirror the layer list (``cache[super_block][position]``).  Prefill
+and decode write the attention KV caches in place and replace each Mamba-2
+block's state and conv window; both return the cache they were given.
+Positions and cache indices are Python ints, so a decode loop reads nothing
+back from the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from .blocks import BlockCtx, block_apply, block_cache, block_init
+from .config import ArchConfig, BlockKind
+from .layers import dense_init, rmsnorm, rmsnorm_init
+
+Params = dict
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelDims:
+    """Head and vocab sizes of the stack (exact: the port runs at tp=1)."""
+    n_q_pad: int
+    n_kv_pad: int
+    vocab_pad: int
+
+    @staticmethod
+    def create(cfg: ArchConfig) -> "ModelDims":
+        return ModelDims(n_q_pad=cfg.n_heads, n_kv_pad=cfg.n_kv_heads,
+                         vocab_pad=cfg.vocab)
+
+
+def make_ctx(cfg: ArchConfig, dims: ModelDims, mode: str,
+             positions: torch.Tensor, cache_index: Optional[int] = None,
+             max_cache_len: int = 0) -> BlockCtx:
+    return BlockCtx(cfg=cfg, mode=mode, positions=positions,
+                    cache_index=cache_index, n_q_pad=dims.n_q_pad,
+                    n_kv_pad=dims.n_kv_pad, max_cache_len=max_cache_len)
+
+
+def _dtype(dtype) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}.get(
+        dtype, dtype)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ArchConfig, dims: ModelDims, *,
+                generator: torch.Generator,
+                dtype=torch.bfloat16) -> Params:
+    """Random weights drawn from ``generator``, on the generator's device.
+
+    Draws are made on the device (a CUDA generator for the card), in the
+    reference's order of layers, but torch's normal stream is not JAX's:
+    the same seed gives other weights (``models.convert`` carries the
+    reference's own).  Mamba-2's ``A_log``, ``D`` and ``dt_bias`` are
+    float32 whatever ``dtype`` is, as in the reference.
+    """
+    dtype = _dtype(dtype)
+    dev = generator.device
+    ctx = make_ctx(cfg, dims, "full", torch.zeros((1,), dtype=torch.long))
+    pattern = cfg.block_pattern
+    layers = [[block_init(generator, cfg, ctx, dtype, kind)
+               for kind in pattern] for _ in range(cfg.n_super_blocks)]
+    params: Params = {
+        "embed": (torch.randn((dims.vocab_pad, cfg.d_model),
+                              generator=generator, device=dev)
+                  * 0.02).to(dtype),
+        "layers": layers,
+        "final_ln": rmsnorm_init(cfg.d_model, dtype, dev),
+    }
+    if BlockKind.SHARED_ATTN in pattern:
+        params["shared_attn"] = block_init(generator, cfg, ctx, dtype,
+                                           BlockKind.ATTN)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(generator, cfg.d_model,
+                                       dims.vocab_pad, dtype)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward (full sequence: prefill)
+# ---------------------------------------------------------------------------
+
+def _embed(cfg: ArchConfig, params: Params, batch: dict) -> torch.Tensor:
+    if cfg.frontend_stub and "frames" in batch:
+        x = batch["frames"]
+    else:
+        x = params["embed"][batch["tokens"]]
+    return x.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+
+
+def _logits(cfg: ArchConfig, params: Params, x: torch.Tensor
+            ) -> torch.Tensor:
+    x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    return x @ w.to(x.dtype)
+
+
+def _run_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
+               ctx: BlockCtx, cache: Optional[list]
+               ) -> tuple[torch.Tensor, Optional[list]]:
+    """Every super-block in order; each block's new cache replaces its
+    entry of ``cache`` (attention caches are the same, updated, dicts)."""
+    shared = params.get("shared_attn")
+    for si, layer_params in enumerate(params["layers"]):
+        for pi, kind in enumerate(cfg.block_pattern):
+            c_in = cache[si][pi] if cache is not None else None
+            x, c_out = block_apply(layer_params[pi], x, ctx, c_in, kind,
+                                   shared=shared)
+            if cache is not None:
+                cache[si][pi] = c_out
+    return x, cache
+
+
+def forward(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
+            return_cache: bool = False, max_cache_len: int = 0
+            ) -> tuple[torch.Tensor, Optional[list]]:
+    """Full-sequence forward.  batch: tokens [B, S] (or frames [B, S, d]).
+    Returns (logits [B, S, vocab], the filled cache or None)."""
+    x = _embed(cfg, params, batch)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None, :]
+    ctx = make_ctx(cfg, dims, "full", positions,
+                   max_cache_len=max_cache_len or S)
+    cache = None
+    if return_cache:
+        cache = init_cache(cfg, dims, B, max_cache_len or S, x.dtype,
+                           x.device)
+        # prefill fills positions [0, S) of the attention caches
+        ctx = dataclasses.replace(ctx, cache_index=0)
+    x, cache = _run_stack(cfg, params, x, ctx, cache)
+    return _logits(cfg, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, dims: ModelDims, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> list:
+    """Zeroed caches, one per layer (``[super_block][position]``)."""
+    ctx = make_ctx(cfg, dims, "full", torch.zeros((1,), dtype=torch.long),
+                   max_cache_len=max_len)
+    return [[block_cache(cfg, ctx, batch, _dtype(dtype), kind, device)
+             for kind in cfg.block_pattern]
+            for _ in range(cfg.n_super_blocks)]
+
+
+def prefill(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
+            max_cache_len: int) -> tuple[torch.Tensor, list]:
+    """Run the prompt, return (last-token logits, filled cache)."""
+    logits, cache = forward(cfg, dims, params, batch, return_cache=True,
+                            max_cache_len=max_cache_len)
+    return logits[:, -1], cache
+
+
+def decode_step(cfg: ArchConfig, dims: ModelDims, params: Params,
+                tokens: torch.Tensor, cache: list, index: int
+                ) -> tuple[torch.Tensor, list]:
+    """One autoregressive step.  tokens: [B, 1]; index: the position (a
+    Python int)."""
+    x = _embed(cfg, params, {"tokens": tokens})
+    positions = torch.full((x.shape[0], 1), index, dtype=torch.long,
+                           device=x.device)
+    ctx = make_ctx(cfg, dims, "decode", positions, cache_index=index)
+    x, cache = _run_stack(cfg, params, x, ctx, cache)
+    return _logits(cfg, params, x)[:, 0], cache

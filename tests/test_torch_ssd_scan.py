@@ -1,0 +1,183 @@
+"""The port's SSD scan kernel wrapper and its plain version against the JAX
+reference.
+
+Inputs come from a numpy seed and go to both packages.  The reference runs
+as its own tests run it (``tests/test_kernels.py``): the Pallas kernel in
+interpret mode and its oracle (``use_kernel=False``, which is the model
+layer ``gla_chunked``), on that file's shapes and with its tolerances, 2e-5
+in float32 and 2e-2 in bf16 (rtol and atol).  The in-chunk prefix sums take
+the association of ``jnp.cumsum`` on the CPU (``blocked_cumsum``): the
+gates are differences of prefix sums near -100, and with another
+association the float32 outputs move by about 1e-4 relative, past the
+reference's own tolerance.
+
+Also: Mamba-2's q and k broadcast over heads (head stride 0, no copy), the
+state carried across chunks (the reference's running-sum case), the TPU
+layout ``[BH, L, N]``, and the model layer ``gla_chunked`` and ``gla_step``.
+The CUDA kernel runs only on a GPU: the ``cuda``-marked tests skip
+elsewhere (``python -m pytest -m cuda tests/test_torch_ssd_scan.py`` on the
+card).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.ssd_scan import gla, ssd_scan, ssd_scan_plain
+from repro_torch.models import layers as TL
+
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+# tests/test_kernels.py's shapes: (B, L, H, N, P, chunk)
+GLA_SHAPES = [(1, 128, 1, 16, 16, 64), (2, 256, 2, 64, 64, 128),
+              (1, 512, 4, 32, 64, 128), (1, 256, 2, 64, 64, 256)]
+
+
+def inputs(seed, B, L, H, N, P, *, heads_qk=None):
+    """q, k, v and a <= 0 (``-softplus`` of a normal draw), float32 numpy;
+    ``heads_qk=1`` draws q and k once and broadcasts them over heads."""
+    rng = np.random.default_rng(seed)
+    hq = heads_qk or H
+    q = rng.standard_normal((B, L, hq, N)).astype(np.float32)
+    k = rng.standard_normal((B, L, hq, N)).astype(np.float32)
+    v = rng.standard_normal((B, L, H, P)).astype(np.float32)
+    a = -np.logaddexp(rng.standard_normal((B, L, H)), 0).astype(np.float32)
+    return q, k, v, a
+
+
+def to_torch(q, k, v, a, dt=torch.float32, device="cpu"):
+    H = v.shape[2]
+    tq, tk = (torch.tensor(x).to(device, dt).expand(-1, -1, H, -1)
+              for x in (q, k))
+    return tq, tk, torch.tensor(v).to(device, dt), torch.tensor(a).to(device)
+
+
+def to_jax(q, k, v, a, bf16=False):
+    import jax.numpy as jnp
+    H = v.shape[2]
+    dt = jnp.bfloat16 if bf16 else jnp.float32
+    jq, jk = (jnp.broadcast_to(jnp.asarray(x, dt), x.shape[:2] + (H,)
+                               + x.shape[3:]) for x in (q, k))
+    return jq, jk, jnp.asarray(v, dt), jnp.asarray(a)
+
+
+def close(ours, ref, tol):
+    np.testing.assert_allclose(ours.float().numpy(),
+                               np.asarray(ref, np.float32), **tol)
+
+
+@pytest.mark.parametrize("B,L,H,N,P,chunk", GLA_SHAPES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gla_matches_reference_kernel_and_oracle(B, L, H, N, P, chunk, bf16):
+    from repro.kernels.ssd_scan import gla as ref_gla
+    x = inputs(L + N, B, L, H, N, P)
+    j = to_jax(*x, bf16=bf16)
+    t = to_torch(*x, dt=torch.bfloat16 if bf16 else torch.float32)
+    before = ssd_scan.launches
+    ours = gla(*t, chunk=chunk)
+    assert ssd_scan.launches == before             # CPU: no kernel launch
+    assert ours.dtype == t[2].dtype and ours.shape == (B, L, H, P)
+    tol = BF16_TOL if bf16 else F32_TOL
+    close(ours, ref_gla(*j, chunk=chunk, interpret=True), tol)
+    close(ours, ref_gla(*j, chunk=chunk, use_kernel=False), tol)
+    assert torch.equal(gla(*t, chunk=chunk, use_kernel=False), ours)
+
+
+@pytest.mark.parametrize("L,chunk", [(48, 16), (256, 64), (64, 64)])
+def test_layer_gla_chunked_with_broadcast_qk(L, chunk):
+    """Mamba-2's shapes: q and k shared by every head (a stride-0 view)."""
+    from repro.models import layers as RL
+    x = inputs(L, 2, L, 4, 16, 16, heads_qk=1)
+    t = to_torch(*x)
+    assert t[0].stride(2) == 0
+    close(TL.gla_chunked(*t, chunk), RL.gla_chunked(*to_jax(*x), chunk),
+          F32_TOL)
+
+
+def test_state_carries_across_chunks():
+    """a = 0: the output at position t is the running sum of k^T v (the
+    reference's own check that the state survives chunk boundaries)."""
+    B, L, H, N, P = 1, 256, 1, 8, 8
+    q = torch.ones((B, L, H, N)) / N
+    k = torch.ones((B, L, H, N))
+    v = torch.ones((B, L, H, P))
+    a = torch.zeros((B, L, H))
+    out = ssd_scan(q, k, v, a, chunk=64)
+    np.testing.assert_allclose(out[0, :, 0, 0].numpy(),
+                               np.arange(1, L + 1, dtype=np.float32),
+                               rtol=1e-5)
+
+
+def test_tpu_layout_matches_reference_kernel():
+    from repro.kernels.ssd_scan import ssd_scan as ref_scan
+    import jax.numpy as jnp
+    q, k, v, a = inputs(9, 1, 128, 6, 16, 32)
+    flat = [np.ascontiguousarray(x[0].swapaxes(0, 1)) for x in (q, k, v, a)]
+    ours = ssd_scan(*(torch.tensor(x) for x in flat), chunk=32)
+    assert ours.shape == (6, 128, 32)
+    close(ours, ref_scan(*(jnp.asarray(x) for x in flat), chunk=32,
+                         interpret=True), F32_TOL)
+
+
+def test_gla_step_matches_reference():
+    from repro.models import layers as RL
+    import jax.numpy as jnp
+    rng = np.random.default_rng(4)
+    state = rng.standard_normal((2, 3, 8, 5)).astype(np.float32)
+    q, k = (rng.standard_normal((2, 3, 8)).astype(np.float32)
+            for _ in range(2))
+    v = rng.standard_normal((2, 3, 5)).astype(np.float32)
+    a = -np.abs(rng.standard_normal((2, 3))).astype(np.float32)
+    rs, ro = RL.gla_step(*(jnp.asarray(x) for x in (state, q, k, v, a)))
+    ts, to = TL.gla_step(*(torch.tensor(x) for x in (state, q, k, v, a)))
+    close(ts, rs, F32_TOL)
+    close(to, ro, F32_TOL)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros(1, 32, 2, 8)
+    v = torch.zeros(1, 32, 2, 4)
+    a = torch.zeros(1, 32, 2)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_scan(q, q, v, a, chunk=24)
+    with pytest.raises(TypeError, match="a is"):
+        ssd_scan(q, q, v, a.double(), chunk=16)
+    with pytest.raises(TypeError, match="want all"):
+        ssd_scan(q, q.bfloat16(), v, a, chunk=16)
+    with pytest.raises(ValueError, match="shapes"):
+        ssd_scan(q, q, v, a[:, :, :1], chunk=16)
+    with pytest.raises(ValueError, match="seq len"):
+        TL.gla_chunked(q[:, :30], q[:, :30], v[:, :30], a[:, :30], 16)
+
+
+# ------------------------------ on the card --------------------------------
+
+CUDA_CASES = [
+    # (B, L, H, N, P, chunk, q and k broadcast over heads)
+    (1, 128, 1, 16, 16, 16, False),
+    (2, 256, 2, 64, 64, 64, False),
+    (2, 48, 4, 16, 16, 16, True),
+    (1, 512, 3, 64, 64, 256, True),
+    (1, 200, 2, 32, 48, 40, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_CASES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cuda_kernel_matches_plain(case, bf16):
+    """On the card: the CUDA kernel against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, L, H, N, P, chunk, shared = case
+    dt = torch.bfloat16 if bf16 else torch.float32
+    t = to_torch(*inputs(L + P, B, L, H, N, P,
+                         heads_qk=1 if shared else None), dt=dt,
+                 device="cuda")
+    before = ssd_scan.launches
+    out = ssd_scan(*t, chunk=chunk)
+    plain = ssd_scan_plain(*t, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    close(out.cpu(), plain.float().cpu().numpy(),
+          BF16_TOL if bf16 else F32_TOL)
