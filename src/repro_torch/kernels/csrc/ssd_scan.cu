@@ -10,50 +10,97 @@
 // entry,
 //
 //   o_i  = sum_{j <= i} (q_i . k_j) exp(cum_i - cum_j) v_j        (intra)
-//        + (q_i exp(cum_i)) . S_prev                              (inter)
+//        + exp(cum_i) (q_i . S_prev)                              (inter)
 //   S    = exp(total) S_prev + sum_j (k_j exp(total - cum_j))^T v_j
 //
 // The decay exp(cum_i - cum_j) is taken only where j <= i: above the
-// diagonal cum_i - cum_j > 0 can overflow, and inf * 0 would be NaN.
+// diagonal cum_i - cum_j > 0 can overflow, and inf * 0 would be NaN.  The
+// prefix sums follow `blocked_cumsum`'s association (see below).
 //
 // Layout: q, k [B, L, H, N], v [B, L, H, P], a [B, L, H] float32, each with
 // its own batch, sequence and head strides (q and k may have head stride 0:
-// Mamba-2 broadcasts them over heads) and a contiguous last dimension; o is
-// a new contiguous [B, L, H, P].  The TPU layout [BH, L, N] is H = 1.  bf16
-// or float32 in, v's type out, float32 arithmetic and state.
-//
-// Design: one block of 256 threads per (batch, head); blocks carry nothing
-// between them.  The TPU grid's sequential chunk dimension becomes a loop
-// inside the block, with the [N, P] float32 state resident in shared
-// memory.  A chunk of 256 rows would need a 256 x 256 float32 score tile
-// (256 KB, over the 227 KB a block may use), so each chunk is cut into
-// 64-row tiles: for output tile I, the inter term, then for every kv tile
-// J <= I the gated 64 x 64 score tile and its product with v_J; after the
-// chunk's outputs, the state update streams the k and v tiles once more.
-// Each thread holds a 4 x 4 score micro-tile, or P/4 output columns of one
-// row, in registers; shared-memory rows are padded by one float.
+// Mamba-2 broadcasts them over heads, and they are read as such views) and
+// a contiguous last dimension; o is a new contiguous [B, L, H, P].  The TPU
+// layout [BH, L, N] is H = 1.  bf16 or float32 in, v's type out; the state
+// is float32.
 //
 // Bound on an H100: at the serve path's shape (zamba2-2.7b prefill, B = 4,
 // L = 1024, 80 heads, N = P = 64, chunk 256, bf16, q and k shared over
 // heads) the function reads q and k once (0.5 MB each), v (42 MB) and a
 // (1.3 MB) and writes o (42 MB): 86 MB, 26 us at 3.35 TB/s.  Its products,
 // 2 * B * H * (L * c / 2 * (N + P) + 2 * L * N * P) = 16 GFLOP, take 16 us
-// at 989 TFLOP/s bf16: bound by bytes.  This kernel runs them on the CUDA
-// cores in float32 out of shared memory, with only B * H = 320 blocks for
-// 132 SMs, so it is far from that bound; tensor-core tiles and splitting
-// the chunk loop across blocks (a second pass for the carried state) are
-// later work.
+// at 989 TFLOP/s bf16: bound by bytes.
+//
+// Design: the reference layer's own form.  The TPU kernel carries the
+// state through its sequential chunk grid; here the chunks run in parallel
+// and only the state handed from chunk to chunk is in order:
+//
+//   state_c = sum_j (k_j exp(total_c - cum_j))^T v_j       (chunk c alone)
+//   prev_0 = 0,  prev_{c+1} = exp(total_c) prev_c + state_c (in order)
+//   o_i = intra_i + exp(cum_i) (q_i . prev_c)
+//
+// The order of that recurrence, not an associative scan's, keeps the
+// float32 sums those of the plain version, which carries the state in
+// order.
+//
+// bf16 (the serve path): one fused kernel, ssd_chunk_tc, one CTA of 8
+// warps per (batch, head, chunk): B * H * L / chunk = 1280 CTAs at the
+// serve shape, two an SM (102 KB of shared memory, 128 registers).
+//  * k and v of the chunk come into shared memory once, by cp.async
+//    (16 B a thread, one group per 64 rows, rows padded by 16 B so
+//    ldmatrix is conflict-free; the head-broadcast q and k are read as
+//    the views they are), while the prefix sums run.
+//  * Products on the tensor cores: mma.sync m16n8k16, bf16 in, float32
+//    sums.  q k^T takes the bf16 inputs as they are: exact products.
+//    Operands held in float32 (the gated scores G, the decayed k, the
+//    state) are never rounded to bf16 once: each is split into three bf16
+//    terms, t0 = bf16(x), t1 = bf16(x - t0), t2 = bf16(x - t0 - t1), and
+//    multiplied three times, which keeps x to float32's 24 bits.  Rounding
+//    them once loses to the plain version's 2e-2 on slow decays
+//    (tests/test_torch_ssd_scan.py shows it on the CPU); two terms (16
+//    bits) meet 2e-2 but leave many more bf16 outputs an ulp away from the
+//    plain version's than float32's own order does, and such flips grow
+//    through the 54 layers of the bf16 prefill.  The gate is expf of the
+//    difference cum_i - cum_j, as the plain version takes it.  The inter
+//    term multiplies q, which is exact, by the split state and scales each
+//    row by exp(cum_i) afterwards.
+//  * The state goes from chunk to chunk through a float32 workspace
+//    [B, nc - 1, H, N, P] (16 MB at the serve shape) with a release flag
+//    per slot: chunk c computes state_c, waits for prev_c in slot c - 1,
+//    publishes prev_{c+1} = exp(total_c) prev_c + state_c in slot c, and
+//    only then computes its outputs (the intra term: warp w owns the
+//    16-row slices w and 15 - w, equal work on the causal triangle; per 16
+//    kv columns up to the diagonal S, the gate masked on the diagonal
+//    block only, G v; then the inter term).  Each chunk reads one state
+//    and writes one, so the state traffic grows with L, and the wait is
+//    one hand-over, not a chunk's work.  CTAs take tickets from an atomic
+//    counter in launch order, chunk slowest: ticket t is chunk t / (B H),
+//    so chunk c - 1 of the same head took its ticket B H earlier and has
+//    started (the wait cannot deadlock), and when B H fills the card's
+//    slots it has long finished.
+//  * It takes N, P <= 64 and chunks <= 256 rows (every configuration of
+//    the repository); the wrapper raises beyond.
+//
+// float32 (the parity path): the CUDA-core kernel ssd_f32_kernel, one
+// block of 256 threads per (batch, head) that walks the chunks in order
+// with the [N, P] state in shared memory and 64-row tiles (float32 FMAs
+// out of shared memory), since bf16 products cannot meet float32's 2e-5.
+// It takes N, P <= 128 and chunks <= 4096 rows.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kT = 64;            // rows per tile of a chunk
 constexpr int kMaxNP = 128;
 constexpr int kScanBlock = 16;    // association of the in-chunk prefix sums
-constexpr int kMaxChunk = kThreads * kScanBlock;
+constexpr int kMaxChunk = 4096;
+constexpr int kScanSlots = kMaxChunk / kScanBlock;
+constexpr int kF32Threads = 256;  // float32: one block per (batch, head)
+constexpr int kTcThreads = 256;   // bf16: 8 warps per chunk
+constexpr int kTcMaxNP = 64;      // bf16: N and P
+constexpr int kTcMaxChunk = 256;  // bf16: rows of a chunk
 
 struct Args {
   const void* q;
@@ -61,17 +108,17 @@ struct Args {
   const void* v;
   const float* a;
   void* o;
-  int B, L, H, N, P, chunk;
+  float* ws;                      // bf16: [B, nc - 1, H, N, P], the
+                                  // states entering chunks 1 .. nc - 1
+  int* sync;                      // bf16: ticket counter, then one flag
+                                  // per ws slot, all zero
+  int B, L, H, N, P, chunk, nc;
   long long qs[3], ks[3], vs[3], as[3];   // batch, sequence, head strides
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+__device__ __forceinline__ long long ws_slot(const Args& g, int b, int c,
+                                             int h) {
+  return ((long long)b * (g.nc - 1) + c) * g.H + h;
 }
 
 // Inclusive prefix sums of x[0], x[stride], ... (n <= kMaxChunk values)
@@ -79,19 +126,23 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 // version's `blocked_cumsum`: sequential within blocks of 16, and each block
 // offset by the prefix of the earlier blocks' totals, taken the same way.
 // The gates exp(cum_i - cum_j) take differences of sums that reach -100 and
-// more, so another association would move them by 1e-4 relative.  Ends
-// with a barrier.
+// more, so another association would move them by 1e-4 relative.  The
+// first n values of a longer run's sums are these.  The values are staged
+// in shared memory first, all loads in flight at once.  Ends with a
+// barrier.
 __device__ void blocked_cumsum(const float* x, long long stride, int n,
                                float* out, float* tot, float* carry) {
   const int tid = threadIdx.x;
   const int nb = (n + kScanBlock - 1) / kScanBlock;
-  if (tid < nb) {                         // within each block, in order
+  for (int i = tid; i < n; i += blockDim.x) out[i] = x[i * stride];
+  __syncthreads();
+  for (int blk = tid; blk < nb; blk += blockDim.x) {   // within each block
     float s = 0.f;
-    for (int i = tid * kScanBlock; i < min(n, (tid + 1) * kScanBlock); ++i) {
-      s += x[i * stride];
+    for (int i = blk * kScanBlock; i < min(n, (blk + 1) * kScanBlock); ++i) {
+      s += out[i];
       out[i] = s;
     }
-    tot[tid] = s;
+    tot[blk] = s;
   }
   __syncthreads();
   if (tid == 0 && nb > 1) {               // prefix of the block totals
@@ -114,31 +165,42 @@ __device__ void blocked_cumsum(const float* x, long long stride, int n,
   __syncthreads();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ssd_kernel(Args g) {
-  extern __shared__ float smem[];
+// ------------------------ float32: the CUDA cores -------------------------
+
+// One block per (batch, head), the chunks in order with the state in
+// shared memory; each chunk cut into 64-row tiles: for output tile I, the
+// inter term, then for every kv tile J <= I the gated 64 x 64 score tile and
+// its product with v_J; after the chunk's outputs, the state update streams
+// the k and v tiles once more.  Each thread holds a 4 x 4 score micro-tile,
+// or P/4 output columns of one row, in registers; shared-memory rows are
+// padded by one float.
+__global__ void __launch_bounds__(kF32Threads) ssd_f32_kernel(Args g) {
+  extern __shared__ float smem_f[];
   const int N = g.N, P = g.P, c = g.chunk;
   const int ldn = N + 1, ldp = P + 1;
-  float* sS = smem;                   // N x ldp   carried state
+  float* sS = smem_f;                 // N x ldp   carried state
   float* sQ = sS + N * ldp;           // kT x ldn
   float* sK = sQ + kT * ldn;          // kT x ldn
   float* sV = sK + kT * ldn;          // kT x ldp
   float* sG = sV + kT * ldp;          // kT x (kT + 1) gated scores
   float* sCum = sG + kT * (kT + 1);   // chunk
-  float* sTot = sCum + c;             // kMaxChunk / kScanBlock
-  float* sCarry = sTot + kMaxChunk / kScanBlock;
+  float* sTot = sCum + c;             // kScanSlots
+  float* sCarry = sTot + kScanSlots;
 
   const int tid = threadIdx.x;
   const int b = blockIdx.x / g.H;
   const int h = blockIdx.x % g.H;
-  const T* Q = static_cast<const T*>(g.q) + b * g.qs[0] + h * g.qs[2];
-  const T* K = static_cast<const T*>(g.k) + b * g.ks[0] + h * g.ks[2];
-  const T* V = static_cast<const T*>(g.v) + b * g.vs[0] + h * g.vs[2];
+  const float* Q = static_cast<const float*>(g.q) + b * g.qs[0] +
+                   h * g.qs[2];
+  const float* K = static_cast<const float*>(g.k) + b * g.ks[0] +
+                   h * g.ks[2];
+  const float* V = static_cast<const float*>(g.v) + b * g.vs[0] +
+                   h * g.vs[2];
   const float* A = g.a + b * g.as[0] + h * g.as[2];
-  T* O = static_cast<T*>(g.o) + ((long long)b * g.L * g.H + h) * P;
+  float* O = static_cast<float*>(g.o) + ((long long)b * g.L * g.H + h) * P;
   const long long o_row = (long long)g.H * P;
 
-  for (int e = tid; e < N * ldp; e += kThreads) sS[e] = 0.f;
+  for (int e = tid; e < N * ldp; e += kF32Threads) sS[e] = 0.f;
 
   // score micro-tile: rows rg + 16 * jr, columns cg + 16 * ic
   const int rg = tid / 16, cg = tid % 16;
@@ -153,10 +215,9 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(Args g) {
     for (int i0 = 0; i0 < c; i0 += kT) {
       const int ni = min(kT, c - i0);
       __syncthreads();
-      for (int e = tid; e < kT * N; e += kThreads) {
+      for (int e = tid; e < kT * N; e += kF32Threads) {
         const int r = e / N, n = e % N;
-        sQ[r * ldn + n] =
-            r < ni ? to_float(Q[(c0 + i0 + r) * g.qs[1] + n]) : 0.f;
+        sQ[r * ldn + n] = r < ni ? Q[(c0 + i0 + r) * g.qs[1] + n] : 0.f;
       }
       __syncthreads();
 
@@ -179,15 +240,13 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(Args g) {
       for (int j0 = 0; j0 <= i0; j0 += kT) {
         const int nj = min(kT, c - j0);
         __syncthreads();
-        for (int e = tid; e < kT * N; e += kThreads) {
+        for (int e = tid; e < kT * N; e += kF32Threads) {
           const int r = e / N, n = e % N;
-          sK[r * ldn + n] =
-              r < nj ? to_float(K[(c0 + j0 + r) * g.ks[1] + n]) : 0.f;
+          sK[r * ldn + n] = r < nj ? K[(c0 + j0 + r) * g.ks[1] + n] : 0.f;
         }
-        for (int e = tid; e < kT * P; e += kThreads) {
+        for (int e = tid; e < kT * P; e += kF32Threads) {
           const int r = e / P, p = e % P;
-          sV[r * ldp + p] =
-              r < nj ? to_float(V[(c0 + j0 + r) * g.vs[1] + p]) : 0.f;
+          sV[r * ldp + p] = r < nj ? V[(c0 + j0 + r) * g.vs[1] + p] : 0.f;
         }
         __syncthreads();
 
@@ -236,11 +295,11 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(Args g) {
       }
 
       if (ro < ni) {
-        T* orow = O + (c0 + i0 + ro) * o_row;
+        float* orow = O + (c0 + i0 + ro) * o_row;
 #pragma unroll
         for (int i = 0; i < kMaxNP / 4; ++i) {
           const int p = po + 4 * i;
-          if (p < P) store(orow + p, acc[i]);
+          if (p < P) orow[p] = acc[i];
         }
       }
     }
@@ -248,27 +307,25 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(Args g) {
     // state update: S <- exp(total) S + (k exp(total - cum))^T v
     __syncthreads();
     const float et = expf(total);
-    for (int e = tid; e < N * P; e += kThreads) {
+    for (int e = tid; e < N * P; e += kF32Threads) {
       const int n = e / P, p = e % P;
       sS[n * ldp + p] *= et;
     }
     for (int j0 = 0; j0 < c; j0 += kT) {
       const int nj = min(kT, c - j0);
       __syncthreads();
-      for (int e = tid; e < kT * N; e += kThreads) {
+      for (int e = tid; e < kT * N; e += kF32Threads) {
         const int r = e / N, n = e % N;
-        sK[r * ldn + n] =
-            r < nj ? to_float(K[(c0 + j0 + r) * g.ks[1] + n]) *
-                         expf(total - sCum[j0 + r])
-                   : 0.f;
+        sK[r * ldn + n] = r < nj ? K[(c0 + j0 + r) * g.ks[1] + n] *
+                                       expf(total - sCum[j0 + r])
+                                 : 0.f;
       }
-      for (int e = tid; e < kT * P; e += kThreads) {
+      for (int e = tid; e < kT * P; e += kF32Threads) {
         const int r = e / P, p = e % P;
-        sV[r * ldp + p] =
-            r < nj ? to_float(V[(c0 + j0 + r) * g.vs[1] + p]) : 0.f;
+        sV[r * ldp + p] = r < nj ? V[(c0 + j0 + r) * g.vs[1] + p] : 0.f;
       }
       __syncthreads();
-      for (int e = tid; e < N * P; e += kThreads) {
+      for (int e = tid; e < N * P; e += kF32Threads) {
         const int n = e / P, p = e % P;
         float s = 0.f;
         for (int r = 0; r < nj; ++r) s += sK[r * ldn + n] * sV[r * ldp + p];
@@ -278,40 +335,504 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(Args g) {
   }
 }
 
-size_t smem_bytes(int N, int P, int chunk) {
-  const int ldn = N + 1, ldp = P + 1;
-  return sizeof(float) * ((size_t)N * ldp + 2 * kT * ldn + kT * ldp +
-                          kT * (kT + 1) + chunk +
-                          2 * (kMaxChunk / kScanBlock));
+// --------------------------- bf16: tensor cores --------------------------
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T>
-int launch(const Args& g, cudaStream_t stream) {
-  const size_t smem = smem_bytes(g.N, g.P, g.chunk);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8.  Without .trans a lane receives (row l / 4, columns 2 (l % 4) and
+// 2 (l % 4) + 1) of each; with .trans (rows 2 (l % 4), 2 (l % 4) + 1,
+// column l / 4).
+__device__ __forceinline__ void ldsm4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, float32 sums.  Fragments of
+// lane l (g = l / 4, t = l % 4): a = (g, 2t..), (g + 8, 2t..), (g, 2t + 8..),
+// (g + 8, 2t + 8..); b = (2t.., g), (2t + 8.., g); c = (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// bf16 terms a float32-held operand is split into: three keep about 24
+// bits, as float32 holds them
+constexpr int kTerms = 3;
+
+// (x0, x1) as kTerms bf16 pairs: t[0] = bf16(x), t[i] = bf16(x - t[0] -
+// .. - t[i - 1]) (each difference exact in float32).
+__device__ __forceinline__ void split(float x0, float x1, uint32_t* t) {
+#pragma unroll
+  for (int i = 0; i < kTerms; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    t[i] = as_u32(h);
+    x0 -= __low2float(h);
+    x1 -= __high2float(h);
+  }
+}
+
+__device__ __forceinline__ float2 unpack(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+}
+
+__device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
+
+// Rows [0, rows) of a bf16 matrix with row stride `stride` and `cols`
+// columns (a multiple of 8) into shared memory rows of `ld` elements,
+// 16 B per cp.async; rows past `valid` and columns up to `padded` are
+// zero.
+__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src,
+                                          long long stride, int rows,
+                                          int valid, int cols, int padded) {
+  const int per_row = padded / 8;
+  for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
+    const int r = e / per_row, col = (e % per_row) * 8;
+    bf16* d = dst + r * ld + col;
+    if (r < valid && col < cols)
+      cp_async16(d, src + r * stride + col);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// q's A fragments of one 16-row slice, read from global memory (q is
+// small and shared by the heads): k-step ks covers columns 16ks .. 16ks+15.
+__device__ __forceinline__ void q_frags(uint32_t (*qa)[4], const bf16* Q,
+                                        long long stride, int row, int c,
+                                        int N) {
+  const int g4 = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int ks = 0; ks < kTcMaxNP / 16; ++ks) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row + g4 + 8 * (e % 2);
+      const int col = 16 * ks + 2 * t4 + 8 * (e / 2);
+      qa[ks][e] = r < c && col < N
+                      ? *reinterpret_cast<const uint32_t*>(Q + r * stride +
+                                                           col)
+                      : 0u;
+    }
+  }
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// One CTA of 8 warps per (batch, head, chunk), chunk <= 256 rows, N and
+// P <= 64.  CTAs take tickets in launch order from sync[0]; ticket t is
+// chunk t / (B H) of batch (t % (B H)) / H, head t % H, so the CTA of the
+// chunk before has always started, and waiting on it cannot deadlock.
+//  0. k and v of the chunk into shared memory (cp.async, one group per 64
+//     rows), cum, w_j = exp(total - cum_j).
+//  1. state_c = sum_j (k_j w_j)^T v_j, warp w: state rows 16 (w % 4),
+//     columns 32 (w / 4), starting as the first rows arrive; k_j w_j is
+//     formed in registers from the transposed k fragments and split in
+//     kTerms bf16 terms.
+//  2. the hand-over: once chunk c - 1 has published prev_c (ws slot c - 1),
+//     read it in the layout of the state fragments, publish prev_{c+1} =
+//     exp(total) prev_c + state_c (the plain version's order) in slot c,
+//     and split prev_c into shared memory.
+//  3. intra for the warp's 16-row slices w and 15 - w (equal work on the
+//     causal triangle): per 16 kv columns up to the diagonal, S = q k^T
+//     (exact bf16 products), G = S exp(cum_i - cum_j) on j <= i (expf of
+//     the difference, as the plain version takes it), split in kTerms
+//     terms, and acc += sum_t G_t v.
+//  4. inter: acc += exp(cum_i) (q_i . prev_c) (q exact, prev_c split), and
+//     the bf16 outputs.
+__global__ void __launch_bounds__(kTcThreads, 2) ssd_chunk_tc(Args g) {
+  constexpr int ld = kTcMaxNP + 8;      // shared rows, padded by 16 B
+  extern __shared__ __align__(16) uint8_t smem_b[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_b);   // kTcMaxChunk x ld
+  bf16* sV = sK + kTcMaxChunk * ld;             // kTcMaxChunk x ld
+  bf16* sP = sV + kTcMaxChunk * ld;             // kTerms x kTcMaxNP x ld
+  float* sCum = reinterpret_cast<float*>(sP + kTerms * kTcMaxNP * ld);
+  float* sW = sCum + kTcMaxChunk;               // exp(total - cum)
+  float* sTot = sW + kTcMaxChunk;               // 16 + 16 scan slots
+  float* sCarry = sTot + 16;
+  int* sTicket = reinterpret_cast<int*>(sCarry + 16);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g4 = lane / 4, t4 = lane % 4;
+  if (tid == 0) *sTicket = atomicAdd(g.sync, 1);
+  __syncthreads();
+  const int ticket = *sTicket;
+  const int ci = ticket / (g.B * g.H);
+  const int b = (ticket % (g.B * g.H)) / g.H, h = ticket % g.H;
+  const int N = g.N, P = g.P, c = g.chunk;
+  const int NP = round16(N), PP = round16(P);
+  const int c16 = round16(c);
+  const int n_groups = (c16 + kT - 1) / kT;
+  const int c0 = ci * c;
+  const bf16* Q = static_cast<const bf16*>(g.q) + b * g.qs[0] + h * g.qs[2] +
+                  c0 * g.qs[1];
+  const bf16* K = static_cast<const bf16*>(g.k) + b * g.ks[0] + h * g.ks[2] +
+                  c0 * g.ks[1];
+  const bf16* V = static_cast<const bf16*>(g.v) + b * g.vs[0] + h * g.vs[2] +
+                  c0 * g.vs[1];
+  const float* A = g.a + b * g.as[0] + h * g.as[2] + c0 * g.as[1];
+  bf16* O = static_cast<bf16*>(g.o) + ((long long)b * g.L * g.H + h) * P +
+            (long long)c0 * g.H * P;
+  const long long o_row = (long long)g.H * P;
+  const long long np = (long long)N * P;
+  const bool has_prev = ci > 0, has_next = ci + 1 < g.nc;
+
+  // 0. loads (a group per 64 rows), prefix sums, decays
+  for (int grp = 0; grp < n_groups; ++grp) {
+    const int r0 = grp * kT, rows = min(kT, c16 - r0);
+    load_rows(sK + r0 * ld, ld, K + r0 * g.ks[1], g.ks[1], rows, c - r0, N,
+              NP);
+    load_rows(sV + r0 * ld, ld, V + r0 * g.vs[1], g.vs[1], rows, c - r0, P,
+              PP);
+    cp_async_commit();
+  }
+  if (has_prev)                         // rows and columns past N and P
+    for (int e = tid; e < kTerms * kTcMaxNP * ld / 8; e += kTcThreads)
+      reinterpret_cast<uint4*>(sP)[e] = make_uint4(0, 0, 0, 0);
+  blocked_cumsum(A, g.as[1], c, sCum, sTot, sCarry);
+  const float total = sCum[c - 1];
+  for (int j = c + tid; j < c16; j += kTcThreads) sCum[j] = 0.f;
+  for (int j = tid; j < c16; j += kTcThreads)
+    sW[j] = j < c ? expf(total - sCum[j]) : 0.f;
+
+  // 1. the chunk's own state (not needed for the last chunk), each group
+  // of rows as it arrives
+  const int mt = warp % 4, n0 = 32 * (warp / 4);   // state rows, columns
+  float st[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st[i][e] = 0.f;
+  for (int grp = 0; grp < n_groups; ++grp) {
+    // groups grp + 1 .. n_groups - 1 may still be in flight
+    switch (n_groups - 1 - grp) {
+      case 0: cp_async_wait<0>(); break;
+      case 1: cp_async_wait<1>(); break;
+      case 2: cp_async_wait<2>(); break;
+      default: cp_async_wait<3>(); break;
+    }
+    __syncthreads();
+    if (!has_next || 16 * mt >= NP || n0 >= PP) continue;
+    for (int j16 = grp * kT; j16 < min(c16, (grp + 1) * kT); j16 += 16) {
+      // A = (k w)^T: matrix i holds k rows 8 (i / 2), state rows 8 (i % 2);
+      // a lane's pairs are rows j16 + 2t (+ 1) (+ 8)
+      const int mi = lane / 8;
+      uint32_t kr[4], ak[kTerms][4];
+      ldsm4_t(kr, sK + (j16 + (mi / 2) * 8 + lane % 8) * ld + 16 * mt +
+                      (mi % 2) * 8);
+      const float2 w0 = *reinterpret_cast<const float2*>(sW + j16 + 2 * t4);
+      const float2 w8 =
+          *reinterpret_cast<const float2*>(sW + j16 + 8 + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = unpack(kr[e]);
+        const float2 w = e < 2 ? w0 : w8;
+        uint32_t t[kTerms];
+        split(x.x * w.x, x.y * w.y, t);
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i) ak[i][e] = t[i];
+      }
+#pragma unroll
+      for (int np2 = 0; np2 < 2; ++np2) {
+        if (n0 + 16 * np2 >= PP) continue;
+        uint32_t vb[4];
+        ldsm4_t(vb, sV + (j16 + lane % 16) * ld + n0 + 16 * np2 +
+                        (lane / 16) * 8);
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i) {
+          mma(st[2 * np2], ak[i], vb[0], vb[1]);
+          mma(st[2 * np2 + 1], ak[i], vb[2], vb[3]);
+        }
+      }
+    }
+  }
+  // 2. the hand-over: prev_c from chunk c - 1, prev_{c+1} to chunk c + 1;
+  // a thread's elements are those of its state fragments
+  float prev[4][4];
+  if (has_prev) {
+    if (tid == 0) {
+      // seconds of polling mean a broken chain: fail rather than hang
+      const int* flag = g.sync + 1 + ws_slot(g, b, ci - 1, h);
+      for (int spins = 0; ld_acquire(flag) == 0;)
+        if (++spins > (1 << 22)) __trap();
+    }
+    __syncthreads();
+    const float* S = g.ws + ws_slot(g, b, ci - 1, h) * np;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int r = 16 * mt + g4, col = n0 + 8 * nt + 2 * t4;
+      const bool in_col = col < P;            // P is a multiple of 8
+      const float2 lo = in_col && r < N
+          ? __ldcg(reinterpret_cast<const float2*>(S + r * P + col))
+          : make_float2(0.f, 0.f);
+      const float2 hi = in_col && r + 8 < N
+          ? __ldcg(reinterpret_cast<const float2*>(S + (r + 8) * P + col))
+          : make_float2(0.f, 0.f);
+      prev[nt][0] = lo.x;
+      prev[nt][1] = lo.y;
+      prev[nt][2] = hi.x;
+      prev[nt][3] = hi.y;
+    }
+  }
+  if (has_next) {
+    const float decay = expf(total);
+    float* S = g.ws + ws_slot(g, b, ci, h) * np;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int r = 16 * mt + g4, col = n0 + 8 * nt + 2 * t4;
+      if (col >= P) continue;
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[e] = has_prev ? fmaf(prev[nt][e], decay, st[nt][e]) : st[nt][e];
+      if (r < N)
+        *reinterpret_cast<float2*>(S + r * P + col) = make_float2(x[0], x[1]);
+      if (r + 8 < N)
+        *reinterpret_cast<float2*>(S + (r + 8) * P + col) =
+            make_float2(x[2], x[3]);
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) st_release(g.sync + 1 + ws_slot(g, b, ci, h), 1);
+  }
+  if (has_prev) {                             // prev_c as kTerms bf16 terms
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = n0 + 8 * nt + 2 * t4;
+      if (col >= P) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * mt + g4 + 8 * half;
+        if (r >= N) continue;
+        uint32_t t[kTerms];
+        split(prev[nt][2 * half], prev[nt][2 * half + 1], t);
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i)
+          *reinterpret_cast<uint32_t*>(sP + (i * kTcMaxNP + r) * ld + col) =
+              t[i];
+      }
+    }
+  }
+
+  // 3. intra, slices w and 15 - w
+  float acc[2][kTcMaxNP / 8][4];
+#pragma unroll
+  for (int sl = 0; sl < 2; ++sl)
+#pragma unroll
+    for (int nt = 0; nt < kTcMaxNP / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[sl][nt][e] = 0.f;
+#pragma unroll
+  for (int sl = 0; sl < 2; ++sl) {
+    const int i0 = 16 * (sl == 0 ? warp : 15 - warp);
+    if (i0 >= c) continue;
+    uint32_t qa[kTcMaxNP / 16][4];
+    q_frags(qa, Q, g.qs[1], i0, c, N);
+    const int ia = i0 + g4, ib = ia + 8;
+    const float cum_a = sCum[ia], cum_b = sCum[ib];   // 0 past the chunk
+    for (int j16 = 0; j16 <= i0; j16 += 16) {
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int ks = 0; ks < kTcMaxNP / 16; ++ks) {
+        if (16 * ks >= NP) continue;
+        uint32_t kb[4];
+        ldsm4(kb, sK + (j16 + lane % 8 + (lane / 16) * 8) * ld + 16 * ks +
+                      ((lane / 8) % 2) * 8);
+        mma(sc[0], qa[ks], kb[0], kb[1]);
+        mma(sc[1], qa[ks], kb[2], kb[3]);
+      }
+      // G on j <= i, as A fragments in kTerms bf16 terms (a0/a1 columns
+      // 2t, a2/a3 columns 8 + 2t); the causal mask only on the diagonal
+      // block and rows past a ragged chunk's end
+      const bool edge = j16 == i0 || i0 + 16 > c;
+      uint32_t gk[kTerms][4];
+#pragma unroll
+      for (int jt = 0; jt < 2; ++jt) {
+        const int j = j16 + 8 * jt + 2 * t4;
+        const float2 cj = *reinterpret_cast<const float2*>(sCum + j);
+        float x[4] = {sc[jt][0] * expf(cum_a - cj.x),
+                      sc[jt][1] * expf(cum_a - cj.y),
+                      sc[jt][2] * expf(cum_b - cj.x),
+                      sc[jt][3] * expf(cum_b - cj.y)};
+        if (edge) {
+          if (j > ia || ia >= c) x[0] = 0.f;
+          if (j + 1 > ia || ia >= c) x[1] = 0.f;
+          if (j > ib || ib >= c) x[2] = 0.f;
+          if (j + 1 > ib || ib >= c) x[3] = 0.f;
+        }
+        uint32_t ta[kTerms], tb[kTerms];
+        split(x[0], x[1], ta);
+        split(x[2], x[3], tb);
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i) {
+          gk[i][2 * jt] = ta[i];
+          gk[i][2 * jt + 1] = tb[i];
+        }
+      }
+#pragma unroll
+      for (int np2 = 0; np2 < kTcMaxNP / 16; ++np2) {
+        if (16 * np2 >= PP) continue;
+        uint32_t vb[4];
+        ldsm4_t(vb, sV + (j16 + lane % 16) * ld + 16 * np2 +
+                        (lane / 16) * 8);
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i) {
+          mma(acc[sl][2 * np2], gk[i], vb[0], vb[1]);
+          mma(acc[sl][2 * np2 + 1], gk[i], vb[2], vb[3]);
+        }
+      }
+    }
+  }
+
+  if (has_prev) __syncthreads();             // sP complete
+
+  // 4. inter and the outputs
+#pragma unroll
+  for (int sl = 0; sl < 2; ++sl) {
+    const int i0 = 16 * (sl == 0 ? warp : 15 - warp);
+    if (i0 >= c) continue;
+    const int ia = i0 + g4, ib = ia + 8;
+    if (has_prev) {
+      uint32_t qa[kTcMaxNP / 16][4];
+      q_frags(qa, Q, g.qs[1], i0, c, N);
+      const float ea = ia < c ? expf(sCum[ia]) : 0.f;
+      const float eb = ib < c ? expf(sCum[ib]) : 0.f;
+#pragma unroll
+      for (int np2 = 0; np2 < kTcMaxNP / 16; ++np2) {
+        if (16 * np2 >= PP) continue;
+        float tmp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int ks = 0; ks < kTcMaxNP / 16; ++ks) {
+          if (16 * ks >= NP) continue;
+          const int off = (16 * ks + lane % 16) * ld + 16 * np2 +
+                          (lane / 16) * 8;
+#pragma unroll
+          for (int t = 0; t < kTerms; ++t) {
+            uint32_t pb[4];
+            ldsm4_t(pb, sP + t * kTcMaxNP * ld + off);
+            mma(tmp[0], qa[ks], pb[0], pb[1]);
+            mma(tmp[1], qa[ks], pb[2], pb[3]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          acc[sl][2 * np2 + e][0] += ea * tmp[e][0];
+          acc[sl][2 * np2 + e][1] += ea * tmp[e][1];
+          acc[sl][2 * np2 + e][2] += eb * tmp[e][2];
+          acc[sl][2 * np2 + e][3] += eb * tmp[e][3];
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kTcMaxNP / 8; ++nt) {
+      const int p = 8 * nt + 2 * t4;         // P is a multiple of 8
+      if (p >= P) continue;
+      if (ia < c)
+        *reinterpret_cast<__nv_bfloat162*>(O + ia * o_row + p) =
+            __floats2bfloat162_rn(acc[sl][nt][0], acc[sl][nt][1]);
+      if (ib < c)
+        *reinterpret_cast<__nv_bfloat162*>(O + ib * o_row + p) =
+            __floats2bfloat162_rn(acc[sl][nt][2], acc[sl][nt][3]);
+    }
+  }
+}
+
+// ------------------------------- launches --------------------------------
+
+size_t f32_bytes(int N, int P, int chunk) {
+  const int ldn = N + 1, ldp = P + 1;
+  return sizeof(float) * ((size_t)N * ldp + 2 * kT * ldn + kT * ldp +
+                          kT * (kT + 1) + chunk + 2 * kScanSlots);
+}
+constexpr size_t kChunkTcBytes =
+    sizeof(bf16) * (2 * kTcMaxChunk + kTerms * kTcMaxNP) * (kTcMaxNP + 8) +
+    sizeof(float) * (3 * kTcMaxChunk + 32) + 16;
+
+// Launches with the shared-memory carveout at its largest, so that as many
+// blocks share an SM as its shared memory allows.
+template <typename Kernel>
+int launch_one(Kernel kernel, dim3 grid, int threads, size_t smem,
+               const Args& g, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  ssd_kernel<T><<<g.B * g.H, kThreads, smem, stream>>>(g);
+  kernel<<<grid, threads, smem, stream>>>(g);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int ssd_scan_max_np() { return kMaxNP; }
+// The largest N and P, and the largest chunk, the dtype's kernel takes.
+extern "C" int ssd_scan_max_np(int dtype) {
+  return dtype == 1 ? kTcMaxNP : kMaxNP;
+}
 
-extern "C" int ssd_scan_max_chunk() { return kMaxChunk; }
+extern "C" int ssd_scan_max_chunk(int dtype) {
+  return dtype == 1 ? kTcMaxChunk : kMaxChunk;
+}
 
-extern "C" long long ssd_scan_smem_bytes(int N, int P, int chunk) {
-  return (long long)smem_bytes(N, P, chunk);
+// The dynamic shared memory a block of the dtype's kernel takes.
+extern "C" long long ssd_scan_smem_bytes(int N, int P, int chunk, int dtype) {
+  return (long long)(dtype == 1 ? kChunkTcBytes : f32_bytes(N, P, chunk));
 }
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v and o; a is float32).  Strides are
-// in elements, three per tensor (batch, sequence, head).  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// in elements, three per tensor (batch, sequence, head); for bfloat16 the
+// pointers must be 16 B aligned and N, P and the strides multiples of 8
+// (cp.async).  bfloat16 only: ws is a float32 workspace of
+// B * (L / chunk - 1) * H * N * P values and sync holds
+// 1 + B * (L / chunk - 1) * H zeroed int32; float32 takes neither (null).
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int ssd_scan_launch(const void* q, const void* k, const void* v,
-                               const float* a, void* o, int dtype, int B,
-                               int L, int H, int N, int P, int chunk,
-                               const long long* q_strides,
+                               const float* a, void* o, float* ws, int* sync,
+                               int dtype, int B, int L, int H, int N, int P,
+                               int chunk, const long long* q_strides,
                                const long long* k_strides,
                                const long long* v_strides,
                                const long long* a_strides, void* stream) {
@@ -322,12 +843,15 @@ extern "C" int ssd_scan_launch(const void* q, const void* k, const void* v,
   g.v = v;
   g.a = a;
   g.o = o;
+  g.ws = ws;
+  g.sync = sync;
   g.B = B;
   g.L = L;
   g.H = H;
   g.N = N;
   g.P = P;
   g.chunk = chunk;
+  g.nc = L / chunk;
   for (int i = 0; i < 3; ++i) {
     g.qs[i] = q_strides[i];
     g.ks[i] = k_strides[i];
@@ -335,5 +859,9 @@ extern "C" int ssd_scan_launch(const void* q, const void* k, const void* v,
     g.as[i] = a_strides[i];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch<__nv_bfloat16>(g, s) : launch<float>(g, s);
+  if (dtype == 1)
+    return launch_one(ssd_chunk_tc, dim3(B * H * g.nc), kTcThreads,
+                      kChunkTcBytes, g, s);
+  return launch_one(ssd_f32_kernel, dim3(B * H), kF32Threads,
+                    f32_bytes(N, P, chunk), g, s);
 }

@@ -10,14 +10,19 @@ agrees only when ``Sq == Skv``.
 
 Layouts: ``[BH, S, D]`` (the TPU kernel's; query head ``b`` reads kv head
 ``b // group``) or ``[B, S, H, D]`` (the model's; query head ``h`` reads kv
-head ``h // group``).  bf16 or float32 in, the same type out, float32
-arithmetic: the kernel keeps the probabilities in float32 where ``_sdpa``
-casts them to ``v``'s type before the product.
+head ``h // group``).  bf16 or float32 in, the same type out.  bf16 runs
+on the tensor cores (``wgmma``, TMA loads) with float32 sums, softmax and
+accumulator; it splits the probabilities into two bf16 terms for the
+product with v, so they keep about 16 bits where ``_sdpa`` casts them to
+``v``'s type.  float32 runs on the CUDA cores in float32 throughout.  The
+plain version computes in float32.
 
 ``flash_attention`` launches the kernel for CUDA tensors and takes the
 plain version only for tensors on the CPU; a CUDA tensor never falls back.
 The kernel reads any batch, head and sequence strides (last dimension
-contiguous), so the model's activations and its KV cache go in as views.
+contiguous), so the model's activations and its KV cache go in as views;
+for bf16 (TMA) the pointers must be 16-byte aligned and head_dim and the
+strides multiples of 8 elements, else the wrapper raises.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ __all__ = ["NEG_INF", "attention_plain", "flash_attention"]
 NEG_INF = -1e30                # finite: exp(-inf - -inf) would be NaN
 _SMEM_LIMIT = 232448           # dynamic shared memory a block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ERR_TENSOR_MAP = 10000        # the launcher's code for refused TMA maps
 
 
 def _as_4d(t: torch.Tensor) -> torch.Tensor:
@@ -115,7 +121,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if D > lib.flash_attention_max_d():
         raise ValueError(f"flash_attention: head_dim {D} > "
                          f"{lib.flash_attention_max_d()}")
-    smem = lib.flash_attention_smem_bytes(D)
+    smem = lib.flash_attention_smem_bytes(D, _DTYPES[q.dtype])
     if smem > _SMEM_LIMIT:
         raise ValueError(f"flash_attention: head_dim {D} needs {smem} B "
                          f"of shared memory (limit {_SMEM_LIMIT})")
@@ -123,6 +129,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name}'s last dimension is "
                              "not contiguous")
+        if q.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or D % 8
+                or any(t.stride(i) % 8 for i in range(3))):
+            raise ValueError(f"flash_attention: bf16 {name} is loaded by "
+                             "TMA, which needs a 16-byte aligned pointer "
+                             "and head_dim and strides that are multiples "
+                             f"of 8 (head_dim {D}, strides {t.stride()})")
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     o4 = _as_4d(out)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
@@ -137,6 +150,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             _DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, D, strides(q4),
             strides(k4), strides(v4), strides(o4), int(causal),
             int(q_offset), min(Skv, kv_len), float(scale), stream)
+    if err == _ERR_TENSOR_MAP:
+        raise RuntimeError("flash_attention: cuTensorMapEncodeTiled refused "
+                           "the TMA maps of q, k or v")
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1
@@ -160,7 +176,7 @@ def _lib() -> ctypes.CDLL:
             p, p, p, p, i, i, i, i, i, i, i, s, s, s, s, i, i, i,
             ctypes.c_float, p]
         lib.flash_attention_launch.restype = i
-        lib.flash_attention_smem_bytes.argtypes = [i]
+        lib.flash_attention_smem_bytes.argtypes = [i, i]
         lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
         lib.flash_attention_max_d.argtypes = []
         lib.flash_attention_max_d.restype = i

@@ -15,13 +15,23 @@ sums ``cum`` follow ``blocked_cumsum``'s association, which is that of
 ``jnp.cumsum`` on the CPU: the gates take differences of prefix sums that
 reach -100 and more, so another association moves them by 1e-4 relative.
 q, k and v are bf16 or float32, ``a`` (<= 0) is float32; the output has
-v's type; all arithmetic is float32.
+v's type.  The plain version computes in float32, and so does the float32
+kernel; the bf16 kernel multiplies on the tensor cores with float32 sums,
+splitting every float32-held operand into three bf16 terms.
 
-``ssd_scan`` launches the kernel for CUDA tensors and takes the plain
-version only for tensors on the CPU; a CUDA tensor never falls back.  The
-kernel reads any batch, sequence and head strides (last dimension
-contiguous), so Mamba-2's q and k, broadcast over heads (head stride 0),
-go in without a copy.
+``ssd_scan`` launches the kernel for CUDA tensors (float32: one block per
+(batch, head) that walks the chunks in order; bf16: one block per (batch,
+head, chunk), each chunk handing its state on to the next; one count per
+call) and takes the plain version only for tensors on the CPU; a CUDA
+tensor never falls back.  The kernels read any batch, sequence and head
+strides (last dimension contiguous), so Mamba-2's q and k, broadcast over
+heads (head stride 0), go in without a copy.  The bf16 kernel takes N and
+P up to 64 and chunks up to 256 rows (every configuration of the
+repository), and its ``cp.async`` loads need 16-byte aligned pointers and
+N, P and strides that are multiples of 8 elements; the wrapper raises
+otherwise.  For bf16 the wrapper allocates the float32 workspace of the
+states entering chunks ``1 .. L / chunk - 1``, ``[B, L / chunk - 1, H, N,
+P]``, and the zeroed int32 ticket counter and ready flags.
 """
 from __future__ import annotations
 
@@ -107,7 +117,7 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors.
 
     Tensors on the CPU take ``ssd_scan_plain``.  ``ssd_scan.launches``
-    counts kernel launches.
+    counts calls that launched the kernel (one per call).
     """
     _check(q, k, v, a, chunk)
     dev = v.device
@@ -121,13 +131,15 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     P = v4.shape[-1]
     c = min(chunk, L)
     lib = _lib()
-    limit = lib.ssd_scan_max_np()
+    dt = _DTYPES[v.dtype]
+    limit = lib.ssd_scan_max_np(dt)
     if N > limit or P > limit:
-        raise ValueError(f"ssd_scan: N {N} or P {P} above {limit}")
-    if c > lib.ssd_scan_max_chunk():
+        raise ValueError(f"ssd_scan: N {N} or P {P} above {limit} "
+                         f"({v.dtype})")
+    if c > lib.ssd_scan_max_chunk(dt):
         raise ValueError(f"ssd_scan: chunk {c} above "
-                         f"{lib.ssd_scan_max_chunk()}")
-    smem = lib.ssd_scan_smem_bytes(N, P, c)
+                         f"{lib.ssd_scan_max_chunk(dt)} ({v.dtype})")
+    smem = lib.ssd_scan_smem_bytes(N, P, c, dt)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"ssd_scan: N {N}, P {P}, chunk {c} need {smem} B "
                          f"of shared memory (limit {_SMEM_LIMIT})")
@@ -135,7 +147,24 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(3) != 1:
             raise ValueError(f"ssd_scan: {name}'s last dimension is not "
                              "contiguous")
+        if v.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or t.shape[3] % 8
+                or any(t.stride(i) % 8 for i in range(3))):
+            raise ValueError(f"ssd_scan: bf16 {name} is loaded by cp.async, "
+                             "which needs a 16-byte aligned pointer and a "
+                             "last dimension and strides that are "
+                             f"multiples of 8 (shape {tuple(t.shape)}, "
+                             f"strides {t.stride()})")
     out = torch.empty((B, L, H, P), dtype=v.dtype, device=dev)
+    ws = sync = None
+    if v.dtype == torch.bfloat16:
+        # the states entering chunks 1 .. nc - 1; a ticket counter and one
+        # ready flag per state (zeroed)
+        nc = L // c
+        ws = torch.empty((B, nc - 1, H, N, P), dtype=torch.float32,
+                         device=dev)
+        sync = torch.zeros((1 + B * (nc - 1) * H,), dtype=torch.int32,
+                           device=dev)
 
     def strides(t):                  # batch, sequence, head (elements)
         return (ctypes.c_longlong * 3)(t.stride(0), t.stride(1), t.stride(2))
@@ -144,8 +173,9 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssd_scan_launch(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), a3.data_ptr(),
-            out.data_ptr(), _DTYPES[v.dtype], B, L, H, N, P, c, strides(q4),
-            strides(k4), strides(v4), strides(a3), stream)
+            out.data_ptr(), None if ws is None else ws.data_ptr(),
+            None if sync is None else sync.data_ptr(), dt, B, L, H, N, P, c,
+            strides(q4), strides(k4), strides(v4), strides(a3), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     ssd_scan.launches += 1
@@ -165,13 +195,13 @@ def _lib() -> ctypes.CDLL:
         lib = load_library("ssd_scan")
         p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(
             ctypes.c_longlong)
-        lib.ssd_scan_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                        s, s, s, s, p]
+        lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                        i, i, i, s, s, s, s, p]
         lib.ssd_scan_launch.restype = i
-        lib.ssd_scan_smem_bytes.argtypes = [i, i, i]
+        lib.ssd_scan_smem_bytes.argtypes = [i, i, i, i]
         lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
         for name in ("ssd_scan_max_np", "ssd_scan_max_chunk"):
-            getattr(lib, name).argtypes = []
+            getattr(lib, name).argtypes = [i]
             getattr(lib, name).restype = i
         _LIB = lib
     return _LIB

@@ -149,6 +149,10 @@ CUDA_CASES = [
     (2, 48, 68, 4, 2, 80, True, 0, 48),
     (1, 256, 256, 2, 2, 64, False, 0, None),
     (1, 33, 97, 8, 8, 80, False, 0, 61),
+    (2, 100, 300, 4, 4, 80, True, 37, 200),    # D 80, q_offset and kv_len
+    (1, 384, 384, 4, 2, 80, True, 0, None),    # 128-row tiles on the
+    (1, 300, 300, 2, 2, 80, True, 0, None),    # diagonal, whole and ragged
+    (2, 1000, 1056, 8, 8, 80, True, 0, 1000),  # prefill into a cache
 ]
 
 
@@ -172,3 +176,17 @@ def test_cuda_kernel_matches_plain(case, bf16):
     assert flash_attention.launches == before + 1
     close(out.cpu(), plain.float().cpu().numpy(),
           BF16_TOL if bf16 else F32_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_rejects_what_tma_cannot_load():
+    """bf16 is loaded by TMA: head_dim and strides must be multiples of 8
+    elements.  The wrapper raises rather than fall back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q = torch.zeros((1, 8, 2, 20), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention(q, q, q)
+    wide = torch.zeros((1, 8, 2, 36), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention(wide[..., 4:], wide[..., 4:], wide[..., 4:])

@@ -33,15 +33,21 @@ GLA_SHAPES = [(1, 128, 1, 16, 16, 64), (2, 256, 2, 64, 64, 128),
               (1, 512, 4, 32, 64, 128), (1, 256, 2, 64, 64, 256)]
 
 
-def inputs(seed, B, L, H, N, P, *, heads_qk=None):
-    """q, k, v and a <= 0 (``-softplus`` of a normal draw), float32 numpy;
-    ``heads_qk=1`` draws q and k once and broadcasts them over heads."""
+def inputs(seed, B, L, H, N, P, *, heads_qk=None, slow=False):
+    """q, k, v and a <= 0 (``-softplus`` of a normal draw, or with ``slow``
+    the slow decay ``-0.01 U[0, 1)`` that Mamba-2's small dt gives),
+    float32 numpy; ``heads_qk=1`` draws q and k once and broadcasts them
+    over heads."""
     rng = np.random.default_rng(seed)
     hq = heads_qk or H
     q = rng.standard_normal((B, L, hq, N)).astype(np.float32)
     k = rng.standard_normal((B, L, hq, N)).astype(np.float32)
     v = rng.standard_normal((B, L, H, P)).astype(np.float32)
-    a = -np.logaddexp(rng.standard_normal((B, L, H)), 0).astype(np.float32)
+    if slow:
+        a = (-0.01 * rng.random((B, L, H))).astype(np.float32)
+    else:
+        a = -np.logaddexp(rng.standard_normal((B, L, H)), 0).astype(
+            np.float32)
     return q, k, v, a
 
 
@@ -150,6 +156,71 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         TL.gla_chunked(q[:, :30], q[:, :30], v[:, :30], a[:, :30], 16)
 
 
+# ----------------- the bf16 kernel's operand precision ---------------------
+
+def _once(x):
+    return x.bfloat16().float()
+
+
+def _split(x, terms=2):
+    """x as a sum of ``terms`` bf16 values: bf16(x), bf16(x - that), ...
+    (the bf16 kernel multiplies three)."""
+    out = torch.zeros_like(x)
+    for _ in range(terms):
+        out = out + (x - out).bfloat16().float()
+    return out
+
+
+def _kernel_operands(q, k, v, a, chunk, rnd):
+    """The bf16 kernel's products in float32, every float32-held operand it
+    gives the tensor cores passed through ``rnd``: the gated scores G and
+    the decayed k (each times v) and the state entering a chunk (times q).
+    q, k and v hold bf16 values, so their own products are exact; the inter
+    term scales q . state by exp(cum) after the product, as the kernel
+    does.  [B, L, H, X] in, float32 out."""
+    from repro_torch.kernels.scar_eval.kernel import blocked_cumsum
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    af = a.float().transpose(1, 2)
+    B, H, L, N = qf.shape
+    state = qf.new_zeros((B, H, N, vf.shape[-1]))
+    tril = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    outs = []
+    for c0 in range(0, L, chunk):
+        qc, kc, vc = (t[:, :, c0:c0 + chunk] for t in (qf, kf, vf))
+        cum = blocked_cumsum(af[:, :, c0:c0 + chunk].movedim(-1, 0)).movedim(
+            0, -1)
+        total = cum[..., -1:]
+        rel = cum[..., :, None] - cum[..., None, :]
+        gate = torch.where(tril, torch.exp(torch.where(tril, rel, 0.0)), 0.0)
+        intra = rnd((qc @ kc.transpose(-1, -2)) * gate) @ vc
+        inter = torch.exp(cum)[..., None] * (qc @ rnd(state))
+        outs.append(intra + inter)
+        k_dec = rnd(kc * torch.exp(total - cum)[..., None])
+        state = (state * torch.exp(total)[..., None]
+                 + k_dec.transpose(-1, -2) @ vc)
+    return torch.cat(outs, dim=2).transpose(1, 2)
+
+
+def test_bf16_operand_split_meets_the_tolerance_one_rounding_breaks():
+    """Slow decay, B 1, L 1024, H 8, N = P = 64, chunk 256, q and k
+    broadcast: rounding G, the decayed k and the state once to bf16 puts
+    outputs beyond rtol = atol = 2e-2 of the float32 plain version; a split
+    into two bf16 terms (hi + lo, two products each) puts none there, and
+    neither do the kernel's three."""
+    x = inputs(11, 1, 1024, 8, 64, 64, heads_qk=1, slow=True)
+    q, k, v, a = (t.bfloat16().float() if t.dtype == torch.float32
+                  and i < 3 else t for i, t in enumerate(to_torch(*x)))
+    ref = ssd_scan_plain(q, k, v, a, chunk=256)
+
+    def beyond(out):
+        return int(((out - ref).abs() > 2e-2 + 2e-2 * ref.abs()).sum())
+
+    assert beyond(_kernel_operands(q, k, v, a, 256, _once)) > 1000
+    assert beyond(_kernel_operands(q, k, v, a, 256, _split)) == 0
+    assert beyond(_kernel_operands(
+        q, k, v, a, 256, lambda x: _split(x, terms=3))) == 0
+
+
 # ------------------------------ on the card --------------------------------
 
 CUDA_CASES = [
@@ -159,6 +230,7 @@ CUDA_CASES = [
     (2, 48, 4, 16, 16, 16, True),
     (1, 512, 3, 64, 64, 256, True),
     (1, 200, 2, 32, 48, 40, False),
+    (4, 1024, 80, 64, 64, 256, True),      # the zamba2-2.7b serve shape
 ]
 
 
@@ -181,3 +253,83 @@ def test_cuda_kernel_matches_plain(case, bf16):
     assert ssd_scan.launches == before + 1
     close(out.cpu(), plain.float().cpu().numpy(),
           BF16_TOL if bf16 else F32_TOL)
+
+
+SLOW_CASES = [
+    # (B, L, H, N, P, chunk, q and k broadcast): slow decay, >= 4 chunks
+    (1, 1024, 8, 64, 64, 256, True),
+    (2, 256, 4, 32, 48, 64, False),
+    (4, 1024, 80, 64, 64, 256, True),      # the serve shape
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SLOW_CASES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cuda_kernel_matches_plain_on_slow_decay(case, bf16):
+    """On the card, a = -0.01 U[0, 1).  bf16: where rounding the kernel's
+    float32-held operands once to bf16 would break 2e-2 (the CPU test
+    above).  float32: the state sums up to 1024 barely decayed steps into
+    outputs of several hundred, so an output near zero carries the
+    summation order's own error (about 1e-4) beyond an elementwise 2e-5;
+    the kernel is held to 2e-5 of the largest plain output, which a state
+    lost or taken twice would break by far."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, L, H, N, P, chunk, shared = case
+    t = to_torch(*inputs(L + N + P, B, L, H, N, P,
+                         heads_qk=1 if shared else None, slow=True),
+                 dt=torch.bfloat16 if bf16 else torch.float32,
+                 device="cuda")
+    before = ssd_scan.launches
+    out = ssd_scan(*t, chunk=chunk)
+    plain = ssd_scan_plain(*t, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    if bf16:
+        close(out.cpu(), plain.float().cpu().numpy(), BF16_TOL)
+    else:
+        assert bool(torch.isfinite(out).all())
+        assert (out - plain).abs().max().item() <= \
+            F32_TOL["atol"] * plain.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_zero_decay_is_the_exact_running_sum():
+    """On the card, bf16, a = 0 over 8 chunks of 256, N = P = 64, q and k
+    broadcast: with entries in {-1, 0, 1} every product and sum is an
+    integer float32 holds exactly, so each output is the exact causal sum
+    rounded once to bf16, and a state lost or taken twice anywhere in the
+    chain of chunks shows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(8)
+    q, k = (torch.tensor(rng.integers(-1, 2, (2, 2048, 1, 64))).to(
+        "cuda", torch.bfloat16).expand(2, 2048, 4, 64) for _ in range(2))
+    v = torch.tensor(rng.integers(-1, 2, (2, 2048, 4, 64))).to(
+        "cuda", torch.bfloat16)
+    exact = torch.einsum(
+        "bhij,bjhp->bihp",
+        torch.einsum("bihn,bjhn->bhij", q.double(), k.double()).tril(),
+        v.double())
+    out = ssd_scan(q, k, v, torch.zeros((2, 2048, 4), device="cuda"),
+                   chunk=256)
+    assert torch.equal(out, exact.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_rejects_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    a = torch.zeros((1, 64, 2), device="cuda")
+    q = torch.zeros((1, 64, 2, 96), **bf)
+    with pytest.raises(ValueError, match="above 64"):
+        ssd_scan(q, q, torch.zeros((1, 64, 2, 16), **bf), a, chunk=64)
+    q = torch.zeros((1, 64, 2, 12), **bf)
+    with pytest.raises(ValueError, match="cp.async"):
+        ssd_scan(q, q, torch.zeros((1, 64, 2, 16), **bf), a, chunk=64)
+    big = torch.zeros((1, 512, 2, 16), **bf)
+    with pytest.raises(ValueError, match="chunk 512 above"):
+        ssd_scan(big, big, big, torch.zeros((1, 512, 2), device="cuda"),
+                 chunk=512)
