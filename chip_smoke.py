@@ -13,11 +13,15 @@ reference package.  Phases, each printed as it runs:
 
 1. card: ``nvidia-smi`` name, power limit and SM clock, library versions,
    kernel builds (one ``nvcc`` per source, all at once)
-2. kernels: ``scar_eval`` against ``scar_eval_plain`` over a sweep of
-   shapes and on the packed inputs of the largest 16x16 production batch;
-   ``scar_search`` against ``conflict_counts_plain`` over a sweep and on
-   the screen inputs of the 16x16 fused run's largest beam stage; CUDA-event
-   and profiler times and the card's bound for the same work
+2a. ``scar_eval`` (a whole window's scores, comm terms included, in one
+   launch) against ``scar_eval_window_plain``, bit for bit, over a sweep
+   of shapes (one and four models a launch) and on every window of the
+   16x16 production run, built as the fused schedule builds them; CUDA-event
+   and profiler times of the largest window and the card's bound for it
+2b. ``scar_search`` (a beam stage's whole screen: disjointness, keep,
+   expansion budget, masked scores) against ``scar_search_plain``, bit for
+   bit in float32 and float64, over a sweep and on the inputs of the 16x16
+   fused run's largest beam stage, with times and the bound
 2c. ``flash_attention`` against ``attention_plain`` over a sweep (Sq == Skv
    of 1 to 2048, Sq < Skv with ``q_offset`` and ``kv_len``, head_dim 16 to
    128, GQA groups 1, 2, 8, causal or not, bf16 and float32) and on the
@@ -37,10 +41,13 @@ reference package.  Phases, each printed as it runs:
    ``algo="beam_jax"`` (one fetch per window)
 4. production size: ``dc4_lms_seg_image`` on the 16x16 ``het_cb`` pod at
    ``path_cap=1024``, with ``algo="beam"`` under ``auto`` and with
-   ``algo="beam_jax"``; each run counts its kernel launches from zero.  One
-   window's fused program runs under ``torch.cuda.set_sync_debug_mode
-   ("error")``, so a hidden sync raises; traced span breakdowns of both
-   paths and the fused run's device time from ``torch.profiler``
+   ``algo="beam_jax"``; each run counts its kernel launches from zero (one
+   ``scar_eval`` a window and one ``scar_search`` a beam stage under
+   ``beam_jax``).  One window's fused program runs under
+   ``torch.cuda.set_sync_debug_mode("error")``, so a hidden sync raises;
+   the profiler's device events of each window program, traced span
+   breakdowns of both paths and each run's device time from
+   ``torch.profiler``
 6. LM serving at full width: ``repro_torch.launch.serve.main`` on
    zamba2-2.7b, batch 4, prompt 1024, 32 tokens, bf16, greedy: 45
    ``ssd_scan`` and 9 ``flash_attention`` launches per prefill and none in
@@ -115,14 +122,23 @@ SSD_SLOW_CASES = ((1, 1024, 8, 64, 64, 256, True),
 SSD_LONG = (1024, 4096, 16384, 32768)
 KERNEL_RTOL = 1e-5              # of max |plain|; both float32
 
-SWEEP_B = (1, 127, 128, 7872, 65536)
-SWEEP_LW = (1, 11, 56, 80, 300)
+# scar_eval sweep: B, Lw (2 400 takes 54 KB of shared memory at C = 2,
+# past the 48 KB a launch gets without opting in; 5 000 a third carry
+# level of the blocked prefix), S, C, models a launch
+SWEEP_B = (1, 127, 128, 4672, 65536)
+SWEEP_LW = (1, 16, 17, 56, 300, 2400, 5000)
 SWEEP_S = (1, 6, 8)
 SWEEP_C = (2, 3)
+SWEEP_MODELS = (1, 4)
+# scar_search sweep: Bm, N (8 193: one past a 1 024-candidate tile;
+# 65 536 at Bm 64: 4 096 CTAs, several waves of the card, so tiles wait on
+# tickets whose CTAs started in an earlier wave), W (each vector path and
+# the any-W one), keep (N: no limit), max_exp, score type
 SEARCH_BM = (1, 48, 64)
-SEARCH_N = (1, 255, 2048, 2049, 65536)
-SEARCH_W = (2, 8)
-POPC_PER_CLOCK_PER_SM = 16      # 32-bit population count, compute 9.0
+SEARCH_N = (1, 255, 8192, 8193, 65536)
+SEARCH_W = (2, 3, 4, 8)
+SEARCH_MAX_EXP = (1, 7, 20000)
+LOP3_PER_CLOCK_PER_SM = 64      # 32-bit logical operation, compute 9.0
 H100_SMS = 132
 PROD_KEY = "het_cb_16x16_cap1024/dc4_lms_seg_image"
 # Scenarios whose all-float32 run (eval_backend="cuda") breaks an exact tie
@@ -191,111 +207,154 @@ def show_parts(parts) -> str:
     return "; ".join(f"{k} x{n:g} {t:.6f} ms" for k, n, t in parts)
 
 
-def random_compact(B, Lw, S, C, seed, dev):
-    """Seeded compact kernel inputs on the card, with padding rows."""
-    g = torch.Generator(device=dev).manual_seed(seed)
+def random_model(rng, B, Lw, S, C, *, prev_end=None, pipelined=True):
+    """Seeded raw inputs of one model (``scar_eval.ModelInputs``) on the
+    host: some zero byte counts (the comm formulas' ``sz > 0`` branches),
+    a single-segment row and a padding row."""
+    from repro_torch.kernels.scar_eval import ModelInputs
 
-    def logn(shape, mu, sigma):
-        return torch.exp(mu + sigma * torch.randn(shape, generator=g,
-                                                  device=dev))
+    def logn(mu, shape, zeros=0.0):
+        a = rng.lognormal(mu, 2, shape).astype(np.float32)
+        return np.where(rng.random(shape) < zeros, np.float32(0), a)
 
-    kmax = min(S, Lw)
-    n_segs = torch.randint(0, kmax + 1, (B,), generator=g, device=dev)
+    n_segs = rng.integers(1, min(S, Lw) + 1, B)
     n_segs[0] = 1
-    # k - 1 distinct sorted cut points in [0, Lw - 2], then the window end
-    width = max(1, Lw - 1)
-    keys = torch.rand((B, width), generator=g, device=dev)
-    idx = keys.argsort(dim=1)[:, :max(0, kmax - 1)]
-    j = torch.arange(S, device=dev)
-    big = torch.full((B, S), Lw, dtype=torch.long, device=dev)
-    big[:, :idx.shape[1]] = torch.where(
-        j[None, :idx.shape[1]] < (n_segs - 1)[:, None], idx, Lw)
-    cuts = big.sort(dim=1).values
-    last = torch.where(j[None, :] < (n_segs - 1)[:, None], cuts,
-                       torch.where(j[None, :] == (n_segs - 1)[:, None],
-                                   Lw - 1, -1))
-    return (logn((Lw, C), -9.0, 2.0).float(), logn((Lw, C), -5.0, 2.0).float(),
-            torch.randint(0, C, (B, S), generator=g, device=dev,
-                          dtype=torch.int32),
-            last.to(torch.int32), n_segs.to(torch.int32),
-            logn((B, S), -10.0, 1.0).float(), logn((B, S), -6.0, 1.0).float())
+    if B > 1:
+        n_segs[-1] = 0
+    # k - 1 strictly increasing cuts in [0, Lw - 2], then the window end
+    j = np.arange(S)
+    u = np.sort(rng.random((B, S)), axis=1)
+    cuts = np.floor(u * (Lw - n_segs[:, None] + 1)).astype(np.int64) + j
+    last = np.where(j < n_segs[:, None] - 1, cuts,
+                    np.where(j == n_segs[:, None] - 1, Lw - 1, -1))
+    chips = np.where(j < n_segs[:, None], rng.integers(0, 36, (B, S)), -1)
+    return ModelInputs(logn(-9, (Lw, C)), logn(-5, (Lw, C)),
+                       logn(12, Lw, 0.1), logn(10, Lw, 0.1),
+                       float(np.float32(rng.lognormal(10, 1))),
+                       chips.astype(np.int32), last.astype(np.int32),
+                       n_segs.astype(np.int32), prev_end, pipelined)
 
 
-def compare(args, pipelined, kernel, plain):
-    out = kernel(*args, pipelined)
-    ref = plain(*args, pipelined)
+def random_window(rng, n_models, B, Lw, S, C, dev):
+    """A seeded ``scar_eval`` window batch on the card, on a 6x6 mesh: one
+    model, or four of other widths and batch sizes, cold and anchored,
+    pipelined and not."""
+    from repro_torch.core.chiplet import PackageParams
+    from repro_torch.kernels.scar_eval import pack_window
+    models = [random_model(rng, max(1, B >> i), max(1, Lw - 7 * i), S, C,
+                           prev_end=None if i % 2 == 0 else 5 * i,
+                           pipelined=i != 3) for i in range(n_models)]
+    return pack_window(models, rng.integers(0, C, 36), PackageParams(), 6,
+                       n_models, device=dev)
+
+
+def same_bits(out, ref, what: str) -> float:
+    """Raises unless ``out`` equals ``ref`` bit for bit; returns
+    ``max |out - ref|`` over the finite entries (0.0)."""
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(out).all()), "kernel output not finite")
-    err = (out - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    check(err <= KERNEL_RTOL * scale,
-          f"kernel disagrees: max |kernel - plain| = {err} > "
-          f"{KERNEL_RTOL} * {scale}")
+    fin = torch.isfinite(ref)
+    err = (out[fin] - ref[fin]).abs().max().item() if fin.any() else 0.0
+    check(torch.equal(out, ref), f"{what}: kernel differs from its plain "
+          f"version (max |kernel - plain| {err})")
     return err
 
 
-def bound_ms(args) -> tuple[float, str]:
-    """Least time the card needs: inputs read once, output written once,
-    against the adds/compares the function does (float32)."""
-    lat_tab, e_tab, seg_cls, last, n_segs, comm_lat, comm_e = args
-    B, S = seg_cls.shape
-    nbytes = sum(t.numel() * t.element_size() for t in args) + B * 2 * 4
-    live = int(n_segs.clamp(max=S).sum().item())
-    # per live segment: 2 differences, 2 comm adds, 2 accumulations, 1 max;
-    # plus the 2 * Lw * C prefix additions
-    flops = 7 * live + 2 * lat_tab.numel()
+def eval_bound_ms(batch) -> tuple[float, str]:
+    """``scar_eval``'s least time on one window: every input read once and
+    the ``[B, 2]`` scores written once, against the float32 operations:
+    about 32 a live segment (segment sums, the DRAM and NoP formulas, the
+    segment total, sum and max), 13 a candidate (its first segment's
+    input) and ``(2 C + 1) Lw`` prefix additions a model."""
+    nbytes = sum(t.numel() * t.element_size() for t in batch[:10]) \
+        + 8 * batch.chips.shape[0]
+    live = int(batch.n_segs.clamp(0, batch.chips.shape[1]).sum().item())
+    cands = int((batch.n_segs > 0).sum().item())
+    flops = 32 * live + 13 * cands + (2 * batch.lat_tab.shape[1] + 1) \
+        * batch.lat_tab.shape[0]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def search_bound_ms(beam, cand, sm_clock_hz) -> tuple[float, str]:
-    """``scar_search``'s least time: its words read once and counts
-    written once, against its ``Bm * N * W`` popcounts at 16 per clock per
-    SM on 132 SMs at the card's maximum SM clock."""
-    bm, w = beam.shape
-    n = cand.shape[0]
-    t_bytes = 4 * (bm * w + n * w + bm * n) / HBM_BYTES_PER_S * 1e3
-    t_ops = bm * n * w / (POPC_PER_CLOCK_PER_SM * H100_SMS
-                          * sm_clock_hz) * 1e3
+def screen_bound_ms(t, sm_clock_hz) -> tuple[float, str]:
+    """``scar_search``'s least time on one stage: its words, validity,
+    state and lat / energy rows read once, the score plane and state
+    written once, against the disjointness test of this stage's live rows
+    and valid candidates, ``W`` AND-into-OR operations (one LOP3 each) a
+    pair at 64 per clock per SM on 132 SMs at the card's maximum SM
+    clock."""
+    bm, w = t["beam_words"].shape
+    n = t["cand_words"].shape[0]
+    es = t["c_lat"].element_size()
+    nbytes = 4 * (bm + n) * w + n + es * (2 * bm + 2 * n + bm * n) + 64
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    pairs = min(int(t["state"][2]), bm) * int(t["valid"].sum())
+    t_ops = pairs * w / (LOP3_PER_CLOCK_PER_SM * H100_SMS
+                         * sm_clock_hz) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def random_words(rows, w, seed, dev):
-    """Seeded int32-held uint32 words on the card: dense, sparse (ANDs of
-    three draws), and an all-zero and an all-ones row."""
+def random_stage(bm, n, w, dtype, seed, dev):
+    """Seeded screen inputs on the card: int32-held uint32 words (dense,
+    and sparse ANDs of three and of six draws, so that rows find few or
+    many disjoint candidates; an all-zero and an all-ones row), a valid
+    prefix, live rows and expansions so far, and lat / energy rows."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
-    def draw():
-        return torch.randint(-2 ** 31, 2 ** 31, (rows, w), generator=g,
-                             device=dev, dtype=torch.int64).to(torch.int32)
-    dense = draw()
-    sparse = dense & draw() & draw()
-    pick = torch.rand((rows, 1), generator=g, device=dev) < 0.5
-    out = torch.where(pick, dense, sparse)
-    out[0] = 0
-    if rows > 1:
-        out[1] = -1
-    return out.contiguous()
+    def words(rows):
+        def draw():
+            return torch.randint(-2 ** 31, 2 ** 31, (rows, w), generator=g,
+                                 device=dev, dtype=torch.int64).to(
+                                     torch.int32)
+        dense = draw()
+        sparse3 = dense & draw() & draw()
+        sparse6 = sparse3 & draw() & draw() & draw()
+        pick = torch.randint(0, 3, (rows, 1), generator=g, device=dev)
+        out = torch.where(pick == 0, dense,
+                          torch.where(pick == 1, sparse3, sparse6))
+        out[0] = 0
+        if rows > 1:
+            out[1] = -1
+        return out.contiguous()
+
+    def logn(rows, mu):
+        return torch.exp(mu + torch.randn(rows, generator=g, device=dev)
+                         ).to(dtype)
+
+    n_valid = int(torch.randint(n // 2, n + 1, (1,), generator=g,
+                                device=dev).item())
+    live = int(torch.randint(0, bm + 1, (1,), generator=g,
+                             device=dev).item())
+    return dict(beam_words=words(bm), cand_words=words(n),
+                valid=torch.arange(n, device=dev) < n_valid,
+                state=torch.tensor([0, seed % 10, live, 0], device=dev),
+                b_lat=logn(bm, -6.0), b_e=logn(bm, -2.0),
+                c_lat=logn(n, -6.0), c_e=logn(n, -2.0))
 
 
 def largest_screen(case, dev):
-    """The ``(beam words, candidate words)`` of the largest beam stage
-    (by ``Bm * N``) of the fused 16x16 run, recorded from the stage's
-    ``conflict_counts`` call in a run of its own."""
+    """The screen inputs of the largest beam stage (by ``Bm * N``, then
+    by live beam rows) of the fused 16x16 run, recorded from the stage's
+    ``screen`` call in a run of its own."""
     from repro_torch.core import device_search, get_scenario, make_mcm
     from repro_torch.core import schedule
     from repro_torch.core.scheduler import SearchConfig
     seen = {}
-    real = device_search.conflict_counts
+    real = device_search.screen
 
-    def record(beam, cand, *, use_kernel):
-        if beam.shape[0] * cand.shape[0] > seen.get("size", -1):
-            seen.update(size=beam.shape[0] * cand.shape[0],
-                        args=(beam.clone(), cand.clone()))
-        return real(beam, cand, use_kernel=use_kernel)
+    def record(beam_words, cand_words, valid, state, *, use_kernel,
+               **stage):
+        key = (beam_words.shape[0] * cand_words.shape[0],
+               int(state[2].item()))
+        if key > seen.get("key", (-1, -1)):
+            args = dict(beam_words=beam_words, cand_words=cand_words,
+                        valid=valid, state=state, **stage)
+            seen.update(key=key, args={k: v.clone() if torch.is_tensor(v)
+                                       else v for k, v in args.items()})
+        return real(beam_words, cand_words, valid, state,
+                    use_kernel=use_kernel, **stage)
 
-    device_search.conflict_counts = record
+    device_search.screen = record
     try:
         schedule(get_scenario(case["scenario"]),
                  make_mcm(case["pattern"], rows=case["rows"],
@@ -303,7 +362,7 @@ def largest_screen(case, dev):
                  SearchConfig(path_cap=case["path_cap"], algo="beam_jax"),
                  device=dev)
     finally:
-        device_search.conflict_counts = real
+        device_search.screen = real
     return seen["args"]
 
 
@@ -350,34 +409,54 @@ def device_time_of(run) -> tuple[float, float, list, int]:
     return wall, sum(r[2] for r in rows), rows[:5], sum(r[1] for r in rows)
 
 
-def fused_window_without_sync(case, dev) -> None:
-    """Window 0 of the 16x16 fused run: upload its inputs, then run its
-    device program with synchronising CUDA calls turned into errors."""
-    from repro_torch.core import device_search, get_scenario, make_mcm
+def production_windows(case, dev):
+    """Every window of the golden 16x16 run, built and uploaded as the
+    fused schedule builds it (``DeviceBeamEngine.window_inputs``), each
+    window's anchors taken from the golden plans of the windows before it.
+    Returns the config, the engine and per window ``(window, n_pad)``."""
+    from repro_torch.core import get_scenario, make_mcm
     from repro_torch.core.engine import DeviceBeamEngine
     from repro_torch.core.reconfig import greedy_pack
     from repro_torch.core.scheduler import SearchConfig, get_cost_db
-    from repro_torch.launch import platform
     cfg = SearchConfig(path_cap=case["path_cap"], algo="beam_jax")
     mcm = make_mcm(case["pattern"], rows=case["rows"], cols=case["cols"],
                    n_pe=case["n_pe"])
     db = get_cost_db(get_scenario(case["scenario"]), mcm)
-    ranges = greedy_pack(db, mcm.class_counts(), cfg.n_splits).ranges[0]
     engine = DeviceBeamEngine(beam=cfg.beam, device=dev)
-    inputs, built, n_pad = engine.window_inputs(db, mcm, cfg, ranges, {})
+    anchors: dict[int, int] = {}
+    windows = []
+    for w, ranges in enumerate(greedy_pack(db, mcm.class_counts(),
+                                           cfg.n_splits).ranges):
+        window, _, n_pad = engine.window_inputs(db, mcm, cfg, ranges,
+                                                dict(anchors))
+        windows.append((window, n_pad))
+        for mi, _, chips in case["plans"][w]:
+            anchors[mi] = chips[-1]
+    return cfg, engine, windows
+
+
+def window_program(window, n_pad, cfg, engine):
+    from repro_torch.core import device_search
+    return device_search.fused_program(
+        window, beam=cfg.beam, keep=cfg.keep_per_model, metric=cfg.metric,
+        max_exp=engine.max_expansions, n_pad=n_pad, use_kernel=True)
+
+
+def fused_window_without_sync(windows, cfg, engine) -> None:
+    """Window 0 of the 16x16 fused run, its inputs uploaded: its device
+    program with synchronising CUDA calls turned into errors."""
+    from repro_torch.launch import platform
+    window, n_pad = windows[0]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = device_search.fused_program(
-            inputs, beam=cfg.beam, keep=cfg.keep_per_model,
-            metric=cfg.metric, max_exp=engine.max_expansions, n_pad=n_pad,
-            use_kernel=True)
+        out = window_program(window, n_pad, cfg, engine)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     fails = platform.device_fetch(out[-1])[0]
     check(not fails.any(), "the window program found no disjoint placement")
-    print(f"window 0 ({len(built)} models, n_pad {n_pad}): fused program "
-          "ran under set_sync_debug_mode('error') with no sync")
+    print(f"window 0 ({len(window[0].models)} models, n_pad {n_pad}): fused "
+          "program ran under set_sync_debug_mode('error') with no sync")
 
 
 def golden_record(outcome) -> dict:
@@ -419,45 +498,6 @@ def run_case(case, cfg, dev, *, exact_plans: bool = True):
           f"latency {rec['latency']}, golden edp {case['edp']} latency "
           f"{case['latency']}")
     return out, wall
-
-
-def production_batches(case, dev):
-    """Packed inputs of every scoring batch of the golden 16x16 run.
-
-    Windows are rebuilt as the schedule builds them, with each window's
-    locality anchors taken from the golden plans of the windows before it.
-    """
-    from repro_torch.core import get_scenario, make_mcm
-    from repro_torch.core.provision import provision
-    from repro_torch.core.reconfig import greedy_pack
-    from repro_torch.core.sched import assemble_candidates
-    from repro_torch.core.scheduler import SearchConfig, get_cost_db
-    from repro_torch.core.segmentation import top_k_segmentations
-    from repro_torch.kernels.scar_eval import pack_candidates
-    cfg = SearchConfig(path_cap=case["path_cap"])
-    mcm = make_mcm(case["pattern"], rows=case["rows"], cols=case["cols"],
-                   n_pe=case["n_pe"])
-    db = get_cost_db(get_scenario(case["scenario"]), mcm)
-    wa = greedy_pack(db, mcm.class_counts(), cfg.n_splits)
-    anchors: dict[int, int] = {}
-    batches = []
-    for w, ranges in enumerate(wa.ranges):
-        alloc = provision(db, mcm.class_counts(), ranges, mcm.n_chiplets,
-                          metric=cfg.metric,
-                          max_nodes_per_model=cfg.max_nodes_per_model)
-        for mi, (s, e) in sorted(ranges.items()):
-            segs = top_k_segmentations(db, mcm, s, e, alloc[mi],
-                                       k=cfg.seg_top_k, cap=cfg.seg_cap,
-                                       metric=cfg.metric)
-            cand, _, _ = assemble_candidates(
-                mcm, mi, (s, e), segs, anchors.get(mi),
-                path_cap=cfg.path_cap, frontier_cap=cfg.frontier_cap)
-            batches.append(pack_candidates(db, mcm, cand, len(ranges),
-                                           prev_end=anchors.get(mi),
-                                           device=dev))
-        for mi, _, chips in case["plans"][w]:
-            anchors[mi] = chips[-1]
-    return batches
 
 
 def kernel_err_of_max(out, ref, what: str) -> float:
@@ -686,9 +726,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing to measure")
     from repro_torch.kernels import build
-    from repro_torch.kernels.scar_eval import scar_eval, scar_eval_plain
-    from repro_torch.kernels.scar_search import (conflict_counts_plain,
-                                                 scar_search)
+    from repro_torch.kernels.scar_eval import (scar_eval,
+                                               scar_eval_window_plain)
+    from repro_torch.kernels.scar_search import (scar_search,
+                                                 scar_search_plain)
     from repro_torch.core import SearchConfig
     from repro_torch.core.scheduler import clear_caches
     from repro_torch.launch import platform
@@ -720,76 +761,99 @@ def main() -> None:
         for line in log.strip().splitlines():
             print(f"  [{name}] {line}")
 
-    phase("2a kernel: scar_eval vs scar_eval_plain")
+    phase("2a kernel: scar_eval vs scar_eval_window_plain")
+    rng = np.random.default_rng(0)
     worst = 0.0
     n_cases = 0
     for B in SWEEP_B:
         for Lw in SWEEP_LW:
             for S in SWEEP_S:
                 for C in SWEEP_C:
-                    args = random_compact(B, Lw, S, C, n_cases, dev)
-                    for pipelined in (True, False):
-                        worst = max(worst, compare(args, pipelined,
-                                                   scar_eval,
-                                                   scar_eval_plain))
+                    for n_models in SWEEP_MODELS:
+                        batch = random_window(rng, n_models, B, Lw, S, C,
+                                              dev)
+                        worst = max(worst, same_bits(
+                            scar_eval(batch), scar_eval_window_plain(batch),
+                            f"scar_eval B={B} Lw={Lw} S={S} C={C} "
+                            f"models={n_models}"))
                         n_cases += 1
-    print(f"sweep: {n_cases} cases, max |kernel - plain| = {worst!r}")
+    print(f"sweep: {n_cases} launches (B {SWEEP_B}, Lw {SWEEP_LW}, S "
+          f"{SWEEP_S}, C {SWEEP_C}, models {SWEEP_MODELS}), kernel == plain "
+          "bit for bit on all")
     golden = json.loads(GOLDEN.read_text())["cases"]
-    batches = production_batches(golden[PROD_KEY], dev)
-    big = max(batches, key=lambda p: p.seg_cls.shape[0] * p.lat_tab.shape[0])
-    real_err = compare(big[:7], big.pipelined, scar_eval, scar_eval_plain)
-    worst = max(worst, real_err)
-    B, S = big.seg_cls.shape
-    Lw, C = big.lat_tab.shape
-    k_ms = cuda_ms(lambda: scar_eval(*big))
-    p_ms = cuda_ms(lambda: scar_eval_plain(*big))
-    dev_ms, dev_parts = profiled_device_ms(lambda: scar_eval(*big))
-    b_ms, b_by = bound_ms(big[:7])
-    print(f"largest 16x16 batch B={B} Lw={Lw} S={S} C={C}: "
-          f"max |kernel - plain| = {real_err!r}; per call (CUDA events, "
-          f"median of 25): kernel {k_ms:.6f} ms, plain {p_ms:.6f} ms; "
-          f"kernel device time (profiler) {dev_ms!r} ms "
-          f"[{show_parts(dev_parts)}]; bound {b_ms:.6f} ms ({b_by}) on {smi}")
-    for p in batches:
-        ms = cuda_ms(lambda: scar_eval(*p), reps=20)
-        print(f"  batch B={p.seg_cls.shape[0]} Lw={p.lat_tab.shape[0]} "
-              f"S={p.seg_cls.shape[1]}: kernel {ms:.6f} ms, bound "
-              f"{bound_ms(p[:7])[0]:.6f} ms")
+    cfg16, engine16, windows = production_windows(golden[PROD_KEY], dev)
+    for w, (win, _) in enumerate(windows):
+        worst = max(worst, same_bits(scar_eval(win[0]),
+                                     scar_eval_window_plain(win[0]),
+                                     f"scar_eval on 16x16 window {w}"))
+    big = max((win[0] for win, _ in windows),
+              key=lambda b: b.chips.shape[0])
+    B, S = big.chips.shape
+    k_ms = cuda_ms(lambda: scar_eval(big))
+    p_ms = cuda_ms(lambda: scar_eval_window_plain(big), reps=10)
+    dev_ms, dev_parts = profiled_device_ms(lambda: scar_eval(big))
+    b_ms, b_by = eval_bound_ms(big)
+    print(f"16x16 windows: kernel == plain bit for bit on all "
+          f"{len(windows)}; largest window: {len(big.models)} models, B={B} "
+          f"(per model {[m.n_cand for m in big.models]}), Lw "
+          f"{[m.n_layers for m in big.models]}, S={S}, "
+          f"C={big.lat_tab.shape[1]}: per call (CUDA events, median of 25): "
+          f"kernel {k_ms:.6f} ms, plain {p_ms:.6f} ms; kernel device time "
+          f"(profiler) {dev_ms!r} ms [{show_parts(dev_parts)}]; bound "
+          f"{b_ms:.7f} ms ({b_by}) on {smi}")
+    for w, (win, _) in enumerate(windows):
+        ms = cuda_ms(lambda: scar_eval(win[0]), reps=20)
+        d_ms, _ = profiled_device_ms(lambda: scar_eval(win[0]), reps=10)
+        print(f"  window {w}: {len(win[0].models)} models, B="
+              f"{win[0].chips.shape[0]}: kernel {ms:.6f} ms per call, "
+              f"device {d_ms!r} ms, bound {eval_bound_ms(win[0])[0]:.7f} ms")
 
-    phase("2b kernel: scar_search vs conflict_counts_plain")
+    phase("2b kernel: scar_search vs scar_search_plain")
     n_cases = 0
     for bm in SEARCH_BM:
         for n in SEARCH_N:
             for w in SEARCH_W:
-                beam = random_words(bm, w, 2 * n_cases, dev)
-                cand = random_words(n, w, 2 * n_cases + 1, dev)
-                out = scar_search(beam, cand)
-                plain = conflict_counts_plain(beam, cand)
-                torch.cuda.synchronize()
-                check(torch.equal(out, plain),
-                      f"scar_search disagrees at Bm={bm} N={n} W={w}")
-                n_cases += 1
+                for dt in (torch.float32, torch.float64):
+                    t = random_stage(bm, n, w, dt, n_cases, dev)
+                    for keep_n in (1, 48, n):
+                        for max_exp in SEARCH_MAX_EXP:
+                            kw = dict(keep=keep_n, max_exp=max_exp,
+                                      metric="edp")
+                            plane, state = scar_search(**t, **kw)
+                            want = scar_search_plain(**t, **kw)
+                            what = (f"scar_search Bm={bm} N={n} W={w} "
+                                    f"keep={keep_n} max_exp={max_exp} {dt}")
+                            same_bits(plane, want[0], what)
+                            same_bits(state, want[1], what + " (state)")
+                            n_cases += 1
     print(f"sweep: {n_cases} cases (Bm {SEARCH_BM}, N {SEARCH_N}, W "
-          f"{SEARCH_W}), kernel == plain on all")
-    s_beam, s_cand = largest_screen(golden[PROD_KEY], dev)
-    s_out = scar_search(s_beam, s_cand)
-    s_plain = conflict_counts_plain(s_beam, s_cand)
-    torch.cuda.synchronize()
-    check(torch.equal(s_out, s_plain),
-          "scar_search disagrees on the 16x16 screen inputs")
-    s_err = float((s_out - s_plain).abs().max().item())
-    s_ms = cuda_ms(lambda: scar_search(s_beam, s_cand))
-    s_p_ms = cuda_ms(lambda: conflict_counts_plain(s_beam, s_cand))
-    s_dev_ms, s_dev_parts = profiled_device_ms(
-        lambda: scar_search(s_beam, s_cand))
-    s_b_ms, s_b_by = search_bound_ms(s_beam, s_cand, sm_clock_hz)
-    print(f"largest 16x16 beam stage Bm={s_beam.shape[0]} "
-          f"N={s_cand.shape[0]} W={s_beam.shape[1]}: kernel == plain; per "
-          f"call (CUDA events, median of 25): kernel {s_ms:.6f} ms, plain "
-          f"{s_p_ms:.6f} ms; kernel device time (profiler) {s_dev_ms!r} ms "
-          f"[{show_parts(s_dev_parts)}]; bound {s_b_ms:.6f} ms ({s_b_by}) "
-          f"on {smi}; torch has "
-          f"bitwise_count: {hasattr(torch, 'bitwise_count')}")
+          f"{SEARCH_W}, keep 1, 48, N, max_exp {SEARCH_MAX_EXP}, float32 "
+          "and float64), kernel == plain bit for bit (plane and state) on "
+          "all")
+    stage = largest_screen(golden[PROD_KEY], dev)
+    s_times = {}
+    for dt in (torch.float32, torch.float64):
+        t = {k: (v.to(dt) if k in ("b_lat", "b_e", "c_lat", "c_e") else v)
+             for k, v in stage.items()}
+        plane, state = scar_search(**t)
+        want = scar_search_plain(**t)
+        s_err = same_bits(plane, want[0], f"scar_search on the 16x16 "
+                          f"stage, {dt}")
+        same_bits(state, want[1], f"scar_search state, 16x16 stage, {dt}")
+        s_ms = cuda_ms(lambda: scar_search(**t))
+        s_p_ms = cuda_ms(lambda: scar_search_plain(**t))
+        s_dev_ms, s_dev_parts = profiled_device_ms(lambda: scar_search(**t))
+        s_b_ms, s_b_by = screen_bound_ms(t, sm_clock_hz)
+        s_times[dt] = (s_ms, s_p_ms, s_dev_ms, s_b_ms, s_b_by)
+        print(f"largest 16x16 beam stage Bm={t['beam_words'].shape[0]} "
+              f"N={t['cand_words'].shape[0]} W={t['beam_words'].shape[1]} "
+              f"keep={t['keep']} live rows {int(t['state'][2])} {dt}: "
+              f"kernel == plain (accepted {int(state[0])}); per call (CUDA "
+              f"events, median of 25): kernel {s_ms:.6f} ms, plain "
+              f"{s_p_ms:.6f} ms; kernel device time (profiler) {s_dev_ms!r} "
+              f"ms [{show_parts(s_dev_parts)}]; bound {s_b_ms:.6f} ms "
+              f"({s_b_by}) on {smi}")
+    s_ms, s_p_ms, s_dev_ms, s_b_ms, s_b_by = s_times[torch.float32]
 
     phase("2c kernel: flash_attention vs attention_plain")
     from repro_torch.kernels.flash_attention import (attention_plain,
@@ -1040,14 +1104,30 @@ def main() -> None:
         else:
             check(syncs == 5, f"{syncs} fetches on the 16x16 beam_jax run "
                   "(want one per window: 5)")
-            check(launches[algo]["scar_eval"] >= 11,
-                  f"only {launches[algo]['scar_eval']} scar_eval launches "
-                  "on the 16x16 beam_jax run (want >= 11, every batch)")
-            check(launches[algo]["scar_search"] > 0,
-                  "the 16x16 beam_jax run launched no scar_search kernel")
+            stages = sum(len(w.plan.plans) for w in out.windows)
+            check(launches[algo]["scar_eval"] == len(out.windows),
+                  f"{launches[algo]['scar_eval']} scar_eval launches on the "
+                  f"16x16 beam_jax run (want one per window: "
+                  f"{len(out.windows)})")
+            check(launches[algo]["scar_search"] == stages,
+                  f"{launches[algo]['scar_search']} scar_search launches on "
+                  f"the 16x16 beam_jax run (want one per beam stage: "
+                  f"{stages})")
+            print(f"beam_jax per 16x16 schedule: {len(out.windows)} windows, "
+                  f"{stages} beam stages; scar_eval "
+                  f"{launches[algo]['scar_eval']} launches (one a window), "
+                  f"scar_search {launches[algo]['scar_search']} (one a "
+                  "stage)")
     print(f"16x16 wall: beam {walls['beam']:.3f} s, beam_jax "
           f"{walls['beam_jax']:.3f} s")
-    fused_window_without_sync(case, dev)
+    fused_window_without_sync(windows, cfg16, engine16)
+    for w, (win, n_pad) in enumerate(windows):
+        wall, busy, top, n_ev = device_time_of(
+            lambda: window_program(win, n_pad, cfg16, engine16))
+        print(f"profiled window {w} program ({len(win[0].models)} models, "
+              f"n_pad {n_pad}): {n_ev} device events, device busy "
+              f"{busy:.6f} s of {wall:.4f} s wall, top by device time:"
+              + "; ".join(f" {k} x{c} {t:.6f} s" for k, c, t in top))
     for algo in ("beam", "beam_jax"):
         cfg = SearchConfig(path_cap=case["path_cap"], algo=algo)
         clear_caches()
@@ -1056,10 +1136,11 @@ def main() -> None:
     for algo in ("beam", "beam_jax"):
         cfg = SearchConfig(path_cap=case["path_cap"], algo=algo)
         clear_caches()
-        wall, busy, top, _ = device_time_of(lambda: run_case(case, cfg,
-                                                             dev))
+        wall, busy, top, n_ev = device_time_of(lambda: run_case(case, cfg,
+                                                                dev))
         print(f"profiled {algo} run: wall {wall:.4f} s, device busy "
-              f"{busy:.6f} s ({100 * busy / wall:.2f}%), top by device time:"
+              f"{busy:.6f} s ({100 * busy / wall:.2f}%) in {n_ev} device "
+              "events, top by device time:"
               + "; ".join(f" {k} x{c} {t:.6f} s" for k, c, t in top))
 
     phase("6 serve: zamba2-2.7b at full width, batch 4, prompt 1024, "

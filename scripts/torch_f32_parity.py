@@ -4,9 +4,9 @@ Takes the reference's own scoring batches of four schedules (dc5, xr10 and
 dc4 on the 6x6 ``het_cross`` package, dc4 on the 16x16 ``het_cb`` pod at
 ``path_cap=1024``), scores each with the reference's compiled float32
 evaluator (``repro.kernels.scar_eval.evaluate(..., use_kernel=False)``, JAX
-on the CPU) and with the port's float32 path (``pack_candidates`` +
-``scar_eval_plain``, which the CUDA kernel matches bit for bit), and prints
-per batch the rows whose latency or energy differ, with the ulp
+on the CPU) and with the port's float32 path (``pack_window`` +
+``scar_eval_window_plain``, which the CUDA kernel matches bit for bit), and
+prints per batch the rows whose latency or energy differ, with the ulp
 differences of the dc5 window-0 model-1 batch.
 
 Three more columns explain the rest:
@@ -49,7 +49,8 @@ from repro_torch.core import cost as port_cost  # noqa: E402
 from repro_torch.core.cost import BatchedModelCandidates  # noqa: E402
 from repro_torch.core.maestro import cost_db_from_arrays  # noqa: E402
 from repro_torch.kernels.scar_eval import (blocked_cumsum,  # noqa: E402
-                                           pack_candidates, scar_eval_plain)
+                                           model_inputs, pack_window,
+                                           scar_eval_window_plain)
 
 SCHEDULES = [("dc5_lms_seg_image_wide", "het_cross", 6, 128),
              ("xr10_vr_gaming", "het_cross", 6, 128),
@@ -100,8 +101,9 @@ def reference_batches():
 
 def port_scores(port) -> np.ndarray:
     tdb, tmcm, tcand, n_active, prev = port
-    return scar_eval_plain(*pack_candidates(
-        tdb, tmcm, tcand, n_active, prev_end=prev, device=CPU)).numpy()
+    batch = pack_window([model_inputs(tdb, tcand, prev)], tmcm.class_map,
+                        tmcm.pkg, tmcm.cols, n_active, device=CPU)
+    return scar_eval_window_plain(batch).numpy()
 
 
 def divide_scores(port) -> np.ndarray:

@@ -14,13 +14,14 @@ fetch:
   ascending sort reproduces its lowest-flat-index tie rule, so plans,
   metrics and the explored cloud are bit-identical to
   ``engine.reference_combine``.
-* ``fused_program`` — the throughput form: per-model candidate scoring
-  (``evaluator.traceable_scores``: the ``scar_eval`` kernel on a GPU),
-  quantised (tier, score) candidate ordering, compute-weight model ordering
-  and the shared beam scan, all in float32, as in the reference.
+* ``fused_program`` — the throughput form: the scoring of every model of
+  the window (one ``scar_eval`` launch on a GPU), quantised (tier, score)
+  candidate ordering, compute-weight model ordering and the shared beam
+  scan, all in float32, as in the reference.
 
-Both share ``beam_scan``, whose per-stage disjointness screen is the
-``kernels.scar_search`` AND+popcount kernel.  The reference scans a pool,
+Both share ``beam_scan``, whose per-stage screen (disjointness, keep
+width, expansion budget and the masked scores) is one ``kernels.
+scar_search`` launch on a GPU.  The reference scans a pool,
 a prefix of each model's candidate order, and falls back to the full order
 under ``lax.cond`` only when the pool cannot be complete; the pool exists to
 spare XLA's CPU sort, and the fallback selects exactly what the pool
@@ -37,10 +38,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.scar_search import conflict_counts
+from repro_torch.kernels.scar_eval import ops as scar_eval_ops
+from repro_torch.kernels.scar_search import screen
 
 from .engine import metric_score
-from .evaluator import traceable_scores
 from .quantize import SCORE_SIG, quantize_scores_torch
 
 __all__ = ["beam_scan", "bucket_size", "fused_program", "split_words_u32"]
@@ -78,62 +79,52 @@ def split_words_u32(words: np.ndarray) -> np.ndarray:
     return out
 
 
-def beam_scan(full, *, beam: int, metric: str, max_exp: int,
+def beam_scan(full, keeps, *, beam: int, metric: str, max_exp: int,
               use_kernel: bool):
     """The shared beam combination: one stage per model.
 
     ``full``: ``(words [M, N, 2W] int32, lat [M, N], e [M, N],
-    valid [M, N] bool, keeps [M])`` — every candidate of each model in host
+    valid [M, N] bool)`` — every candidate of each model in host
     candidate ((tier, score)) order, the rows past its count marked
-    invalid.  Per-stage semantics are ``engine.BeamEngine``'s, applied
-    unconditionally: the keep-rank filter and the row-major expansion
-    budget are no-ops exactly where the host skips them, and a stable
-    ascending sort of the masked scores reproduces the host's stable
-    argsort over its row-major acceptance listing.  Scores stay in the
-    dtype of ``lat``.
+    invalid; ``keeps``: the ``M`` per-model widths (host ints).  Each stage
+    is one ``kernels.scar_search`` screen, with ``engine.BeamEngine``'s
+    semantics applied unconditionally: the keep-rank filter and the
+    row-major expansion budget are no-ops exactly where the host skips
+    them, and a stable ascending sort of the masked scores reproduces the
+    host's stable argsort over its row-major acceptance listing.  The
+    expansion counter and the live beam rows stay on the device, in the
+    screen's ``state``.  Scores stay in the dtype of ``lat``.
 
     Returns per stage ``(parent [beam], cand [beam], lat [beam],
     energy [beam], n_new, failed)``, stacked over the ``M`` stages;
     ``cand`` indexes the stage's candidate order.
     """
-    f_words, f_lat, f_e, f_valid, keeps = full
+    f_words, f_lat, f_e, f_valid = full
     m_models, n_full, w2 = f_words.shape
     dev = f_lat.device
-    arange_b = torch.arange(beam, device=dev)
     b_mask = torch.zeros((beam, w2), dtype=torch.int32, device=dev)
     b_lat = torch.zeros(beam, dtype=f_lat.dtype, device=dev)
     b_e = torch.zeros(beam, dtype=f_lat.dtype, device=dev)
-    valid_beam = arange_b < 1
-    expansions = torch.zeros((), dtype=torch.int64, device=dev)
+    # (total, expansions, live beam rows, no placement): one live row, made
+    # on the device (writing a Python scalar into it would copy and sync)
+    state = (torch.arange(4, device=dev) == 2).long()
     ys = []
     for m in range(m_models):
         fw, fl, fe = f_words[m], f_lat[m], f_e[m]
-        dis = ((conflict_counts(b_mask, fw, use_kernel=use_kernel) == 0)
-               & f_valid[m][None, :] & valid_beam[:, None])
-        # first ``keep`` disjoint per row, then the global expansion budget
-        # in row-major acceptance order (a stage's first acceptance always
-        # goes through) — cf. BeamEngine.combine
-        rank = torch.cumsum(dis, dim=1)
-        flat = (dis & (rank <= keeps[m])).reshape(-1)
-        before = torch.cumsum(flat, dim=0) - flat.long()
-        flat = flat & ((expansions + before < max_exp) | (before == 0))
-        total = flat.sum()
-        new_lat = torch.maximum(b_lat[:, None], fl[None, :])
-        new_e = b_e[:, None] + fe[None, :]
-        sc = torch.where(flat.view(beam, n_full),
-                         metric_score(new_lat, new_e, metric), float("inf"))
+        sc, state = screen(b_mask, fw, f_valid[m], state,
+                           use_kernel=use_kernel, keep=int(keeps[m]),
+                           max_exp=max_exp, b_lat=b_lat, b_e=b_e, c_lat=fl,
+                           c_e=fe, metric=metric)
         # stable ascending: equal scores keep the lowest flat index, the
         # reference's lax.top_k tie rule (torch.topk has no fixed one)
         idx = torch.sort(sc.reshape(-1), stable=True).indices[:beam]
         parent, j = idx // n_full, idx % n_full
-        n_new = total.clamp(max=beam)
         b_lat = torch.maximum(b_lat[parent], fl[j])
         b_e = b_e[parent] + fe[j]
         b_mask = b_mask[parent] | fw[j]
-        valid_beam = arange_b < n_new
-        expansions = expansions + total
-        ys.append((parent, j, b_lat, b_e, n_new, total == 0))
-    return tuple(torch.stack(t) for t in zip(*ys))
+        ys.append((parent, j, b_lat, b_e, state))
+    parents, cands, lats, es, states = (torch.stack(t) for t in zip(*ys))
+    return parents, cands, lats, es, states[:, 2], states[:, 3]
 
 
 def _order_key(qs: torch.Tensor, tiers: torch.Tensor,
@@ -149,57 +140,54 @@ def _order_key(qs: torch.Tensor, tiers: torch.Tensor,
     return torch.where(valid, key, _KEY_INVALID)
 
 
-def fused_program(inputs, *, beam: int, keep: int, metric: str,
+def fused_program(window, *, beam: int, keep: int, metric: str,
                   max_exp: int, n_pad: int, use_kernel: bool,
                   congestion: bool = False):
     """The whole window search as one device program.
 
-    ``inputs``: per model, in model-index order, ``(packed, words, tiers)``
-    on the device: the ``scar_eval.pack_candidates`` batch of its ``B``
-    assembled candidates, their ``[B, 2W]`` int32 occupancy words and
-    ``[B]`` int32 tiers.  ``n_pad`` (``bucket_size``) is at least every
-    ``B``.  Returns ``(model_order,) + beam_scan ys`` with the ys candidate
-    indices translated to rows of the assembled batches, so the host
-    rebuilds the window plan from one fetch.
+    ``window``: ``(batch, words, tiers)`` on the device: the
+    ``scar_eval.pack_window`` batch of every model's assembled candidates,
+    in model-index order, their ``[B + 1, 2W]`` int32 occupancy words and
+    ``[B + 1]`` int32 tiers, each with a zero row after the last
+    candidate.  ``n_pad`` (``bucket_size``) is at least every model's
+    candidate count.  Returns ``(model_order,) + beam_scan ys`` with the
+    ys candidate indices translated to rows of each model's assembled
+    batch, so the host rebuilds the window plan from one fetch.
+    ``SearchConfig.eval_backend`` does not apply: as in the reference,
+    every batch of the fused path is scored in float32.
     """
     if congestion:
         raise NotImplementedError(
             "comm_model='congestion' in the fused device search is not "
             "ported yet (ROADMAP.md queue 1, item 4b: the congestion comm "
             "model, with device_search._cand_link_bytes)")
-    dev = inputs[0][1].device
+    batch, words, tiers = window
+    m_models = len(batch.models)
+    out = scar_eval_ops.evaluate(batch, use_kernel=use_kernel)   # [B, 2]
+    # every model's candidates on a row of an [M, n_pad] plane; padding
+    # points at the zero word row and an infinite score
+    dev = words.device
     arange_n = torch.arange(n_pad, device=dev)
-    cols = {k: [] for k in ("words", "lat", "e", "valid", "order")}
-    mlats = []
-    for packed, words, tiers in inputs:
-        lat, energy = traceable_scores(packed, use_kernel=use_kernel)
-        n = lat.shape[0]
-        pad = n_pad - n
-        valid = arange_n < n
-        # the host ordering contract (sched.build_candidates): stable sort
-        # on (tier, score quantised to the shared grain)
-        qs = quantize_scores_torch(metric_score(lat, energy, metric),
-                                   sig=SCORE_SIG)
-        key = _order_key(torch.cat([qs, qs.new_zeros(pad)]),
-                         torch.cat([tiers, tiers.new_zeros(pad)]), valid)
-        order = torch.sort(key, stable=True).indices
-        inf = lat.new_full((pad,), float("inf"))
-        cols["words"].append(torch.cat([words, words.new_zeros(
-            (pad, words.shape[1]))])[order])
-        cols["lat"].append(torch.cat([lat, inf])[order])
-        cols["e"].append(torch.cat([energy, inf])[order])
-        cols["valid"].append(valid)        # invalid keys sort last
-        cols["order"].append(order)
-        mlats.append(lat.min())
-
+    valid = arange_n < batch.desc[:, 1:2]
+    rows = torch.where(valid, batch.desc[:, 0:1] + arange_n,
+                       words.shape[0] - 1)
+    scores = torch.cat([out, out.new_full((1, 2), float("inf"))])[rows]
+    lat, energy = scores[..., 0], scores[..., 1]
+    # the host ordering contract (sched.build_candidates): stable sort on
+    # (tier, score quantised to the shared grain), per model
+    qs = quantize_scores_torch(metric_score(lat, energy, metric),
+                               sig=SCORE_SIG)
+    order = torch.sort(_order_key(qs, tiers[rows], valid), dim=1,
+                       stable=True).indices
     # model order by compute weight, largest min-latency first (the host
     # engines' ``sorted(key=-min(lat))``)
-    morder = torch.sort(-torch.stack(mlats), stable=True).indices
-    words, lat, e, valid, order = (torch.stack(cols[k])[morder] for k in
-                                   ("words", "lat", "e", "valid", "order"))
-    keeps = torch.full((len(inputs),), keep, dtype=torch.int64, device=dev)
+    morder = torch.sort(-lat.min(dim=1).values, stable=True).indices
+    order = order[morder]
+    srows = torch.gather(rows[morder], 1, order)
     parents, cands, tlat, te, n_new, failed = beam_scan(
-        (words, lat, e, valid, keeps), beam=beam, metric=metric,
-        max_exp=max_exp, use_kernel=use_kernel)
+        (words[srows], torch.gather(lat[morder], 1, order),
+         torch.gather(energy[morder], 1, order), valid[morder]),
+        [keep] * m_models, beam=beam, metric=metric, max_exp=max_exp,
+        use_kernel=use_kernel)
     return (morder, parents, torch.gather(order, 1, cands), tlat, te, n_new,
             failed)

@@ -474,21 +474,21 @@ class DeviceBeamEngine:
         lat = np.full((m_models, n_pad), np.inf)
         energy = np.full((m_models, n_pad), np.inf)
         valid = np.zeros((m_models, n_pad), dtype=bool)
-        keeps = np.zeros(m_models, dtype=np.int64)
         for m, cs in enumerate(sets):
             n = cs.n_cands
             masks[m, :n] = ds.split_words_u32(cs.words(n_words))
             lat[m, :n] = cs.lat
             energy[m, :n] = cs.energy
             valid[m, :n] = True
-            keeps[m] = cs.keep
         with obs.span("device_combine", cat="engine", engine="beam_jax",
                       models=m_models, n_pad=n_pad):
+            full = platform.device_upload(
+                {"words": masks.view(np.int32), "lat": lat,
+                 "energy": energy, "valid": valid}, dev)
             out = ds.beam_scan(
-                tuple(torch.from_numpy(a).to(dev) for a in
-                      (masks.view(np.int32), lat, energy, valid, keeps)),
-                beam=self.beam, metric=metric, max_exp=self.max_expansions,
-                use_kernel=use_kernel)
+                tuple(full[k] for k in ("words", "lat", "energy", "valid")),
+                [cs.keep for cs in sets], beam=self.beam, metric=metric,
+                max_exp=self.max_expansions, use_kernel=use_kernel)
             # the single host transfer of the whole combination
             parents, cands, tlats, tes, counts, fails = \
                 platform.device_fetch(*out)
@@ -504,17 +504,19 @@ class DeviceBeamEngine:
 
     def window_inputs(self, db: CostDB, mcm: MCM, cfg,
                       ranges: dict[int, tuple[int, int]],
-                      prev_end: dict[int, int]) -> tuple[list, list, int]:
+                      prev_end: dict[int, int]) -> tuple[tuple, list, int]:
         """Host half of ``combine_window``: build and upload one window.
 
         PROV + SEG + candidate assembly on the host, then every input of
-        the window's device program copied to the device (these copies
-        block the host; the program itself then makes no sync).  Returns
-        ``(inputs, built, n_pad)``: ``fused_program``'s per-model inputs,
-        the per-model ``(cand, chips, seg_arr)`` host arrays the plan is
-        rebuilt from, and the padded candidate width.
+        the window's device program copied to the device in one copy per
+        dtype (``platform.device_upload``; the copies block the host, the
+        program itself then makes no sync).  Returns ``(window, built,
+        n_pad)``: ``fused_program``'s input, the per-model
+        ``(cand, chips, seg_arr)`` host arrays the plan is rebuilt from,
+        and the padded candidate width.
         """
-        from repro_torch.kernels.scar_eval import pack_candidates
+        from repro_torch.kernels.scar_eval import (WindowBatch, model_inputs,
+                                                   window_arrays)
 
         from . import device_search as ds
         from .provision import provision
@@ -526,28 +528,34 @@ class DeviceBeamEngine:
         alloc = provision(db, mcm.class_counts(), ranges, mcm.n_chiplets,
                           metric=cfg.metric,
                           max_nodes_per_model=cfg.max_nodes_per_model)
-        n_active = len(ranges)
-        inputs, built = [], []
+        models, words, tiers, built = [], [], [], []
         for mi, (s, e) in sorted(ranges.items()):
             with obs.span("window_build", cat="engine", model=mi,
                           layers=e - s):
                 segs = top_k_segmentations(db, mcm, s, e, alloc[mi],
                                            k=cfg.seg_top_k, cap=cfg.seg_cap,
                                            metric=cfg.metric)
-                cand, tiers, (words, chips, seg_arr) = assemble_candidates(
+                cand, tier, (word, chips, seg_arr) = assemble_candidates(
                     mcm, mi, (s, e), segs, prev_end.get(mi),
                     path_cap=cfg.path_cap, frontier_cap=cfg.frontier_cap)
-                packed = pack_candidates(db, mcm, cand, n_active,
-                                         prev_end=prev_end.get(mi),
-                                         device=dev)
-                w32 = ds.split_words_u32(words).view(np.int32)
-                inputs.append((packed, torch.from_numpy(w32).to(dev),
-                               torch.from_numpy(
-                                   tiers.astype(np.int32)).to(dev)))
+                models.append(model_inputs(db, cand, prev_end.get(mi)))
+                words.append(ds.split_words_u32(word))
+                tiers.append(tier)
                 built.append((cand, chips, seg_arr))
-        pow10_table(dev, torch.float32)      # the quantiser's table
-        n_pad = ds.bucket_size(max(i[1].shape[0] for i in inputs))
-        return inputs, built, n_pad
+        with obs.span("window_build", cat="engine", models=len(models)):
+            # a zero row after the last candidate: the padding rows' words
+            words.append(np.zeros((1, words[0].shape[1]), np.uint32))
+            tiers.append(np.zeros(1, np.int32))
+            arrays, slots = window_arrays(models, mcm.class_map)
+            up = platform.device_upload(
+                {**arrays, "words": np.concatenate(words).view(np.int32),
+                 "tiers": np.concatenate(tiers).astype(np.int32)}, dev)
+            batch = WindowBatch(*(up[k] for k in arrays), models=slots,
+                                pkg=mcm.pkg, cols=mcm.cols,
+                                n_active=len(ranges))
+            pow10_table(dev, torch.float32)      # the quantiser's table
+        n_pad = ds.bucket_size(max(s.n_cand for s in slots))
+        return (batch, up["words"], up["tiers"]), built, n_pad
 
     def combine_window(self, db: CostDB, mcm: MCM, cfg,
                        ranges: dict[int, tuple[int, int]],
@@ -566,12 +574,12 @@ class DeviceBeamEngine:
         from . import device_search as ds
 
         _, use_kernel = self._setup()
-        inputs, built, n_pad = self.window_inputs(db, mcm, cfg, ranges,
+        window, built, n_pad = self.window_inputs(db, mcm, cfg, ranges,
                                                   prev_end)
         with obs.span("device_combine", cat="engine", engine="beam_jax",
-                      models=len(inputs), n_pad=n_pad):
+                      models=len(built), n_pad=n_pad):
             out = ds.fused_program(
-                inputs, beam=self.beam, keep=int(cfg.keep_per_model),
+                window, beam=self.beam, keep=int(cfg.keep_per_model),
                 metric=metric, max_exp=self.max_expansions, n_pad=n_pad,
                 use_kernel=use_kernel,
                 congestion=self.comm_model == "congestion")

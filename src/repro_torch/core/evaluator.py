@@ -6,14 +6,15 @@ batch on one of three backends, on the caller's device:
 * ``torch``     — ``cost.eval_model_candidates``, float64.  The parity
   oracle, and the choice for small batches.
 * ``torch_ref`` — the plain float32 version of the kernel
-  (``kernels.scar_eval.scar_eval_plain``) over ``pack_candidates``' inputs.
-  Large batches take it on the CPU.
+  (``kernels.scar_eval.scar_eval_window_plain``) over ``pack_window``'s
+  one-model batch.  Large batches take it on the CPU.
 * ``cuda``      — the ``scar_eval`` CUDA kernel, float32.  Large batches
   take it on a GPU.
 
-The float32 backends run ``cost.comm_from_parts`` — the function the
-float64 oracle runs — for their comm terms, so the comm geometry is shared
-by construction.
+The float32 backends compute their comm terms as ``cost.comm_from_parts``
+— the function the float64 oracle runs — does (the plain version calls it,
+the kernel repeats its float32 operations), so the comm geometry is
+shared by construction.
 
 Selection: explicit ``backend=`` (``SearchConfig.eval_backend`` everywhere
 in the pipeline), else ``"auto"``, which keeps the reference's rule: below
@@ -94,25 +95,11 @@ def eval_candidates(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
                 db, mcm, cand, n_active, prev_end=prev_end,
                 pipelined=pipelined, device=dev))
             return lat, energy
-        packed = scar_eval_ops.pack_candidates(
-            db, mcm, cand, n_active, prev_end=prev_end, pipelined=pipelined,
-            device=dev)
+        batch = scar_eval_ops.pack_window(
+            [scar_eval_ops.model_inputs(db, cand, prev_end,
+                                        pipelined=pipelined)],
+            mcm.class_map, mcm.pkg, mcm.cols, n_active, device=dev)
         (out,) = platform.device_fetch(
-            scar_eval_ops.evaluate(packed, use_kernel=(resolved == "cuda")))
+            scar_eval_ops.evaluate(batch, use_kernel=(resolved == "cuda")))
     return out[:, 0].astype(np.float64), out[:, 1].astype(np.float64)
 
-
-def traceable_scores(packed: scar_eval_ops.PackedCandidates, *,
-                     use_kernel: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(lat[B], energy[B])`` float32 tensors on the batch's device.
-
-    The counterpart of the reference's in-jit ``traceable_scores``: the
-    fused device search (``core.device_search.fused_program``) scores each
-    model's ``pack_candidates`` batch with it and keeps the scores on the
-    device, so nothing is fetched.  ``use_kernel`` launches the
-    ``scar_eval`` kernel (the engine sets it on a CUDA device), else its
-    plain version runs.  ``SearchConfig.eval_backend`` does not apply: as
-    in the reference, every batch of the fused path is scored in float32.
-    """
-    out = scar_eval_ops.evaluate(packed, use_kernel=use_kernel)
-    return out[:, 0], out[:, 1]

@@ -1,9 +1,22 @@
 """The ``scar_eval`` CUDA kernel's wrapper and its plain torch version.
 
-Counterpart of the Pallas kernel ``repro/kernels/scar_eval/kernel.py``.
-Both functions here take the compact candidate form (see
-``kernels/csrc/scar_eval.cu``) and return ``[B, 2]`` float32 (window
-latency, window energy):
+Counterpart of the Pallas kernel ``repro/kernels/scar_eval/kernel.py`` and
+of the jitted code around it (``repro/kernels/scar_eval/ops.py::
+evaluate_traceable`` with the analytic comm model).  One call scores every
+candidate of every model of a window (a ``WindowBatch``, made by
+``ops.pack_window``) and returns ``[B, 2]`` float32 (window latency,
+window energy), ``B`` the candidates of all models in model order.
+
+``scar_eval`` launches the kernel (``kernels/csrc/scar_eval.cu``) for
+CUDA tensors and uses ``scar_eval_window_plain`` only for tensors on the
+CPU; a CUDA tensor never falls back.  ``scar_eval_window_plain`` is
+``core.cost.comm_from_parts`` plus ``scar_eval_plain`` per model: the
+kernel does the same float32 operations in the same order, so the two
+give the same bits.
+
+``scar_eval_plain`` is the scoring half in the compact form the Pallas
+kernel's tests compare (per-segment class, last layer, live count and
+comm terms):
 
   lat_tab, e_tab     [Lw, C]  float32  per-(layer, chiplet class) costs
   seg_cls            [B, S]   int32    chiplet class of each segment
@@ -13,23 +26,76 @@ latency, window energy):
   comm_lat, comm_e   [B, S]   float32  per-segment comm terms
   pipelined          bool     latency = max over live segments when more
                               than one is live, else their sum
-
-``scar_eval`` launches the kernel for CUDA tensors and uses the plain
-version only for tensors on the CPU; a CUDA tensor never falls back.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..build import load_library
 
-__all__ = ["blocked_cumsum", "scar_eval", "scar_eval_plain"]
+__all__ = ["CANDS_PER_CTA", "ModelSlot", "WindowBatch", "blocked_cumsum",
+           "comm_constants", "scar_eval", "scar_eval_plain",
+           "scar_eval_window_plain"]
 
 PREFIX_BLOCK = 16
-MAX_LAYERS = 4096         # two carry levels of 16-blocks in the kernel
-_SMEM_LIMIT = 48 * 1024   # static launch limit without an opt-in attribute
+CANDS_PER_CTA = 32        # candidates (threads) a CTA of the kernel
+DESC_INTS = 8             # descriptor ints a model (scar_eval.cu kDesc)
+_SMEM_MAX = 232_448       # dynamic shared memory a CTA can opt into
+
+
+class ModelSlot(NamedTuple):
+    """Host-side description of one model of a ``WindowBatch``.
+
+    ``cand_off`` / ``n_cand``: its rows of the candidate arrays;
+    ``tab_off`` / ``n_layers``: its rows of the cost tables; ``prev_end``:
+    the anchor chiplet of its first segment's input (None: cold DRAM);
+    ``act_in``: its input activation bytes (float32); ``cta_off``: its
+    first CTA in the kernel's grid.  The device descriptor
+    ``WindowBatch.desc`` holds the same integers.
+    """
+
+    cand_off: int
+    n_cand: int
+    tab_off: int
+    n_layers: int
+    prev_end: Optional[int]
+    pipelined: bool
+    act_in: float
+    cta_off: int
+
+
+class WindowBatch(NamedTuple):
+    """Inputs of one ``scar_eval`` call: every model of a window.
+
+    Device tensors: the window's CostDB rows, model after model
+    (``lat_tab`` / ``e_tab`` ``[L, C]``, ``w_bytes`` / ``out_bytes``
+    ``[L]``, float32), ``act_in`` ``[M]`` float32, the candidates' raw
+    integers, model after model (``chips`` and ``last`` ``[B, S]``: the
+    chiplet and window-relative last layer of each segment, -1 past the
+    live ones; ``n_segs`` ``[B]``), ``class_map`` ``[n_chiplets]`` and the
+    ``[M, 8]`` int32 descriptor ``desc``.  Host values: ``models`` (one
+    ``ModelSlot`` each, the descriptor's integers), the package constants
+    ``pkg``, the mesh width ``cols`` and the window's ``n_active``.
+    """
+
+    lat_tab: torch.Tensor
+    e_tab: torch.Tensor
+    w_bytes: torch.Tensor
+    out_bytes: torch.Tensor
+    act_in: torch.Tensor
+    chips: torch.Tensor
+    last: torch.Tensor
+    n_segs: torch.Tensor
+    class_map: torch.Tensor
+    desc: torch.Tensor
+    models: tuple[ModelSlot, ...]
+    pkg: object
+    cols: int
+    n_active: int
 
 
 def blocked_cumsum(x: torch.Tensor, block: int = PREFIX_BLOCK
@@ -68,7 +134,7 @@ def scar_eval_plain(lat_tab: torch.Tensor, e_tab: torch.Tensor,
                     seg_cls: torch.Tensor, last: torch.Tensor,
                     n_segs: torch.Tensor, comm_lat: torch.Tensor,
                     comm_e: torch.Tensor, pipelined: bool) -> torch.Tensor:
-    """Plain torch version of the kernel: same inputs, same float32 ops."""
+    """``[B, 2]`` (latency, energy) of the compact form, in float32."""
     B, S = seg_cls.shape
     Lw, C = lat_tab.shape
     zrow = lat_tab.new_zeros((1, C))
@@ -96,20 +162,80 @@ def scar_eval_plain(lat_tab: torch.Tensor, e_tab: torch.Tensor,
     return torch.stack([lat, e_sum], dim=1)
 
 
-def _check(lat_tab, e_tab, seg_cls, last, n_segs, comm_lat, comm_e):
-    Lw, C = lat_tab.shape
-    B, S = seg_cls.shape
-    want = {"lat_tab": (lat_tab, torch.float32, (Lw, C)),
-            "e_tab": (e_tab, torch.float32, (Lw, C)),
-            "seg_cls": (seg_cls, torch.int32, (B, S)),
-            "last": (last, torch.int32, (B, S)),
-            "n_segs": (n_segs, torch.int32, (B,)),
-            "comm_lat": (comm_lat, torch.float32, (B, S)),
-            "comm_e": (comm_e, torch.float32, (B, S))}
-    dev = lat_tab.device
-    for name, (t, dtype, shape) in want.items():
+def scar_eval_window_plain(w: WindowBatch) -> torch.Tensor:
+    """Plain torch version of the kernel: ``[B, 2]`` float32.
+
+    Per model: the segment weight sums (differences of the blocked prefix
+    of ``w_bytes``) and last-layer output bytes, ``comm_from_parts`` for
+    the comm terms, then ``scar_eval_plain``.
+    """
+    # imported here: repro_torch.core imports this package
+    from repro_torch.core.cost import comm_from_parts
+
+    outs = []
+    for slot in w.models:
+        rows = slice(slot.cand_off, slot.cand_off + slot.n_cand)
+        tabs = slice(slot.tab_off, slot.tab_off + slot.n_layers)
+        chips, last, n_segs = w.chips[rows], w.last[rows], w.n_segs[rows]
+        w_bytes, out_bytes = w.w_bytes[tabs], w.out_bytes[tabs]
+        Lw, S = slot.n_layers, chips.shape[1]
+        cpos = chips.clamp(min=0)
+        exists = torch.arange(S, device=chips.device)[None, :] \
+            < n_segs[:, None]
+        hi = last.long().clamp(0, Lw - 1)
+        lo = torch.cat([torch.zeros_like(hi[:, :1]),
+                        last[:, :-1].long().clamp(min=-1) + 1], dim=1)
+        zero = w_bytes.new_zeros(())
+        seg_last_out = torch.where(exists, out_bytes[hi], zero)
+        cw = torch.cat([w_bytes.new_zeros(1), blocked_cumsum(w_bytes)])
+        seg_w = torch.where(exists, cw[hi + 1] - cw[lo], zero)
+        ip_lat, ip_e, op_lat, op_e = comm_from_parts(
+            w.pkg, w.cols, cpos, seg_w, seg_last_out, n_segs, w.n_active,
+            slot.act_in, slot.prev_end)
+        outs.append(scar_eval_plain(
+            w.lat_tab[tabs], w.e_tab[tabs], w.class_map[cpos.long()], last,
+            n_segs, ip_lat + op_lat, ip_e + op_e, slot.pipelined))
+    return torch.cat(outs)
+
+
+def comm_constants(pkg, n_active: int) -> np.ndarray:
+    """The kernel's 10 float32 package constants (``Consts`` order).
+
+    Each is the float32 that torch computes with when ``comm_from_parts``
+    meets the Python float against a float32 tensor: the double rounded
+    to nearest; the bandwidths as float32 reciprocals
+    (``cost._per_bandwidth``).
+    """
+    f = np.float32
+    crowd = max(0, n_active - 1)
+    return np.array([f(1) / f(pkg.dram_bw), f(1) / f(pkg.nop_bw),
+                     pkg.nop_hop_lat_s, pkg.dram_lat_s,
+                     pkg.contention_delta * crowd / pkg.dram_bw,
+                     pkg.contention_delta * crowd / pkg.nop_bw,
+                     pkg.dram_e_pj_per_bit, pkg.nop_e_pj_per_bit, 8.0,
+                     1e-12], dtype=np.float32)
+
+
+def _check(w: WindowBatch) -> None:
+    n_models = len(w.models)
+    B = sum(s.n_cand for s in w.models)
+    L = sum(s.n_layers for s in w.models)
+    C = w.lat_tab.shape[1] if w.lat_tab.dim() == 2 else -1
+    S = w.chips.shape[1] if w.chips.dim() == 2 else -1
+    want = {"lat_tab": (torch.float32, (L, C)),
+            "e_tab": (torch.float32, (L, C)),
+            "w_bytes": (torch.float32, (L,)),
+            "out_bytes": (torch.float32, (L,)),
+            "act_in": (torch.float32, (n_models,)),
+            "chips": (torch.int32, (B, S)), "last": (torch.int32, (B, S)),
+            "n_segs": (torch.int32, (B,)),
+            "class_map": (torch.int32, (w.class_map.shape[0],)),
+            "desc": (torch.int32, (n_models, DESC_INTS))}
+    dev = w.chips.device
+    for name, (dtype, shape) in want.items():
+        t = getattr(w, name)
         if t.device != dev:
-            raise ValueError(f"scar_eval: {name} on {t.device}, lat_tab on "
+            raise ValueError(f"scar_eval: {name} on {t.device}, chips on "
                              f"{dev}")
         if t.dtype != dtype:
             raise TypeError(f"scar_eval: {name} is {t.dtype}, want {dtype}")
@@ -118,40 +244,50 @@ def _check(lat_tab, e_tab, seg_cls, last, n_segs, comm_lat, comm_e):
                              f"{tuple(t.shape)}, want {shape}")
         if not t.is_contiguous():
             raise ValueError(f"scar_eval: {name} is not contiguous")
-    if not 1 <= Lw <= MAX_LAYERS or not 1 <= C <= 64 or S < 1:
-        raise ValueError(f"scar_eval: unsupported Lw={Lw}, C={C}, S={S}")
+    cand = tab = cta = 0
+    for s in w.models:
+        if (s.cand_off, s.tab_off, s.cta_off) != (cand, tab, cta) \
+                or s.n_cand < 1 or s.n_layers < 1:
+            raise ValueError(f"scar_eval: bad model slot {s}")
+        cand += s.n_cand
+        tab += s.n_layers
+        cta += -(-s.n_cand // CANDS_PER_CTA)
+    if n_models < 1 or not 1 <= C <= 64 or S < 1:
+        raise ValueError(f"scar_eval: unsupported M={n_models}, C={C}, "
+                         f"S={S}")
 
 
-def scar_eval(lat_tab: torch.Tensor, e_tab: torch.Tensor,
-              seg_cls: torch.Tensor, last: torch.Tensor,
-              n_segs: torch.Tensor, comm_lat: torch.Tensor,
-              comm_e: torch.Tensor, pipelined: bool) -> torch.Tensor:
+def scar_eval(w: WindowBatch) -> torch.Tensor:
     """``[B, 2]`` (latency, energy): the CUDA kernel on CUDA tensors.
 
-    Tensors on the CPU take ``scar_eval_plain``.  ``scar_eval.launches``
-    counts kernel launches.
+    Tensors on the CPU take ``scar_eval_window_plain``.
+    ``scar_eval.launches`` counts kernel launches (one per call).
     """
-    _check(lat_tab, e_tab, seg_cls, last, n_segs, comm_lat, comm_e)
-    if lat_tab.device.type == "cpu":
-        return scar_eval_plain(lat_tab, e_tab, seg_cls, last, n_segs,
-                               comm_lat, comm_e, pipelined)
-    if lat_tab.device.type != "cuda":
-        raise ValueError(f"scar_eval: no kernel for {lat_tab.device}")
-    Lw, C = lat_tab.shape
-    B, S = seg_cls.shape
+    _check(w)
+    dev = w.chips.device
+    if dev.type == "cpu":
+        return scar_eval_window_plain(w)
+    if dev.type != "cuda":
+        raise ValueError(f"scar_eval: no kernel for {dev}")
+    C = w.lat_tab.shape[1]
+    B, S = w.chips.shape
+    lw_max = max(s.n_layers for s in w.models)
     lib = _lib()
-    smem = lib.scar_eval_smem_bytes(Lw, C)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"scar_eval: Lw={Lw}, C={C} needs {smem} B of "
-                         f"shared memory (limit {_SMEM_LIMIT})")
-    out = torch.empty((B, 2), dtype=torch.float32, device=lat_tab.device)
-    with torch.cuda.device(lat_tab.device):
+    smem = lib.scar_eval_smem_bytes(lw_max, C)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"scar_eval: Lw={lw_max}, C={C} needs {smem} B of "
+                         f"shared memory (limit {_SMEM_MAX})")
+    n_ctas = sum(-(-s.n_cand // CANDS_PER_CTA) for s in w.models)
+    consts = comm_constants(w.pkg, w.n_active)
+    out = torch.empty((B, 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.scar_eval_launch(
-            lat_tab.data_ptr(), e_tab.data_ptr(), Lw, C, seg_cls.data_ptr(),
-            last.data_ptr(), n_segs.data_ptr(), comm_lat.data_ptr(),
-            comm_e.data_ptr(), B, S, int(bool(pipelined)), out.data_ptr(),
-            stream)
+            w.lat_tab.data_ptr(), w.e_tab.data_ptr(), w.w_bytes.data_ptr(),
+            w.out_bytes.data_ptr(), w.act_in.data_ptr(), w.chips.data_ptr(),
+            w.last.data_ptr(), w.n_segs.data_ptr(), w.class_map.data_ptr(),
+            w.desc.data_ptr(), len(w.models), n_ctas, CANDS_PER_CTA, lw_max,
+            consts.ctypes.data, w.cols, C, S, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"scar_eval launch failed: CUDA error {err}")
     scar_eval.launches += 1
@@ -170,8 +306,8 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = load_library("scar_eval")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.scar_eval_launch.argtypes = [p, p, i, i, p, p, p, p, p, i, i, i,
-                                         p, p]
+        lib.scar_eval_launch.argtypes = [p] * 10 + [i, i, i, i, p, i, i, i,
+                                                    p, p]
         lib.scar_eval_launch.restype = i
         lib.scar_eval_smem_bytes.argtypes = [i, i]
         lib.scar_eval_smem_bytes.restype = ctypes.c_longlong

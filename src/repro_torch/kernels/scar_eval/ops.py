@@ -1,103 +1,136 @@
 """Bridge from ``repro_torch.core`` candidate batches to the kernel inputs.
 
-``pack_candidates`` turns a ``BatchedModelCandidates`` + CostDB + MCM into
-the compact float32 tensors ``scar_eval`` consumes, on the caller's device:
-per-segment chiplet classes, last-layer indices and live counts (host
-integers copied once), the window's cost tables, and the per-segment comm
-terms.  The comm terms are computed here in torch, before the launch, as the
-reference's jitted wrapper computes them outside its kernel
-(``repro/kernels/scar_eval/ops.py::evaluate_traceable``): per-segment weight
-bytes are prefix-sum differences at the segment boundaries and the
-formulas are ``core.cost.comm_from_parts``, the function the float64 oracle
-runs.  ``evaluate`` then picks the kernel or its plain version.
+``model_inputs`` takes what the host holds for one model's candidate batch
+(``BatchedModelCandidates``: chiplet and end layer of each segment, live
+segment counts) and the window's CostDB rows, as numpy.
+``window_arrays`` concatenates any number of models into the host arrays
+of a ``WindowBatch``; ``pack_window`` copies them to the device in one copy
+per dtype (``launch.platform.device_upload``) and wraps them for
+``scar_eval``, whose one launch then computes everything the reference's
+jitted wrapper (``repro/kernels/scar_eval/ops.py::evaluate_traceable``)
+computes around its kernel.  ``evaluate`` picks the kernel or its plain
+version.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.cost import comm_from_parts
+from repro_torch.launch import platform
 
-from .kernel import blocked_cumsum, scar_eval, scar_eval_plain
+from .kernel import (CANDS_PER_CTA, DESC_INTS, ModelSlot, WindowBatch,
+                     _check, scar_eval, scar_eval_window_plain)
 
-__all__ = ["PackedCandidates", "evaluate", "pack_candidates"]
-
-
-class PackedCandidates(NamedTuple):
-    """Kernel inputs of one batch, in ``scar_eval``'s argument order."""
-
-    lat_tab: torch.Tensor
-    e_tab: torch.Tensor
-    seg_cls: torch.Tensor
-    last: torch.Tensor
-    n_segs: torch.Tensor
-    comm_lat: torch.Tensor
-    comm_e: torch.Tensor
-    pipelined: bool
+__all__ = ["ModelInputs", "evaluate", "model_inputs", "pack_window",
+           "window_arrays"]
 
 
-def pack_candidates(db, mcm, cand, n_active: int,
-                    prev_end: Optional[int] = None, *,
-                    pipelined: bool = True,
-                    device: torch.device) -> PackedCandidates:
-    """Compact float32 kernel inputs of one candidate batch on ``device``.
+class ModelInputs(NamedTuple):
+    """One model's host arrays: its window's CostDB rows (``lat_tab`` /
+    ``e_tab`` ``[Lw, C]``, ``w_bytes`` / ``out_bytes`` ``[Lw]``), its input
+    activation bytes, and per candidate the chiplet and window-relative
+    last layer of each segment (``[B, S]``) and the live segment count."""
 
-    The segment axis is shrunk to the batch's largest segment count.  No
-    batch padding: the kernel masks its ragged last block.
-    """
-    B, Lw = cand.seg_id.shape
+    lat_tab: np.ndarray
+    e_tab: np.ndarray
+    w_bytes: np.ndarray
+    out_bytes: np.ndarray
+    act_in: float
+    chips: np.ndarray
+    last: np.ndarray
+    n_segs: np.ndarray
+    prev_end: Optional[int] = None
+    pipelined: bool = True
+
+
+def model_inputs(db, cand, prev_end: Optional[int] = None, *,
+                 pipelined: bool = True) -> ModelInputs:
+    """``ModelInputs`` of a ``BatchedModelCandidates`` over ``db``."""
     S = max(1, int(cand.n_segs.max()))
     sl = slice(cand.start, cand.end)
-
-    def t(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype),
-                               device=device)
-
-    lat_tab = t(db.lat[sl], np.float32)
-    e_tab = t(db.energy[sl], np.float32)
-    w_bytes = t(db.w_bytes[sl], np.float32)
-    out_bytes = t(db.out_bytes[sl], np.float32)
-    class_map = t(mcm.class_map, np.int32)
-    chips = t(cand.chiplets[:, :S], np.int32)
-    n_segs = t(cand.n_segs, np.int32)
     if cand.seg_ends is not None:                # free at construction time
-        last_np = cand.seg_ends[:, :S] - cand.start - 1
+        last = cand.seg_ends[:, :S] - cand.start - 1
     else:
         from repro_torch.core.cost import segment_last_layers
-        last_np = segment_last_layers(cand.seg_id, S)
-    last = t(last_np, np.int32)
-
-    cpos = chips.clamp(min=0)
-    seg_cls = class_map[cpos.long()]                             # [B, S]
-    exists = torch.arange(S, device=device)[None, :] < n_segs[:, None]
-    hi = last.long().clamp(0, Lw - 1)
-    lo = torch.cat([torch.zeros_like(hi[:, :1]),
-                    last[:, :-1].long().clamp(min=-1) + 1], dim=1)
-    zero = torch.zeros((), dtype=torch.float32, device=device)
-    # per-segment reductions at the boundaries (cf. cost.segment_reductions)
-    seg_last_out = torch.where(exists, out_bytes[hi], zero)
-    cw = torch.cat([w_bytes.new_zeros(1), blocked_cumsum(w_bytes)])
-    seg_w = torch.where(exists, cw[hi + 1] - cw[lo], zero)
-    ip_lat, ip_e, op_lat, op_e = comm_from_parts(
-        mcm.pkg, mcm.cols, cpos, seg_w, seg_last_out, n_segs, n_active,
-        float(np.float32(db.in_bytes[cand.start])), prev_end)
-    return PackedCandidates(lat_tab, e_tab, seg_cls, last, n_segs,
-                            (ip_lat + op_lat).contiguous(),
-                            (ip_e + op_e).contiguous(), pipelined)
+        last = segment_last_layers(cand.seg_id, S)
+    return ModelInputs(db.lat[sl], db.energy[sl], db.w_bytes[sl],
+                       db.out_bytes[sl],
+                       float(np.float32(db.in_bytes[cand.start])),
+                       cand.chiplets[:, :S], last, cand.n_segs, prev_end,
+                       pipelined)
 
 
-def evaluate(packed: PackedCandidates, *, use_kernel: bool) -> torch.Tensor:
-    """``[B, 2]`` float32 (latency, energy) of a packed batch.
+def _widen(a: np.ndarray, S: int) -> np.ndarray:
+    """``[B, s]`` ints as ``[B, S]`` int32, padded with -1."""
+    out = np.full((a.shape[0], S), -1, np.int32)
+    out[:, :min(S, a.shape[1])] = a[:, :S]
+    return out
+
+
+def window_arrays(models: Sequence[ModelInputs], class_map
+                  ) -> tuple[dict[str, np.ndarray], tuple[ModelSlot, ...]]:
+    """The host arrays of one ``WindowBatch`` of ``models``, keyed and
+    ordered by its tensor fields, and the models' slots.
+
+    The segment axis is the widest model's live segment count.
+    """
+    S = max(max(1, int(np.max(m.n_segs))) for m in models)
+    slots, desc = [], np.zeros((len(models), DESC_INTS), np.int32)
+    cand = tab = cta = 0
+    for i, m in enumerate(models):
+        B, Lw = m.n_segs.shape[0], m.lat_tab.shape[0]
+        slots.append(ModelSlot(cand, B, tab, Lw, m.prev_end,
+                               bool(m.pipelined), float(m.act_in), cta))
+        desc[i, :7] = (cand, B, tab, Lw,
+                       -1 if m.prev_end is None else m.prev_end,
+                       int(bool(m.pipelined)), cta)
+        cand += B
+        tab += Lw
+        cta += -(-B // CANDS_PER_CTA)
+
+    def cat(key, dtype):
+        return np.concatenate([np.asarray(getattr(m, key), dtype)
+                               for m in models])
+
+    arrays = {
+        "lat_tab": cat("lat_tab", np.float32),
+        "e_tab": cat("e_tab", np.float32),
+        "w_bytes": cat("w_bytes", np.float32),
+        "out_bytes": cat("out_bytes", np.float32),
+        "act_in": np.array([m.act_in for m in models], np.float32),
+        "chips": np.concatenate([_widen(m.chips, S) for m in models]),
+        "last": np.concatenate([_widen(m.last, S) for m in models]),
+        "n_segs": cat("n_segs", np.int32),
+        "class_map": np.asarray(class_map, np.int32),
+        "desc": desc,
+    }
+    return arrays, tuple(slots)
+
+
+def pack_window(models: Sequence[ModelInputs], class_map, pkg, cols: int,
+                n_active: int, *, device: torch.device) -> WindowBatch:
+    """One ``WindowBatch`` of ``models`` on ``device``, uploaded in one
+    copy per dtype."""
+    arrays, slots = window_arrays(models, class_map)
+    dev = platform.device_upload(arrays, device)
+    return WindowBatch(*(dev[k] for k in arrays), models=slots, pkg=pkg,
+                       cols=int(cols), n_active=int(n_active))
+
+
+def evaluate(batch: WindowBatch, *, use_kernel: bool) -> torch.Tensor:
+    """``[B, 2]`` float32 (latency, energy) of a window batch.
 
     ``use_kernel=True`` launches the CUDA kernel (and raises on a CPU
     device: there is no kernel to run there); ``False`` runs the plain
-    torch version on the batch's device.
+    torch version on the batch's device.  Both check the batch as the
+    kernel's wrapper does.
     """
     if not use_kernel:
-        return scar_eval_plain(*packed)
-    if packed.lat_tab.device.type != "cuda":
+        _check(batch)
+        return scar_eval_window_plain(batch)
+    if batch.chips.device.type != "cuda":
         raise RuntimeError("the scar_eval kernel needs a CUDA device; "
-                           f"the batch is on {packed.lat_tab.device}")
-    return scar_eval(*packed)
+                           f"the batch is on {batch.chips.device}")
+    return scar_eval(batch)

@@ -2,10 +2,10 @@
 
 Counterpart of ``repro/kernels/scar_search/ops.py``:
 
-* ``conflict_counts`` — ``[Bm, N]`` popcounts of beam x candidate
-  occupancy intersections.  ``use_kernel=True`` launches the CUDA kernel
-  (and raises on a CPU device: there is no kernel to run there),
-  ``use_kernel=False`` runs the plain torch version on the inputs' device.
+* ``screen`` — one beam stage's masked score plane and counters (see
+  ``kernel.py``).  ``use_kernel=True`` launches the CUDA kernel (and raises
+  on a CPU device: there is no kernel to run there), ``use_kernel=False``
+  runs the plain torch version on the inputs' device.
 * ``masked_topk`` — smallest-``k`` selection over a validity mask with the
   lowest-index tie rule of the reference's ``lax.top_k`` on negated scores.
   ``torch.topk`` breaks ties in no fixed order, so this is a stable
@@ -16,20 +16,28 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import conflict_counts_plain, scar_search
+from .kernel import _check, scar_search, scar_search_plain
 
-__all__ = ["conflict_counts", "masked_topk"]
+__all__ = ["masked_topk", "screen"]
 
 
-def conflict_counts(beam_words: torch.Tensor, cand_words: torch.Tensor, *,
-                    use_kernel: bool) -> torch.Tensor:
-    """``[Bm, N]`` int32 intersection popcounts of int32-held uint32 words."""
+def screen(beam_words: torch.Tensor, cand_words: torch.Tensor,
+           valid: torch.Tensor, state: torch.Tensor, *, use_kernel: bool,
+           **stage) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(score [Bm, N], state [4])`` of one beam stage.
+
+    ``stage``: ``keep``, ``max_exp``, ``b_lat``, ``b_e``, ``c_lat``,
+    ``c_e`` and ``metric``, as ``kernel.scar_search`` takes them.
+    """
     if not use_kernel:
-        return conflict_counts_plain(beam_words, cand_words)
+        _check(beam_words, cand_words, valid, state, stage["b_lat"],
+               stage["b_e"], stage["c_lat"], stage["c_e"])
+        return scar_search_plain(beam_words, cand_words, valid, state,
+                                 **stage)
     if beam_words.device.type != "cuda":
         raise RuntimeError("the scar_search kernel needs a CUDA device; the "
                            f"words are on {beam_words.device}")
-    return scar_search(beam_words, cand_words)
+    return scar_search(beam_words, cand_words, valid, state, **stage)
 
 
 def masked_topk(scores: torch.Tensor, valid: torch.Tensor,

@@ -11,18 +11,20 @@ device rule:
   routes each scored batch through it, so ``sync_count`` counts one fetch
   per scoring batch, as in the reference.  Both read the
   ``launch.platform.sync_count`` registry counter.
+* ``device_upload`` copies named host arrays to the device in one copy per
+  dtype, however many arrays there are.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.obs import registry as _obs_registry
 
-__all__ = ["default_device", "resolve_device", "device_fetch", "sync_count",
-           "reset_sync_count"]
+__all__ = ["default_device", "resolve_device", "device_fetch",
+           "device_upload", "sync_count", "reset_sync_count"]
 
 _SYNC = _obs_registry.counter("launch.platform.sync_count")
 
@@ -55,6 +57,35 @@ def device_fetch(*tensors: torch.Tensor) -> tuple[np.ndarray, ...]:
     """
     _SYNC.inc()
     return tuple(t.detach().cpu().numpy() for t in tensors)
+
+
+def device_upload(arrays: Mapping[str, np.ndarray],
+                  device: torch.device) -> dict[str, torch.Tensor]:
+    """Device copies of named host arrays, one host->device copy per dtype.
+
+    The arrays of a dtype are laid end to end in one host buffer, each
+    starting on a 16-byte boundary, which is copied once; each name gets
+    a contiguous view of its part, in its own shape.  A copy from pageable
+    host memory blocks the host, so the fewer the better.
+    """
+    groups: dict[np.dtype, list[tuple[str, np.ndarray]]] = {}
+    for name, a in arrays.items():
+        a = np.asarray(a)
+        groups.setdefault(a.dtype, []).append((name, a))
+    out = {}
+    for dtype, items in groups.items():
+        step = max(1, 16 // dtype.itemsize)
+        offs, total = [], 0
+        for _, a in items:
+            offs.append(total)
+            total += -(-a.size // step) * step
+        buf = np.zeros(total, dtype)
+        for (_, a), off in zip(items, offs):
+            buf[off:off + a.size] = a.ravel()
+        flat = torch.from_numpy(buf).to(device)
+        for (name, a), off in zip(items, offs):
+            out[name] = flat[off:off + a.size].view(a.shape)
+    return out
 
 
 def sync_count() -> int:

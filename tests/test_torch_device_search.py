@@ -290,3 +290,90 @@ def test_window_program_reads_nothing_back():
     assert len(blocking_calls("x.item(); y.cpu(); torch.nonzero(z)")) == 3
     assert port_engine.get_engine(T.SearchConfig(algo="beam_jax")) \
         .combine_window
+
+
+# ------------------------------ op budget ----------------------------------
+
+# Torch ops that the 16x16 production schedule's window builds and window
+# programs dispatch outside the two plain-kernel calls (each counted as
+# one op).  With one scar_eval launch a window and one scar_search launch
+# a beam stage, doing the work of the ops around them, this count is 479;
+# before, it was 2 716, about 150 a model building the comm terms and
+# about 40 a beam stage around a popcount-only kernel.
+OP_CEILING = 600
+
+
+class _OpCount:
+    """Counts the non-view aten ops dispatched while ``on`` (a
+    ``TorchDispatchMode``), with each plain-kernel call counted as one."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if counter.on and not counter.in_kernel and not func.is_view:
+                    counter.ops += 1
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+        self.ops = 0
+        self.on = False
+        self.in_kernel = False
+
+    def kernel(self, fn):
+        def call(*args, **kwargs):
+            if self.on and not self.in_kernel:
+                self.ops += 1
+            outer, self.in_kernel = self.in_kernel, True
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.in_kernel = outer
+        return call
+
+    def counted(self, fn):
+        def call(*args, **kwargs):
+            outer, self.on = self.on, True
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.on = outer
+        return call
+
+
+def test_window_ops_within_budget(monkeypatch):
+    """The 16x16 ``beam_jax`` schedule's ``window_inputs`` and window
+    programs dispatch at most ``OP_CEILING`` torch ops outside the plain
+    kernels, and make one ``scar_eval`` call per window."""
+    from repro_torch.kernels.scar_eval import ops as eval_ops
+    from repro_torch.kernels.scar_search import ops as search_ops
+    count = _OpCount()
+    evals = []
+    real_eval = eval_ops.scar_eval_window_plain
+
+    def eval_plain(batch):
+        evals.append(len(batch.models))
+        return real_eval(batch)
+
+    monkeypatch.setattr(eval_ops, "scar_eval_window_plain",
+                        count.kernel(eval_plain))
+    monkeypatch.setattr(search_ops, "scar_search_plain",
+                        count.kernel(search_ops.scar_search_plain))
+    monkeypatch.setattr(DeviceBeamEngine, "window_inputs",
+                        count.counted(DeviceBeamEngine.window_inputs))
+    monkeypatch.setattr(ds, "fused_program", count.counted(ds.fused_program))
+    case = GOLDEN["het_cb_16x16_cap1024/dc4_lms_seg_image"]
+    with count.mode:
+        out = T.schedule(T.get_scenario(case["scenario"]),
+                         T.make_mcm(case["pattern"], rows=case["rows"],
+                                    cols=case["cols"], n_pe=case["n_pe"]),
+                         T.SearchConfig(path_cap=case["path_cap"],
+                                        algo="beam_jax"), device="cpu")
+    assert golden.outcome_record(out) == {
+        k: case[k] for k in ("plans", "latency", "energy", "edp")}
+    assert len(evals) == len(out.windows) == 5 and sum(evals) == 11
+    print(f"torch ops of the 16x16 window builds and programs: {count.ops}")
+    assert 0 < count.ops <= OP_CEILING
