@@ -17,7 +17,13 @@ reference package.  Phases, each printed as it runs:
    launch) against ``scar_eval_window_plain``, bit for bit, over a sweep
    of shapes (one and four models a launch) and on every window of the
    16x16 production run, built as the fused schedule builds them; CUDA-event
-   and profiler times of the largest window and the card's bound for it
+   and profiler times of the largest window and the card's bound for it.
+   Then the congestion comm model: a sweep with random per-link waits
+   under the three NoC presets (one to four models, cold and anchored,
+   pipelined and not, Lw up to 5 000), whole-window and one-model
+   launches, and every window of the 16x16 ``narrow`` congestion run with
+   the link costs its fused chain scored it with; times and bound of the
+   largest of those windows beside the analytic one
 2b. ``scar_search`` (a beam stage's whole screen: disjointness, keep,
    expansion budget, masked scores) against ``scar_search_plain``, bit for
    bit in float32 and float64, over a sweep and on the inputs of the 16x16
@@ -48,6 +54,17 @@ reference package.  Phases, each printed as it runs:
    the profiler's device events of each window program, traced span
    breakdowns of both paths and each run's device time from
    ``torch.profiler``
+5. every other search option, against the golden file: the ten 6x6
+   scenarios under ``comm_model="congestion"`` (``het_rows`` NoC) with
+   ``beam`` under ``auto``, with every batch on the kernel and with
+   ``beam_jax``; 16x16 ``dc4`` with the ``narrow`` NoC under ``beam`` and
+   ``beam_jax`` (one ``scar_eval`` launch a model, one ``scar_search`` a
+   stage, one fetch a window) and one of its congestion windows under
+   ``set_sync_debug_mode("error")``; ``evolutionary``, ``anneal`` and
+   ``refine_iters=300`` cases on 6x6 and ``anneal`` on 16x16; a 16x16
+   refinement with ``eval_backend="cuda"`` (the relocate screen on the
+   kernel): never worse, valid, the same twice; span breakdowns and the
+   profiled device busy share of the 16x16 congestion ``beam_jax`` run
 6. LM serving at full width: ``repro_torch.launch.serve.main`` on
    zamba2-2.7b, batch 4, prompt 1024, 32 tokens, bf16, greedy: 45
    ``ssd_scan`` and 9 ``flash_attention`` launches per prefill and none in
@@ -141,6 +158,8 @@ SEARCH_MAX_EXP = (1, 7, 20000)
 LOP3_PER_CLOCK_PER_SM = 64      # 32-bit logical operation, compute 9.0
 H100_SMS = 132
 PROD_KEY = "het_cb_16x16_cap1024/dc4_lms_seg_image"
+CONG_KEY = "het_cb_16x16_cap1024_congestion_narrow/dc4_lms_seg_image"
+REFINE_ITERS = 300              # phase 5's 16x16 refinement
 # Scenarios whose all-float32 run (eval_backend="cuda") breaks an exact tie
 # in the beam the other way: an equal-metric plan (ROADMAP.md, "Faults found
 # in the port"; tests/test_torch_schedule.py pins the same on the CPU).
@@ -235,17 +254,28 @@ def random_model(rng, B, Lw, S, C, *, prev_end=None, pipelined=True):
                        n_segs.astype(np.int32), prev_end, pipelined)
 
 
-def random_window(rng, n_models, B, Lw, S, C, dev):
+def random_window(rng, n_models, B, Lw, S, C, dev, noc=None):
     """A seeded ``scar_eval`` window batch on the card, on a 6x6 mesh: one
-    model, or four of other widths and batch sizes, cold and anchored,
-    pipelined and not."""
+    model, or up to four of other widths and batch sizes, cold and
+    anchored, pipelined and not.  With ``noc`` (a NoC preset), under the
+    congestion model: each model with seeded per-link waiting times (some
+    links idle)."""
     from repro_torch.core.chiplet import PackageParams
+    from repro_torch.core.scenarios import noc_config
     from repro_torch.kernels.scar_eval import pack_window
-    models = [random_model(rng, max(1, B >> i), max(1, Lw - 7 * i), S, C,
-                           prev_end=None if i % 2 == 0 else 5 * i,
-                           pipelined=i != 3) for i in range(n_models)]
+    models = []
+    for i in range(n_models):
+        m = random_model(rng, max(1, B >> i), max(1, Lw - 7 * i), S, C,
+                         prev_end=None if i % 2 == 0 else 5 * i,
+                         pipelined=i != 3)
+        if noc is not None:
+            cost = rng.lognormal(-9, 2, 60).astype(np.float32)
+            cost[rng.random(60) < 0.2] = 0
+            m = m._replace(link_cost=cost)
+        models.append(m)
     return pack_window(models, rng.integers(0, C, 36), PackageParams(), 6,
-                       n_models, device=dev)
+                       n_models, device=dev, rows=6,
+                       noc=None if noc is None else noc_config(noc))
 
 
 def same_bits(out, ref, what: str) -> float:
@@ -264,16 +294,50 @@ def eval_bound_ms(batch) -> tuple[float, str]:
     the ``[B, 2]`` scores written once, against the float32 operations:
     about 32 a live segment (segment sums, the DRAM and NoP formulas, the
     segment total, sum and max), 13 a candidate (its first segment's
-    input) and ``(2 C + 1) Lw`` prefix additions a model."""
-    nbytes = sum(t.numel() * t.element_size() for t in batch[:10]) \
+    input) and ``(2 C + 1) Lw`` prefix additions a model.  Under the
+    congestion model the link costs are read too, and a live segment
+    takes about 12 more operations (the two corrections and their sums),
+    a candidate 5 (its first input's), and one max for every link of its
+    routes: to its DRAM port, to the next segment, from the anchor."""
+    tensors = list(batch[:10])
+    if batch.link_cost is not None:
+        tensors.append(batch.link_cost)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) \
         + 8 * batch.chips.shape[0]
     live = int(batch.n_segs.clamp(0, batch.chips.shape[1]).sum().item())
     cands = int((batch.n_segs > 0).sum().item())
     flops = 32 * live + 13 * cands + (2 * batch.lat_tab.shape[1] + 1) \
         * batch.lat_tab.shape[0]
+    if batch.link_cost is not None:
+        flops += 12 * live + 5 * cands + route_links(batch)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def route_links(batch) -> int:
+    """Links on the routes of a window's live transfers: each live
+    segment's DRAM route, the forward to the next segment, and the
+    anchored first input's route."""
+    cols = batch.cols
+    S = batch.chips.shape[1]
+    chips = batch.chips.clamp(min=0).long()
+    n = batch.n_segs.long()[:, None]
+    j = torch.arange(S, device=chips.device)[None, :]
+    r, c = chips // cols, chips % cols
+    nxt = torch.roll(chips, -1, 1)
+    hd = torch.minimum(c, cols - 1 - c)
+    hn = (r - nxt // cols).abs() + (c - nxt % cols).abs()
+    total = int((hd * (j < n)).sum().item() + (hn * (j < n - 1)).sum()
+                .item())
+    for slot in batch.models:
+        if slot.prev_end is not None:
+            c0 = chips[slot.cand_off:slot.cand_off + slot.n_cand, 0]
+            live = n[slot.cand_off:slot.cand_off + slot.n_cand, 0] > 0
+            pr, pc = divmod(slot.prev_end, cols)
+            total += int((((c0 // cols - pr).abs() + (c0 % cols - pc).abs())
+                          * live).sum().item())
+    return total
 
 
 def screen_bound_ms(t, sm_clock_hz) -> tuple[float, str]:
@@ -409,20 +473,35 @@ def device_time_of(run) -> tuple[float, float, list, int]:
     return wall, sum(r[2] for r in rows), rows[:5], sum(r[1] for r in rows)
 
 
+def golden_mcm(case):
+    from repro_torch.core import make_mcm
+    from repro_torch.core.scenarios import noc_config
+    return make_mcm(case["pattern"], rows=case["rows"], cols=case["cols"],
+                    n_pe=case["n_pe"],
+                    noc=noc_config(case["noc"]) if case["noc"] else None)
+
+
+def case_config(case, **change):
+    """The golden case's ``SearchConfig``, with ``change`` applied."""
+    from repro_torch.core.scheduler import SearchConfig
+    return SearchConfig(**{"path_cap": case["path_cap"], **case["config"],
+                           **change})
+
+
 def production_windows(case, dev):
-    """Every window of the golden 16x16 run, built and uploaded as the
+    """Every window of a golden 16x16 run, built and uploaded as the
     fused schedule builds it (``DeviceBeamEngine.window_inputs``), each
     window's anchors taken from the golden plans of the windows before it.
     Returns the config, the engine and per window ``(window, n_pad)``."""
-    from repro_torch.core import get_scenario, make_mcm
+    from repro_torch.core import get_scenario
     from repro_torch.core.engine import DeviceBeamEngine
     from repro_torch.core.reconfig import greedy_pack
-    from repro_torch.core.scheduler import SearchConfig, get_cost_db
-    cfg = SearchConfig(path_cap=case["path_cap"], algo="beam_jax")
-    mcm = make_mcm(case["pattern"], rows=case["rows"], cols=case["cols"],
-                   n_pe=case["n_pe"])
+    from repro_torch.core.scheduler import get_cost_db
+    cfg = case_config(case, algo="beam_jax")
+    mcm = golden_mcm(case)
     db = get_cost_db(get_scenario(case["scenario"]), mcm)
-    engine = DeviceBeamEngine(beam=cfg.beam, device=dev)
+    engine = DeviceBeamEngine(beam=cfg.beam, device=dev,
+                              comm_model=cfg.comm_model)
     anchors: dict[int, int] = {}
     windows = []
     for w, ranges in enumerate(greedy_pack(db, mcm.class_counts(),
@@ -439,14 +518,15 @@ def window_program(window, n_pad, cfg, engine):
     from repro_torch.core import device_search
     return device_search.fused_program(
         window, beam=cfg.beam, keep=cfg.keep_per_model, metric=cfg.metric,
-        max_exp=engine.max_expansions, n_pad=n_pad, use_kernel=True)
+        max_exp=engine.max_expansions, n_pad=n_pad, use_kernel=True,
+        congestion=cfg.comm_model == "congestion")
 
 
-def fused_window_without_sync(windows, cfg, engine) -> None:
-    """Window 0 of the 16x16 fused run, its inputs uploaded: its device
+def fused_window_without_sync(windows, cfg, engine, w: int = 0) -> None:
+    """Window ``w`` of a 16x16 fused run, its inputs uploaded: its device
     program with synchronising CUDA calls turned into errors."""
     from repro_torch.launch import platform
-    window, n_pad = windows[0]
+    window, n_pad = windows[w]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -455,8 +535,9 @@ def fused_window_without_sync(windows, cfg, engine) -> None:
         torch.cuda.set_sync_debug_mode(0)
     fails = platform.device_fetch(out[-1])[0]
     check(not fails.any(), "the window program found no disjoint placement")
-    print(f"window 0 ({len(window[0].models)} models, n_pad {n_pad}): fused "
-          "program ran under set_sync_debug_mode('error') with no sync")
+    print(f"window {w} ({len(window[0].models)} models, n_pad {n_pad}, "
+          f"{cfg.comm_model}): fused program ran under "
+          "set_sync_debug_mode('error') with no sync")
 
 
 def golden_record(outcome) -> dict:
@@ -477,9 +558,8 @@ def run_case(case, cfg, dev, *, exact_plans: bool = True):
     known to break an exact tie the other way (then any difference is
     printed).
     """
-    from repro_torch.core import get_scenario, make_mcm, schedule
-    mcm = make_mcm(case["pattern"], rows=case["rows"], cols=case["cols"],
-                   n_pe=case["n_pe"])
+    from repro_torch.core import get_scenario, schedule
+    mcm = golden_mcm(case)
     t0 = time.perf_counter()
     out = schedule(get_scenario(case["scenario"]), mcm, cfg, device=dev)
     torch.cuda.synchronize()
@@ -807,6 +887,62 @@ def main() -> None:
         print(f"  window {w}: {len(win[0].models)} models, B="
               f"{win[0].chips.shape[0]}: kernel {ms:.6f} ms per call, "
               f"device {d_ms!r} ms, bound {eval_bound_ms(win[0])[0]:.7f} ms")
+
+    n_cases = 0
+    noc_names = ("uniform", "het_rows", "narrow")
+    for B in SWEEP_B:
+        for Lw in SWEEP_LW:
+            for S in SWEEP_S:
+                n_models = 1 + n_cases % 4
+                noc = noc_names[n_cases % 3]
+                C = SWEEP_C[(n_cases // 3) % 2]
+                batch = random_window(rng, n_models, B, Lw, S, C, dev, noc)
+                what = (f"scar_eval congestion ({noc}) B={B} Lw={Lw} S={S} "
+                        f"C={C} models={n_models}")
+                plain = scar_eval_window_plain(batch)
+                worst = max(worst, same_bits(scar_eval(batch), plain, what))
+                parts = torch.cat([scar_eval(batch, model=i)
+                                   for i in range(n_models)])
+                same_bits(parts, plain, what + ", one launch a model")
+                n_cases += 1
+    print(f"congestion sweep: {n_cases} windows (B {SWEEP_B}, Lw {SWEEP_LW}, "
+          f"S {SWEEP_S}, C {SWEEP_C}, 1-4 models, NoC {noc_names}, random "
+          "link waits), whole-window and one-model launches == plain bit "
+          "for bit on all")
+    from repro_torch.core.device_search import congestion_scores
+    cfg16c, engine16c, windows_c = production_windows(golden[CONG_KEY], dev)
+    costed = []
+    for w, ((batch, _, tiers), _) in enumerate(windows_c):
+        out, cb = congestion_scores(batch, tiers, metric=cfg16c.metric,
+                                    use_kernel=True)
+        plain = scar_eval_window_plain(cb)
+        worst = max(worst, same_bits(out, plain, f"scar_eval congestion "
+                                     f"chain on 16x16 window {w}"))
+        same_bits(scar_eval(cb), plain, f"scar_eval congestion whole "
+                  f"16x16 window {w}")
+        costed.append(cb)
+    big_c = max(costed, key=lambda b: b.chips.shape[0])
+    cong = {"ms": cuda_ms(lambda: scar_eval(big_c)),
+            "plain_ms": cuda_ms(lambda: scar_eval_window_plain(big_c),
+                                reps=5)}
+    cong["device_ms"], c_parts = profiled_device_ms(lambda: scar_eval(big_c))
+    n_big = len(big_c.models)
+    cong["chain_ms"] = cuda_ms(lambda: [scar_eval(big_c, model=i)
+                                        for i in range(n_big)])
+    cong["chain_device_ms"], _ = profiled_device_ms(
+        lambda: [scar_eval(big_c, model=i) for i in range(n_big)])
+    cong["bound_ms"], cong["bound_by"] = eval_bound_ms(big_c)
+    print(f"16x16 narrow congestion windows: chain (one launch a model) and "
+          f"whole-window launch == plain bit for bit on all {len(costed)}; "
+          f"largest window: {n_big} models, B={big_c.chips.shape[0]}, "
+          f"S={big_c.chips.shape[1]}: whole-window launch {cong['ms']:.6f} "
+          f"ms per call, device {cong['device_ms']!r} ms "
+          f"[{show_parts(c_parts)}]; the chain's {n_big} launches "
+          f"{cong['chain_ms']:.6f} ms, device {cong['chain_device_ms']!r} "
+          f"ms; plain {cong['plain_ms']:.6f} ms; bound "
+          f"{cong['bound_ms']:.7f} ms ({cong['bound_by']}); analytic "
+          f"largest window above: device {dev_ms!r} ms, bound {b_ms:.7f} "
+          f"ms; on {smi}")
 
     phase("2b kernel: scar_search vs scar_search_plain")
     n_cases = 0
@@ -1143,6 +1279,137 @@ def main() -> None:
               "events, top by device time:"
               + "; ".join(f" {k} x{c} {t:.6f} s" for k, c, t in top))
 
+    phase("5 search options: congestion, evolutionary, anneal, refine")
+    from repro_torch.core import get_scenario, schedule
+    from repro_torch.core.cost import evaluate_schedule
+    from repro_torch.core.refine import refine
+    from repro_torch.core.scheduler import get_cost_db
+    cong_keys = sorted(k for k in golden
+                       if k.startswith("het_cross_6x6_congestion_het_rows/"))
+    for backend, algo in (("auto", "beam"), ("cuda", "beam"),
+                          ("auto", "beam_jax")):
+        clear_caches()
+        scar_eval.launches = 0
+        scar_search.launches = 0
+        for key in cong_keys:
+            case = golden[key]
+            exact = backend == "auto" or \
+                case["scenario"] not in F32_TIE_SCENARIOS
+            platform.reset_sync_count()
+            out, wall = run_case(case, case_config(
+                case, eval_backend=backend, algo=algo), dev,
+                exact_plans=exact)
+            syncs = platform.sync_count()
+            if algo == "beam_jax":
+                check(syncs == len(out.windows),
+                      f"{key}: {syncs} fetches for {len(out.windows)} "
+                      "windows")
+            print(f"  congestion {algo} {backend} {case['scenario']}: edp "
+                  f"{out.edp!r} = golden"
+                  f"{'' if exact else ' (plans: known float32 tie)'}, "
+                  f"{wall:.3f} s, {syncs} fetches")
+        check(scar_eval.launches > 0, f"the congestion {algo} {backend} "
+              "runs launched no scar_eval kernel")
+        if algo == "beam_jax":
+            check(scar_search.launches > 0, "the congestion beam_jax runs "
+                  "launched no scar_search kernel")
+        print(f"6x6 congestion {algo} {backend}: scar_eval launches "
+              f"{scar_eval.launches}, scar_search launches "
+              f"{scar_search.launches}")
+    case = golden[CONG_KEY]
+    for algo in ("beam", "beam_jax"):
+        clear_caches()
+        platform.reset_sync_count()
+        scar_eval.launches = 0
+        scar_search.launches = 0
+        out, walls[f"{algo}_congestion"] = run_case(
+            case, case_config(case, algo=algo), dev)
+        launches[f"{algo}_congestion"] = {
+            "scar_eval": scar_eval.launches,
+            "scar_search": scar_search.launches}
+        syncs = platform.sync_count()
+        print(f"16x16 narrow congestion {algo}: edp {out.edp!r} = golden; "
+              f"wall {walls[f'{algo}_congestion']:.3f} s; launches "
+              f"{launches[f'{algo}_congestion']}; fetches {syncs}")
+        if algo == "beam_jax":
+            stages = sum(len(w.plan.plans) for w in out.windows)
+            check(syncs == len(out.windows) == 5,
+                  f"{syncs} fetches on the 16x16 congestion beam_jax run")
+            check(launches["beam_jax_congestion"]
+                  == {"scar_eval": stages, "scar_search": stages},
+                  f"16x16 congestion beam_jax launches "
+                  f"{launches['beam_jax_congestion']}, want one scar_eval a "
+                  f"model and one scar_search a stage ({stages})")
+        else:
+            check(scar_eval.launches > 0, "the 16x16 congestion beam run "
+                  "launched no scar_eval kernel")
+    big_w = max(range(len(windows_c)),
+                key=lambda i: windows_c[i][0][0].chips.shape[0])
+    fused_window_without_sync(windows_c, cfg16c, engine16c, big_w)
+    for algo in ("beam", "beam_jax"):
+        clear_caches()
+        print(f"traced 16x16 congestion {algo} run, seconds by span: "
+              + span_totals(lambda: run_case(
+                  case, case_config(case, algo=algo), dev)))
+    clear_caches()
+    wall, busy, top, n_ev = device_time_of(lambda: run_case(
+        case, case_config(case, algo="beam_jax"), dev))
+    print(f"profiled 16x16 congestion beam_jax run: wall {wall:.4f} s, "
+          f"device busy {busy:.6f} s ({100 * busy / wall:.2f}%) in {n_ev} "
+          "device events, top by device time:"
+          + "; ".join(f" {k} x{c} {t:.6f} s" for k, c, t in top))
+
+    stoch_keys = sorted(k for k, c in golden.items()
+                        if c["config"].get("algo") in ("evolutionary",
+                                                       "anneal")
+                        or c["config"].get("refine_iters"))
+    for key in stoch_keys:
+        case = golden[key]
+        clear_caches()
+        scar_eval.launches = 0
+        out, wall = run_case(case, case_config(case), dev)
+        print(f"  {key}: edp {out.edp!r} = golden, plans = golden; "
+              f"{wall:.3f} s; scar_eval launches {scar_eval.launches}")
+        if key.startswith("het_cb_16x16"):
+            launches["anneal"] = {"scar_eval": scar_eval.launches,
+                                  "scar_search": 0}
+            walls["anneal"] = wall
+            check(scar_eval.launches > 0, "the 16x16 anneal run launched "
+                  "no scar_eval kernel")
+    case = golden[PROD_KEY]
+    sc, mcm = get_scenario(case["scenario"]), golden_mcm(case)
+    base, _ = run_case(case, case_config(case, algo="beam"), dev)
+    refined = []
+    for _ in range(2):
+        scar_eval.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refined.append(refine(sc, mcm, base, iters=REFINE_ITERS, seed=0,
+                              backend="cuda", device=dev))
+        torch.cuda.synchronize()
+        walls["refine"] = time.perf_counter() - t0
+        launches["refine"] = {"scar_eval": scar_eval.launches,
+                              "scar_search": 0}
+    r1, r2 = refined
+    check(r1.edp <= base.edp * (1 + 1e-12), f"16x16 refine made the "
+          f"schedule worse: {r1.edp} > {base.edp}")
+    check(golden_record(r1) == golden_record(r2),
+          "16x16 refine differs between two runs with one seed")
+    db = get_cost_db(sc, mcm)
+    res = evaluate_schedule(db, mcm, [w.plan for w in r1.windows],
+                            validate=True)
+    check(res.edp == r1.edp, "16x16 refined schedule re-evaluates to "
+          f"{res.edp}, not {r1.edp}")
+    check(launches["refine"]["scar_eval"] > 0, "the 16x16 refine with "
+          "eval_backend='cuda' launched no scar_eval kernel")
+    print(f"16x16 refine, {REFINE_ITERS} iterations, eval_backend='cuda': "
+          f"edp {base.edp!r} -> {r1.edp!r} (never worse, valid, the same "
+          f"twice); {walls['refine']:.3f} s; scar_eval launches "
+          f"{launches['refine']['scar_eval']} (relocate screens)")
+    print("traced 16x16 refine, seconds by span: " + span_totals(
+        lambda: refine(sc, mcm, base, iters=REFINE_ITERS, seed=0,
+                       backend="cuda", device=dev)))
+
     phase("6 serve: zamba2-2.7b at full width, batch 4, prompt 1024, "
           "32 tokens, bf16, greedy")
     from repro_torch.launch import serve
@@ -1300,6 +1567,7 @@ def main() -> None:
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "device_ms": dev_ms,
         "launches_by_path": {a: launches[a]["scar_eval"] for a in launches},
+        "congestion": cong,
     }, {
         "name": "scar_search", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scar_search.cu",

@@ -14,3 +14,4 @@ from .scheduler import (ScheduleOutcome, SearchConfig, clear_caches,
 from .scenarios import (ARVR, DATACENTER, SCENARIO_NAMES, all_scenarios,
                         get_scenario)
 from .workload import Layer, Model, OpType, Scenario
+from .refine import refine

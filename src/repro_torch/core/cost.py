@@ -149,17 +149,146 @@ def _dram_energy(sz: float, hops_to_port: int, mcm: MCM) -> float:
 
 
 def check_comm_model(comm_model: str) -> None:
-    """Raise unless ``comm_model`` is one this port implements.
-
-    Only the analytic model (paper Sec. III-E hop geometry) is ported; the
-    reference's routed ``"congestion"`` model is ROADMAP queue 1 item 4b.
-    """
-    if comm_model == "congestion":
-        raise NotImplementedError(
-            "comm_model='congestion' is not ported yet (ROADMAP.md queue 1, "
-            "item 4b: the congestion comm model)")
-    if comm_model != "analytic":
+    """Raise ``ValueError`` unless ``comm_model`` is ``"analytic"`` (paper
+    Sec. III-E hop geometry) or ``"congestion"`` (routed interposer links,
+    below)."""
+    if comm_model not in ("analytic", "congestion"):
         raise ValueError(f"unknown comm_model {comm_model!r}")
+
+
+# ---------------------------------------------------------------------------
+# Interposer NoC link model (comm_model="congestion")
+#
+# The analytic model above prices hop *count*; the congestion model routes
+# every transfer over the concrete interposer links (XY routing), rate-limits
+# it by the slowest link class it traverses (NoCConfig.h_bw / v_bw), and adds
+# a waiting term on the bottleneck link shared with co-scheduled tenants.
+# Link id layout: horizontal link (r, c)-(r, c+1) has id ``r*(cols-1) + c``;
+# vertical link (r, c)-(r+1, c) has id ``rows*(cols-1) + r*cols + c``.
+# ---------------------------------------------------------------------------
+
+def n_interposer_links(rows: int, cols: int) -> int:
+    """Number of interposer mesh links: horizontal then vertical ids."""
+    return rows * (cols - 1) + (rows - 1) * cols
+
+
+def dram_edge_col(cols: int, c: int) -> int:
+    """Column of the DRAM port a chiplet in column ``c`` streams through.
+
+    Nearest package edge; ties (odd-width centre column) break left, and
+    ``MCM.hops_to_dram`` equals the resulting horizontal distance.
+    """
+    return 0 if c <= cols - 1 - c else cols - 1
+
+
+def xy_route_links(rows: int, cols: int, src: int, dst: int) -> list[int]:
+    """Interposer link ids of the XY route ``src -> dst`` (X first, then Y).
+
+    The horizontal leg runs on the *source* row, the vertical leg on the
+    *destination* column; the list is empty when ``src == dst``.  Link
+    count always equals ``MCM.hops(src, dst)``.
+    """
+    n_h = rows * (cols - 1)
+    r1, c1 = divmod(src, cols)
+    r2, c2 = divmod(dst, cols)
+    links = [r1 * (cols - 1) + c for c in range(min(c1, c2), max(c1, c2))]
+    links += [n_h + r * cols + c2 for r in range(min(r1, r2), max(r1, r2))]
+    return links
+
+
+def dram_route_links(rows: int, cols: int, cid: int) -> list[int]:
+    """Interposer link ids between chiplet ``cid`` and its DRAM port.
+
+    Horizontal-only (ports sit on the left/right package edges); empty when
+    the chiplet is itself a port.  Link count equals ``MCM.hops_to_dram``.
+    """
+    r, c = divmod(cid, cols)
+    e = dram_edge_col(cols, c)
+    return [r * (cols - 1) + cc for cc in range(min(c, e), max(c, e))]
+
+
+def link_bandwidths(mcm: MCM) -> np.ndarray:
+    """Per-link bandwidth (bytes/s), ``[n_links]`` float64, h then v ids."""
+    n_h = mcm.rows * (mcm.cols - 1)
+    bw = np.empty(n_interposer_links(mcm.rows, mcm.cols), dtype=np.float64)
+    bw[:n_h] = mcm.noc.h_bw
+    bw[n_h:] = mcm.noc.v_bw
+    return bw
+
+
+def plan_link_bytes(db: CostDB, mcm: MCM, plan: ModelWindowPlan,
+                    prev_end: Optional[dict[int, int]] = None) -> np.ndarray:
+    """Bytes one plan pushes over each interposer link, ``[n_links]`` f64.
+
+    Accumulates exactly the transfers ``evaluate_window`` prices: every
+    segment's weight stream to/from its DRAM port, the first segment's
+    input activations (DRAM route when cold, XY route from the anchor in
+    ``prev_end``, nothing when resident), inter-segment activation
+    forwards (XY), and the last segment's DRAM writeback.  The scalar
+    occupancy oracle of the placement co-search.
+    """
+    prev_end = prev_end or {}
+    rows, cols = mcm.rows, mcm.cols
+    occ = np.zeros(n_interposer_links(rows, cols), dtype=np.float64)
+    seg_start = plan.start
+    for si, seg_end in enumerate(plan.seg_ends):
+        cid = plan.chiplets[si]
+        dram_links = dram_route_links(rows, cols, cid)
+        w_sz = float(db.w_bytes[seg_start:seg_end].sum())
+        occ[dram_links] += w_sz
+        if si == 0:
+            act_in = float(db.in_bytes[seg_start])
+            if prev_end.get(plan.model_idx) == cid:
+                pass  # resident on-chiplet: no interposer traffic
+            elif plan.model_idx in prev_end:
+                occ[xy_route_links(rows, cols, prev_end[plan.model_idx],
+                                   cid)] += act_in
+            else:
+                occ[dram_links] += act_in
+        act_out = float(db.out_bytes[seg_end - 1])
+        if si + 1 < plan.n_segments:
+            occ[xy_route_links(rows, cols, cid,
+                               plan.chiplets[si + 1])] += act_out
+        else:
+            occ[dram_links] += act_out
+        seg_start = seg_end
+    return occ
+
+
+def window_link_occupancy(db: CostDB, mcm: MCM, wp: WindowPlan,
+                          prev_end: Optional[dict[int, int]] = None
+                          ) -> np.ndarray:
+    """Total per-link byte occupancy of all plans in a window, ``[n_links]``."""
+    occ = np.zeros(n_interposer_links(mcm.rows, mcm.cols), dtype=np.float64)
+    for p in wp.plans:
+        occ += plan_link_bytes(db, mcm, p, prev_end)
+    return occ
+
+
+def _route_wait(bg_cost: np.ndarray, links: list[int]) -> float:
+    """Bottleneck waiting time (s) over a route: max of ``bg_cost[links]``."""
+    return float(bg_cost[links].max()) if links else 0.0
+
+
+def _dram_corr(sz: float, hops: int, wait: float, mcm: MCM) -> float:
+    """Congestion correction (s) added to ``_dram_lat`` for one transfer."""
+    if sz == 0:
+        return 0.0
+    noc = mcm.noc
+    rate = ((1.0 / min(mcm.pkg.dram_bw, noc.h_bw) - 1.0 / mcm.pkg.dram_bw)
+            if hops > 0 else 0.0)
+    return sz * rate + noc.congestion_alpha * wait
+
+
+def _nop_corr(sz: float, h_hops: int, v_hops: int, wait: float,
+              mcm: MCM) -> float:
+    """Congestion correction (s) added to ``_nop_lat`` for one transfer."""
+    if sz == 0 or h_hops + v_hops == 0:
+        return 0.0
+    noc = mcm.noc
+    inv_route = max(1.0 / noc.h_bw if h_hops > 0 else 0.0,
+                    1.0 / noc.v_bw if v_hops > 0 else 0.0)
+    return sz * (inv_route - 1.0 / mcm.pkg.nop_bw) + noc.congestion_alpha * wait
 
 
 def evaluate_window(db: CostDB, mcm: MCM, wp: WindowPlan,
@@ -169,22 +298,42 @@ def evaluate_window(db: CostDB, mcm: MCM, wp: WindowPlan,
     """Evaluate one time window of co-scheduled model plans.
 
     Window latency (seconds) is the max over the per-model latencies,
-    energy (joules) the sum over every compute and transfer term, under the
-    analytic comm model (``check_comm_model``).  This scalar float64 host
-    path is the parity oracle for the batched forms
-    (``eval_model_candidates`` and the ``kernels.scar_eval`` bridge) and
-    gives every reported schedule metric.
+    energy (joules) the sum over every compute and transfer term.
+
+    ``comm_model`` selects the communication cost model: ``"analytic"``
+    (paper Sec. III-E hop geometry) or ``"congestion"``, which adds a
+    routed link-occupancy correction per transfer — each plan's traffic
+    is routed over concrete interposer links (``xy_route_links``) and
+    waits on the bottleneck link it shares with the *other* plans in the
+    window (see ``_dram_corr`` / ``_nop_corr``).  Corrections affect
+    latency only; bytes moved, and therefore energy, are identical under
+    both models.  This scalar float64 host path is the parity oracle for
+    the batched forms (``eval_model_candidates`` and the
+    ``kernels.scar_eval`` bridge) and gives every reported schedule
+    metric.
     """
     if validate:
         wp.validate()
     check_comm_model(comm_model)
     prev_end = prev_end or {}
+    congestion = comm_model == "congestion"
+    rows, cols = mcm.rows, mcm.cols
+    if congestion:
+        occs = [plan_link_bytes(db, mcm, p, prev_end) for p in wp.plans]
+        bw = link_bandwidths(mcm)
     n_active = len(wp.plans)
     per_model_lat: dict[int, float] = {}
     per_model_segs: dict[int, tuple[tuple[float, int], ...]] = {}
     end_chiplet: dict[int, int] = {}
     total_energy = 0.0
-    for p in wp.plans:
+    for pi, p in enumerate(wp.plans):
+        if congestion:
+            # background = co-tenants' bytes on each link, never own traffic
+            bg = np.zeros_like(occs[pi])
+            for j, o in enumerate(occs):
+                if j != pi:
+                    bg = bg + o
+            bg_cost = bg / bw
         seg_lats = []
         seg_start = p.start
         for si, seg_end in enumerate(p.seg_ends):
@@ -200,29 +349,56 @@ def evaluate_window(db: CostDB, mcm: MCM, wp: WindowPlan,
             hops_dram = mcm.hops_to_dram(cid)
             ip_lat = _dram_lat(w_sz, hops_dram, mcm, n_active)
             ip_e = _dram_energy(w_sz, hops_dram, mcm)
+            ip_corr = op_corr = 0.0
+            if congestion:
+                wait_d = _route_wait(bg_cost,
+                                     dram_route_links(rows, cols, cid))
+                ip_corr = _dram_corr(w_sz, hops_dram, wait_d, mcm)
             if si == 0:
                 act_in = float(db.in_bytes[seg_start])
                 if prev_end.get(p.model_idx) == cid:
                     pass  # activations already resident on-chiplet
                 elif p.model_idx in prev_end:
-                    hops = mcm.hops(prev_end[p.model_idx], cid)
+                    src = prev_end[p.model_idx]
+                    hops = mcm.hops(src, cid)
                     ip_lat += _nop_lat(act_in, hops, mcm, n_active)
                     ip_e += _nop_energy(act_in, hops, mcm)
+                    if congestion:
+                        (r1, c1), (r2, c2) = mcm.pos(src), mcm.pos(cid)
+                        wait0 = _route_wait(
+                            bg_cost, xy_route_links(rows, cols, src, cid))
+                        ip_corr += _nop_corr(act_in, abs(c1 - c2),
+                                             abs(r1 - r2), wait0, mcm)
                 else:
                     ip_lat += _dram_lat(act_in, hops_dram, mcm, n_active)
                     ip_e += _dram_energy(act_in, hops_dram, mcm)
+                    if congestion:
+                        ip_corr += _dram_corr(act_in, hops_dram, wait_d, mcm)
             # op_com: forward activations to next segment (NoP), or write the
             # model's window output back to DRAM at the window boundary.
             act_out = float(db.out_bytes[seg_end - 1])
             if si + 1 < p.n_segments:
-                hops = mcm.hops(cid, p.chiplets[si + 1])
+                nxt = p.chiplets[si + 1]
+                hops = mcm.hops(cid, nxt)
                 op_lat = _nop_lat(act_out, hops, mcm, n_active)
                 op_e = _nop_energy(act_out, hops, mcm)
+                if congestion:
+                    (r1, c1), (r2, c2) = mcm.pos(cid), mcm.pos(nxt)
+                    wait_n = _route_wait(
+                        bg_cost, xy_route_links(rows, cols, cid, nxt))
+                    op_corr = _nop_corr(act_out, abs(c1 - c2), abs(r1 - r2),
+                                        wait_n, mcm)
             else:
                 op_lat = _dram_lat(act_out, hops_dram, mcm, n_active)
                 op_e = _dram_energy(act_out, hops_dram, mcm)
+                if congestion:
+                    op_corr = _dram_corr(act_out, hops_dram, wait_d, mcm)
                 end_chiplet[p.model_idx] = cid
-            seg_lats.append(comp_lat + ip_lat + op_lat)
+            if congestion:
+                seg_lats.append(comp_lat + (ip_lat + ip_corr)
+                                + (op_lat + op_corr))
+            else:
+                seg_lats.append(comp_lat + ip_lat + op_lat)
             total_energy += comp_e + ip_e + op_e
             seg_start = seg_end
         if p.pipelined and p.n_segments > 1:
@@ -251,7 +427,7 @@ def evaluate_schedule(db: CostDB, mcm: MCM,
     first window — the online re-scheduler uses it to account activations a
     persisting tenant left on-package at the previous epoch boundary.
     ``comm_model`` selects the per-window communication model (see
-    ``evaluate_window``).
+    ``evaluate_window``); anchors thread identically under both.
     """
     results = []
     prev_end = dict(prev_end) if prev_end else {}
@@ -473,11 +649,205 @@ def comm_terms(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
                            float(db.in_bytes[cand.start]), prev)
 
 
+def _span_bottleneck_mask(n: int) -> np.ndarray:
+    """Static ``[n, n, n-1]`` bool mask of 1-D span membership.
+
+    Entry ``[a, b, k]`` is True iff consecutive-link ``k`` lies on the
+    1-D span ``a -> b``.  Pure mesh geometry over Python ints, a host
+    constant.
+    """
+    a = np.arange(n)
+    lo = np.minimum(a[:, None], a[None, :])[..., None]
+    hi = np.maximum(a[:, None], a[None, :])[..., None]
+    span = np.arange(n - 1)[None, None, :]
+    return (span >= lo) & (span < hi)
+
+
+def _mesh_route_index(rows: int, cols: int
+                      ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Static per-chiplet ``(row, col, dram_edge_col)`` index arrays.
+
+    ``dram_edge_col`` is the nearer of columns 0 / ``cols - 1`` (ties to
+    0), matching ``dram_route_links``.
+    """
+    idx = np.arange(rows * cols)
+    r, c = idx // cols, idx % cols
+    edge = np.where(c <= cols - 1 - c, 0, cols - 1)
+    return r, c, edge
+
+
+def route_wait_tables(link_cost, rows: int, cols: int):
+    """Bottleneck-wait lookup tables over all XY routes of a mesh.
+
+    ``link_cost`` is ``[n_links]`` per-link waiting time in seconds
+    (background bytes / link bandwidth, h then v link ids), a torch tensor
+    (the tables come back on its device, in its dtype) or a numpy array
+    (the tables come back as numpy: the host form).  Returns
+    ``(wait_pair, wait_dram)``: ``wait_pair[s, d]`` is the max link cost
+    on the XY route ``s -> d`` (``[n, n]``), ``wait_dram[c]`` the max on
+    chiplet ``c``'s DRAM-port route (``[n]``), 0 over an empty route.
+    Built from the static range masks of ``_span_bottleneck_mask`` /
+    ``_mesh_route_index``; a max is exact, so the tables equal
+    ``_route_wait`` over ``xy_route_links`` / ``dram_route_links``.
+    """
+    if isinstance(link_cost, np.ndarray):
+        wp, wd = route_wait_tables(torch.from_numpy(link_cost), rows, cols)
+        return wp.numpy(), wd.numpy()
+    dev = link_cost.device
+    zero = link_cost.new_zeros(())
+    n_h = rows * (cols - 1)
+    if cols > 1:
+        h = link_cost[:n_h].reshape(rows, cols - 1)
+        mask = torch.as_tensor(_span_bottleneck_mask(cols), device=dev)
+        hmax = torch.where(mask[None], h[:, None, None, :],
+                           zero).amax(-1)            # [rows, cols, cols]
+    else:
+        hmax = link_cost.new_zeros((rows, 1, 1))
+    if rows > 1:
+        v = link_cost[n_h:].reshape(rows - 1, cols).T  # [cols, rows-1]
+        mask = torch.as_tensor(_span_bottleneck_mask(rows), device=dev)
+        vmax = torch.where(mask[None], v[:, None, None, :],
+                           zero).amax(-1)            # [cols, rows, rows]
+    else:
+        vmax = link_cost.new_zeros((cols, 1, 1))
+    r, c, edge = (torch.as_tensor(a, device=dev)
+                  for a in _mesh_route_index(rows, cols))
+    # XY route s->d: horizontal leg on the source row, vertical on the
+    # destination column — max of the two leg bottlenecks.
+    wait_pair = torch.maximum(hmax[r[:, None], c[:, None], c[None, :]],
+                              vmax[c[None, :], r[:, None], r[None, :]])
+    wait_dram = hmax[r, c, edge]
+    return wait_pair, wait_dram
+
+
+def congestion_constants(pkg, noc) -> tuple[float, float, float, float,
+                                             float]:
+    """``(alpha, rate_d, 1/h_bw, 1/v_bw, 1/nop_bw)`` as Python floats.
+
+    ``rate_d`` is the extra seconds a byte of a DRAM stream spends when
+    its route crosses links slower than the DRAM interface.
+    """
+    return (noc.congestion_alpha,
+            1.0 / min(pkg.dram_bw, noc.h_bw) - 1.0 / pkg.dram_bw,
+            1.0 / noc.h_bw, 1.0 / noc.v_bw, 1.0 / pkg.nop_bw)
+
+
+def congestion_correction(pkg, noc, cols: int, cpos: torch.Tensor,
+                          seg_w: torch.Tensor, seg_last_out: torch.Tensor,
+                          n_segs: torch.Tensor, act_in: float,
+                          prev_end: Optional[int], wait_pair: torch.Tensor,
+                          wait_dram: torch.Tensor):
+    """Routed-link latency corrections added on top of ``comm_from_parts``.
+
+    Mirrors the analytic term structure transfer for transfer (weights
+    stream, first-segment activations, boundary forwards, writeback) but
+    prices two link-level effects the hop-geometry model cannot see:
+
+    * **rate**: a transfer is limited by the slowest link *class* on its
+      XY route (``noc.h_bw`` / ``noc.v_bw``) instead of the flat
+      ``pkg.nop_bw`` / ``pkg.dram_bw``, contributing
+      ``sz * (1/bw_route - 1/bw_flat)``;
+    * **wait**: ``noc.congestion_alpha`` times the bottleneck-link
+      background serialization time, gathered from the ``wait_pair`` /
+      ``wait_dram`` tables (``route_wait_tables``).
+
+    The torch form of the reference's xp-generic function: the same code
+    gives the float64 oracle terms and the float32 terms of the kernel's
+    plain version, in the dtype of ``seg_w``.  The per-route rates are
+    tensors of that dtype: ``torch.where`` of two Python floats would be
+    float32 whatever the batch.  Returns ``(ip_corr, op_corr)``, each
+    ``[B, S]`` seconds; energy has no correction (bytes moved are
+    identical under both models).
+    """
+    S = cpos.shape[1]
+    fdt, dev = seg_w.dtype, seg_w.device
+    rows_, cols_ = cpos // cols, cpos % cols
+    hops_dram = torch.minimum(cols_, cols - 1 - cols_)           # [B, S]
+    nxt = torch.roll(cpos, -1, dims=1)
+    r2, c2 = nxt // cols, nxt % cols
+    h_next = (cols_ - c2).abs()
+    v_next = (rows_ - r2).abs()
+
+    alpha, rate_d, inv_h, inv_v, inv_nop = congestion_constants(pkg, noc)
+
+    def const(v):
+        return torch.full((), v, dtype=fdt, device=dev)
+
+    zero, rate_d, inv_h, inv_v = (const(v) for v in (0.0, rate_d, inv_h,
+                                                     inv_v))
+
+    def dram_corr(sz, hops, wait):
+        return torch.where(sz > 0, sz * torch.where(hops > 0, rate_d, zero)
+                           + alpha * wait, zero)
+
+    def nop_corr(sz, h_hops, v_hops, wait):
+        inv_route = torch.maximum(torch.where(h_hops > 0, inv_h, zero),
+                                  torch.where(v_hops > 0, inv_v, zero))
+        return torch.where((sz > 0) & (h_hops + v_hops > 0),
+                           sz * (inv_route - inv_nop) + alpha * wait, zero)
+
+    wd = wait_dram[cpos]                                         # [B, S]
+    ip_corr = dram_corr(seg_w, hops_dram, wd)
+    fr, fc = cpos[:, 0] // cols, cpos[:, 0] % cols
+    act = torch.full(fc.shape, act_in, dtype=fdt, device=dev)
+    if prev_end is None:
+        f_hops_dram = torch.minimum(fc, cols - 1 - fc)
+        add = dram_corr(act, f_hops_dram, wait_dram[cpos[:, 0]])
+    else:
+        pr, pc = prev_end // cols, prev_end % cols
+        add = nop_corr(act, (fc - pc).abs(), (fr - pr).abs(),
+                       wait_pair[prev_end, cpos[:, 0]])
+    first = (torch.arange(S, device=dev) == 0)[None, :]
+    ip_corr = ip_corr + torch.where(first, add[:, None], zero)
+
+    is_last = torch.arange(S, device=dev)[None, :] == (n_segs - 1)[:, None]
+    op_corr = torch.where(is_last,
+                          dram_corr(seg_last_out, hops_dram, wd),
+                          nop_corr(seg_last_out, h_next, v_next,
+                                   wait_pair[cpos, nxt]))
+    return ip_corr, op_corr
+
+
+def congestion_terms(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
+                     prev_end: Optional[int] = None,
+                     link_occ: Optional[np.ndarray] = None,
+                     s_max: Optional[int] = None, *,
+                     device: torch.device) -> tuple[torch.Tensor, ...]:
+    """Float64 congestion corrections for one candidate batch.
+
+    ``link_occ`` is the background byte occupancy ``[n_links]`` of all
+    *other* co-scheduled traffic (None means an uncontended interposer).
+    Returns ``(ip_corr, op_corr)``, each ``[B, S]`` float64 seconds on
+    ``device``, to be added to the corresponding ``comm_terms`` latencies.
+    The per-link cost (bytes / bandwidth) is divided on the host, as the
+    reference divides it.
+    """
+    S = int(s_max) if s_max is not None else cand.chiplets.shape[1]
+    sl = slice(cand.start, cand.end)
+    seg_w, seg_last_out = segment_reductions(
+        cand.seg_id, cand.n_segs, db.w_bytes[sl], db.out_bytes[sl], s_max=S)
+    cpos = np.maximum(cand.chiplets[:, :S], 0)
+    if link_occ is None:
+        link_occ = np.zeros(n_interposer_links(mcm.rows, mcm.cols))
+    cost = np.asarray(link_occ, dtype=np.float64) / link_bandwidths(mcm)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    wait_pair, wait_dram = route_wait_tables(t(cost), mcm.rows, mcm.cols)
+    prev = int(prev_end) if prev_end is not None else None
+    return congestion_correction(mcm.pkg, mcm.noc, mcm.cols, t(cpos),
+                                 t(seg_w), t(seg_last_out), t(cand.n_segs),
+                                 float(db.in_bytes[cand.start]), prev,
+                                 wait_pair, wait_dram)
+
+
 def eval_model_candidates(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
                           n_active: int,
                           prev_end: Optional[int] = None,
                           pipelined: bool = True,
-                          comm_model: str = "analytic", *,
+                          comm_model: str = "analytic",
+                          link_occ: Optional[np.ndarray] = None, *,
                           device: torch.device
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Float64 ``(lat[B], energy[B])`` tensors on ``device`` for one batch.
@@ -486,6 +856,8 @@ def eval_model_candidates(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
     reference's numpy oracle, with its operations in the same order, so
     the two agree bit for bit (tested).  It is the ``torch`` backend of
     ``core.evaluator``, which the ``auto`` policy picks for small batches.
+    Under ``comm_model="congestion"`` pass the co-tenants' byte occupancy
+    as ``link_occ`` (``[n_links]``, e.g. from ``plan_link_bytes``).
     """
     check_comm_model(comm_model)
     B, Lw = cand.seg_id.shape
@@ -521,6 +893,11 @@ def eval_model_candidates(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
 
     ip_lat, ip_e, op_lat, op_e = comm_terms(db, mcm, cand, n_active,
                                             prev_end=prev_end, device=device)
+    if comm_model == "congestion":
+        ip_corr, op_corr = congestion_terms(db, mcm, cand, prev_end=prev_end,
+                                            link_occ=link_occ, device=device)
+        ip_lat = ip_lat + ip_corr
+        op_lat = op_lat + op_corr
     zero = torch.zeros((), dtype=torch.float64, device=device)
     seg_lat = torch.where(valid_seg, seg_comp_lat + ip_lat + op_lat, zero)
     energy = numpy_row_sum(torch.where(valid_seg, seg_comp_e + ip_e + op_e,

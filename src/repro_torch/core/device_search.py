@@ -17,7 +17,12 @@ fetch:
 * ``fused_program`` — the throughput form: the scoring of every model of
   the window (one ``scar_eval`` launch on a GPU), quantised (tier, score)
   candidate ordering, compute-weight model ordering and the shared beam
-  scan, all in float32, as in the reference.
+  scan, all in float32, as in the reference.  Under the congestion comm
+  model the scoring is a chain over the models in index order, one
+  ``scar_eval`` launch a model: each model is scored against the
+  interposer link bytes of the earlier models' greedy-best candidates
+  (``_cand_link_bytes``), the placement co-search of
+  ``scheduler.build_window_sets``.
 
 Both share ``beam_scan``, whose per-stage screen (disjointness, keep
 width, expansion budget and the masked scores) is one ``kernels.
@@ -44,7 +49,8 @@ from repro_torch.kernels.scar_search import screen
 from .engine import metric_score
 from .quantize import SCORE_SIG, quantize_scores_torch
 
-__all__ = ["beam_scan", "bucket_size", "fused_program", "split_words_u32"]
+__all__ = ["beam_scan", "bucket_size", "congestion_scores", "fused_program",
+           "split_words_u32"]
 
 _KEY_INVALID = 0xFFFFFFFF
 
@@ -140,6 +146,124 @@ def _order_key(qs: torch.Tensor, tiers: torch.Tensor,
     return torch.where(valid, key, _KEY_INVALID)
 
 
+def _cand_link_bytes(batch, m: int, row: torch.Tensor) -> torch.Tensor:
+    """Interposer link bytes ``[n_links]`` float32 of ONE candidate.
+
+    ``row`` is a device index (0-dim) into the candidates of ``batch``'s
+    model ``m``.  The transfers are those ``cost.plan_link_bytes`` routes
+    (each segment's weight stream on its DRAM route, the first segment's
+    input activations on its DRAM route when cold or on the XY route from
+    the anchor, the inter-segment XY forwards, the last segment's
+    writeback), as ``T`` (source, destination, bytes) rows; a DRAM route
+    is the XY route to the nearer edge column of the same row.  Each link
+    sums the bytes of the routes that cross it, a ``[T, n_links]``
+    membership times bytes summed over ``T`` in one ``torch.sum``: a
+    fixed order, so the bits do not change from run to run (a float
+    scatter-add on the GPU may sum duplicates in any order).  Reads
+    nothing back to the host.
+    """
+    slot = batch.models[m]
+    rows_, cols = batch.rows, batch.cols
+    S = batch.chips.shape[1]
+    dev = batch.chips.device
+    lw = slot.n_layers
+    tabs = slice(slot.tab_off, slot.tab_off + lw)
+    # one-element index tensors: indexing with a 0-dim integer tensor would
+    # read it back to the host
+    idx = row.reshape(1)
+    cpos = batch.chips[idx][0].long().clamp(min=0)               # [S]
+    ns = batch.n_segs[idx].long()
+    j = torch.arange(S, device=dev)
+    exists = j < ns
+    is_last = j == ns - 1
+    hi = batch.last[idx][0].long().clamp(0, lw - 1)
+    lo = torch.cat([hi.new_zeros(1), hi[:-1] + 1])
+    layer = torch.arange(lw, device=dev)
+    member = (layer >= lo[:, None]) & (layer <= hi[:, None])     # [S, Lw]
+    zero = batch.w_bytes.new_zeros(())
+    seg_w = torch.where(exists, torch.where(member, batch.w_bytes[tabs],
+                                            zero).sum(-1), zero)
+    seg_out = torch.where(exists, batch.out_bytes[tabs][hi], zero)
+    act = batch.act_in[m]
+    dram_b = seg_w + torch.where(is_last, seg_out, zero)
+    if slot.prev_end is None:
+        dram_b = dram_b + torch.where(j == 0, act, zero)
+    fwd_b = torch.where(exists & ~is_last, seg_out, zero)
+
+    r, c = cpos // cols, cpos % cols
+    edge = (c > cols - 1 - c).long() * (cols - 1)   # the nearer edge column
+    nxt = torch.roll(cpos, -1)
+    src_r, src_c = torch.cat([r, r]), torch.cat([c, c])
+    dst_r, dst_c = torch.cat([r, nxt // cols]), torch.cat([edge, nxt % cols])
+    z = torch.cat([dram_b, fwd_b])
+    if slot.prev_end is not None:
+        # anchor -> first chiplet activation route (nothing when resident)
+        pr, pc = divmod(slot.prev_end, cols)
+        a0 = torch.where(cpos[0] == slot.prev_end, zero, act)
+        src_r = torch.cat([src_r, src_r.new_full((1,), pr)])
+        src_c = torch.cat([src_c, src_c.new_full((1,), pc)])
+        dst_r = torch.cat([dst_r, r[:1]])
+        dst_c = torch.cat([dst_c, c[:1]])
+        z = torch.cat([z, a0[None]])
+    # link geometry: horizontal link ids first (row, left column), then
+    # vertical ones (upper row, column)
+    n_h = rows_ * (cols - 1)
+    ids = torch.arange(n_h + (rows_ - 1) * cols, device=dev)
+    is_h = ids < n_h
+    hv = torch.where(is_h, ids, ids - n_h)
+    width = cols - is_h.long() * (cols - max(cols - 1, 1))
+    link_r, link_c = hv // width, hv % width
+    lo_c = torch.minimum(src_c, dst_c)[:, None]
+    hi_c = torch.maximum(src_c, dst_c)[:, None]
+    lo_r = torch.minimum(src_r, dst_r)[:, None]
+    hi_r = torch.maximum(src_r, dst_r)[:, None]
+    on_h = is_h & (link_r == src_r[:, None]) & (link_c >= lo_c) \
+        & (link_c < hi_c)
+    on_v = ~is_h & (link_c == dst_c[:, None]) & (link_r >= lo_r) \
+        & (link_r < hi_r)
+    return torch.where(on_h | on_v, z[:, None], zero).sum(0)
+
+
+def congestion_scores(batch, tiers: torch.Tensor, *, metric: str,
+                      use_kernel: bool):
+    """``[B, 2]`` scores of the window under the congestion model, and the
+    batch with every model's link costs (``link_cost``) as scored.
+
+    Models in index order, one ``scar_eval`` call each: model ``m`` is
+    scored with link costs ``bg * (1 / bandwidth)`` (float32), ``bg`` the
+    link bytes of the greedy-best candidates of models ``0 .. m-1``, the
+    greedy best being the first minimum of the packed (tier, quantised
+    score) order key (``torch.argmin`` returns the first), the host
+    lexsort's rank 0.
+    """
+    dev = batch.chips.device
+    n_h = batch.rows * (batch.cols - 1)
+    n_links = n_h + (batch.rows - 1) * batch.cols
+    ids = torch.arange(n_links, device=dev)
+    # float32 reciprocals of the doubles, as the reference's float32 array
+    inv_bw = torch.where(ids < n_h, torch.full(
+        (n_links,), 1.0 / batch.noc.h_bw, device=dev), torch.full(
+        (n_links,), 1.0 / batch.noc.v_bw, device=dev))
+    bg = torch.zeros(n_links, dtype=torch.float32, device=dev)
+    cost = torch.zeros((len(batch.models), n_links), dtype=torch.float32,
+                       device=dev)
+    batch = batch._replace(link_cost=cost)
+    outs = []
+    for m, slot in enumerate(batch.models):
+        cost[m] = bg * inv_bw
+        out = scar_eval_ops.evaluate(batch, use_kernel=use_kernel, model=m)
+        outs.append(out)
+        if m + 1 < len(batch.models):
+            qs = quantize_scores_torch(
+                metric_score(out[:, 0], out[:, 1], metric), sig=SCORE_SIG)
+            t = tiers[slot.cand_off:slot.cand_off + slot.n_cand]
+            key = torch.clamp(qs, min=0.0).view(torch.int32).long() \
+                | (t.long() << 31)
+            best = slot.cand_off + torch.argmin(key)
+            bg = bg + _cand_link_bytes(batch, m, best)
+    return torch.cat(outs), batch
+
+
 def fused_program(window, *, beam: int, keep: int, metric: str,
                   max_exp: int, n_pad: int, use_kernel: bool,
                   congestion: bool = False):
@@ -155,15 +279,22 @@ def fused_program(window, *, beam: int, keep: int, metric: str,
     batch, so the host rebuilds the window plan from one fetch.
     ``SearchConfig.eval_backend`` does not apply: as in the reference,
     every batch of the fused path is scored in float32.
+
+    ``congestion=True`` scores the models one at a time against the link
+    bytes of the earlier models' greedy-best candidates
+    (``congestion_scores``; the batch carries the mesh rows and the NoC
+    parameters); everything after the scores is the analytic program's.
     """
-    if congestion:
-        raise NotImplementedError(
-            "comm_model='congestion' in the fused device search is not "
-            "ported yet (ROADMAP.md queue 1, item 4b: the congestion comm "
-            "model, with device_search._cand_link_bytes)")
     batch, words, tiers = window
     m_models = len(batch.models)
-    out = scar_eval_ops.evaluate(batch, use_kernel=use_kernel)   # [B, 2]
+    if congestion:
+        if batch.noc is None or batch.rows < 1:
+            raise ValueError("fused_program: the congestion model needs a "
+                             "batch with the mesh rows and NoC parameters")
+        out, _ = congestion_scores(batch, tiers, metric=metric,
+                                   use_kernel=use_kernel)
+    else:
+        out = scar_eval_ops.evaluate(batch, use_kernel=use_kernel)  # [B, 2]
     # every model's candidates on a row of an [M, n_pad] plane; padding
     # points at the zero word row and an infinite score
     dev = words.device

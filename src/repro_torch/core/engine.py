@@ -18,10 +18,15 @@ reference's is:
   (the ``scar_search`` kernel), beam expansion and top-k run between one
   upload and one fetch per window.  Its protocol-form ``combine`` is
   bit-identical to ``reference_combine`` in float64.
+* ``EvolutionaryEngine`` keeps the paper's (mu + lambda) EA trajectory (the
+  reference's numpy RNG call sequence) and scores the population with one
+  ``batched_fitness`` pass a generation.
+* ``AnnealEngine`` runs vectorized parallel simulated-annealing chains over
+  the same tensors (beyond-paper; ``SearchConfig.algo = "anneal"``).
 
-``get_engine`` maps ``SearchConfig.algo`` to an engine.  The reference's
-stochastic engines (``evolutionary``, ``anneal``) are not ported yet and
-raise ``NotImplementedError``.
+The stochastic engines stay on the host: their numpy ``Generator`` streams
+and float64 fitness follow the reference's trajectories step for step.
+``get_engine`` maps ``SearchConfig.algo`` to an engine.
 """
 from __future__ import annotations
 
@@ -40,6 +45,12 @@ from .cost import ModelWindowPlan, WindowPlan, WindowResult, evaluate_window
 from .maestro import CostDB
 
 _MASK64 = (1 << 64) - 1
+
+# Anneal move accounting (always-on registry counters).  EA/beam don't
+# propose/accept moves, so only the stochastic chains engine feeds these.
+_ANNEAL_PROPOSED = obs.counter("engine.anneal.moves_proposed")
+_ANNEAL_ACCEPTED = obs.counter("engine.anneal.moves_accepted")
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelCandidateSet:
@@ -550,9 +561,10 @@ class DeviceBeamEngine:
             up = platform.device_upload(
                 {**arrays, "words": np.concatenate(words).view(np.int32),
                  "tiers": np.concatenate(tiers).astype(np.int32)}, dev)
-            batch = WindowBatch(*(up[k] for k in arrays), models=slots,
+            batch = WindowBatch(**{k: up[k] for k in arrays}, models=slots,
                                 pkg=mcm.pkg, cols=mcm.cols,
-                                n_active=len(ranges))
+                                n_active=len(ranges), rows=mcm.rows,
+                                noc=mcm.noc)
             pow10_table(dev, torch.float32)      # the quantiser's table
         n_pad = ds.bucket_size(max(s.n_cand for s in slots))
         return (batch, up["words"], up["tiers"]), built, n_pad
@@ -610,12 +622,156 @@ class DeviceBeamEngine:
                                   explored=_explored(tlats, tes, counts))
 
 
-# Engines of the reference that this port has not reached yet, with the
-# ROADMAP.md item each waits on.
-_UNPORTED_ALGOS = {
-    "evolutionary": "queue 1 item 6b (EvolutionaryEngine)",
-    "anneal": "queue 1 item 6b (AnnealEngine)",
-}
+# ---------------------------------------------------------------------------
+# Evolutionary search
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EvolutionaryEngine:
+    """(mu + lambda) EA with uniform crossover and overlap-penalty fitness.
+
+    The RNG call sequence is the reference's, so seeded runs follow its
+    trajectory exactly; the whole population is scored per generation
+    with one ``batched_fitness`` pass.
+    """
+
+    population: int = 10
+    generations: int = 4
+    mutation_rate: float = 0.3
+    seed: int = 0
+    comm_model: str = "analytic"
+
+    def combine(self, db: CostDB, mcm: MCM, sets: list[ModelCandidateSet],
+                prev_end: dict[int, int],
+                metric: str = "edp") -> WindowSearchResult:
+        rng = np.random.default_rng(self.seed)
+        ct = CandidateTensors.from_sets(sets, mcm.n_chiplets)
+        n_models = len(sets)
+        sizes = np.array([cs.n_cands for cs in sets])
+        pop = np.stack([rng.integers(0, sizes)
+                        for _ in range(self.population)])
+        pop[0] = 0  # seed with per-model greedy best
+        explored: list[tuple[float, float]] = []
+
+        outer = obs.span("combine", cat="engine", engine="evolutionary",
+                         models=n_models, population=self.population)
+        with outer:
+            fit, lmax, esum, _ = batched_fitness(ct, pop, metric)
+            for gen in range(self.generations):
+                with obs.span("ea_generation", cat="engine", generation=gen):
+                    children = []
+                    for _ in range(self.population):
+                        i, j = rng.integers(0, self.population, size=2)
+                        a = pop[i] if fit[i] < fit[j] else pop[j]
+                        p, q = rng.integers(0, self.population, size=2)
+                        b = pop[p] if fit[p] < fit[q] else pop[q]
+                        xover = rng.random(n_models) < 0.5
+                        child = np.where(xover, a, b)
+                        mut = rng.random(n_models) < self.mutation_rate
+                        child = np.where(mut, rng.integers(0, sizes), child)
+                        children.append(child)
+                    cpop = np.stack(children)
+                    cfit, clmax, cesum, _ = batched_fitness(ct, cpop, metric)
+                    allp = np.concatenate([pop, cpop])
+                    allf = np.concatenate([fit, cfit])
+                    order = np.argsort(allf, kind="stable")[:self.population]
+                    pop, fit = allp[order], allf[order]
+                    lmax = np.concatenate([lmax, clmax])[order]
+                    esum = np.concatenate([esum, cesum])[order]
+                    explored.extend(zip(lmax.tolist(), esum.tolist()))
+
+        best = pop[0]
+        _, _, _, overlap = batched_fitness(ct, best[None, :], metric)
+        if int(overlap[0]) > 0:
+            # repair residual overlap greedily via the beam combiner
+            res = BeamEngine(comm_model=self.comm_model).combine(
+                db, mcm, sets, prev_end, metric=metric)
+            res.explored.extend(explored)
+            return res
+
+        plan = _plans_from_picks(sets, best)
+        result = evaluate_window(db, mcm, plan, prev_end, validate=True,
+                                 comm_model=self.comm_model)
+        return WindowSearchResult(plan=plan, result=result, explored=explored)
+
+
+# ---------------------------------------------------------------------------
+# Simulated annealing (beyond-paper)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AnnealEngine:
+    """Parallel simulated-annealing chains over the candidate tensors.
+
+    ``chains`` independent walkers mutate one model's pick per step; all
+    proposals are scored with a single ``batched_fitness`` call per step.
+    Chain 0 starts from the per-model greedy best, the rest from random
+    picks.  Any residual occupancy overlap is repaired with the beam engine,
+    so the result is always a valid window plan.
+    """
+
+    iters: int = 200
+    chains: int = 24
+    temperature: float = 0.05
+    seed: int = 0
+    comm_model: str = "analytic"
+
+    def combine(self, db: CostDB, mcm: MCM, sets: list[ModelCandidateSet],
+                prev_end: dict[int, int],
+                metric: str = "edp") -> WindowSearchResult:
+        with obs.span("combine", cat="engine", engine="anneal",
+                      models=len(sets), chains=self.chains,
+                      iters=self.iters):
+            return self._combine(db, mcm, sets, prev_end, metric)
+
+    def _combine(self, db: CostDB, mcm: MCM, sets: list[ModelCandidateSet],
+                 prev_end: dict[int, int],
+                 metric: str = "edp") -> WindowSearchResult:
+        rng = np.random.default_rng(self.seed)
+        ct = CandidateTensors.from_sets(sets, mcm.n_chiplets)
+        n_models = len(sets)
+        n_chains = self.chains
+        picks = np.stack([rng.integers(0, ct.sizes)
+                          for _ in range(n_chains)])
+        picks[0] = 0
+        fit, lmax, esum, _ = batched_fitness(ct, picks, metric)
+        best_picks, best_fit = picks.copy(), fit.copy()
+        explored: list[tuple[float, float]] = list(
+            zip(lmax.tolist(), esum.tolist()))
+        rows = np.arange(n_chains)
+        for it in range(self.iters):
+            with obs.span("anneal_iter", cat="engine", iter=it):
+                t = self.temperature * (1.0 - it / max(1, self.iters))
+                col = rng.integers(0, n_models, size=n_chains)
+                new_val = rng.integers(0, ct.sizes[col])
+                prop = picks.copy()
+                prop[rows, col] = new_val
+                pfit, plm, pes, _ = batched_fitness(ct, prop, metric)
+                with np.errstate(over="ignore"):
+                    accept = (pfit < fit) | (
+                        rng.random(n_chains)
+                        < np.exp(-(pfit / fit - 1.0) / max(t, 1e-9)))
+                picks = np.where(accept[:, None], prop, picks)
+                fit = np.where(accept, pfit, fit)
+                improved = fit < best_fit
+                best_picks = np.where(improved[:, None], picks, best_picks)
+                best_fit = np.where(improved, fit, best_fit)
+                _ANNEAL_PROPOSED.inc(n_chains)
+                _ANNEAL_ACCEPTED.inc(int(np.count_nonzero(accept)))
+                explored.extend(zip(plm[accept].tolist(),
+                                    pes[accept].tolist()))
+
+        best = best_picks[int(np.argmin(best_fit))]
+        _, _, _, overlap = batched_fitness(ct, best[None, :], metric)
+        if int(overlap[0]) > 0:
+            res = BeamEngine(comm_model=self.comm_model).combine(
+                db, mcm, sets, prev_end, metric=metric)
+            res.explored.extend(explored)
+            return res
+        plan = _plans_from_picks(sets, best)
+        result = evaluate_window(db, mcm, plan, prev_end, validate=True,
+                                 comm_model=self.comm_model)
+        return WindowSearchResult(plan=plan, result=result, explored=explored)
 
 
 def get_engine(cfg, seed: int = 0,
@@ -623,8 +779,10 @@ def get_engine(cfg, seed: int = 0,
     """Engine factory keyed on ``SearchConfig.algo``.
 
     ``brute`` and ``beam`` select the host ``BeamEngine``, ``beam_jax`` the
-    ``DeviceBeamEngine`` on ``device``.  ``seed`` is the per-window seed of
-    the stochastic engines, which are not ported yet.
+    ``DeviceBeamEngine`` on ``device``, ``evolutionary`` and ``anneal``
+    the host stochastic engines.  ``seed`` is the per-window seed
+    (``cfg.seed + window_index``) so the stochastic engines decorrelate
+    across windows, as in the reference.
     """
     algo = cfg.algo
     comm_model = getattr(cfg, "comm_model", "analytic")
@@ -633,9 +791,14 @@ def get_engine(cfg, seed: int = 0,
     if algo == "beam_jax":
         return DeviceBeamEngine(beam=cfg.beam, comm_model=comm_model,
                                 device=device)
-    if algo in _UNPORTED_ALGOS:
-        raise NotImplementedError(
-            f"algo={algo!r} is not ported yet (ROADMAP.md "
-            f"{_UNPORTED_ALGOS[algo]})")
+    if algo == "evolutionary":
+        return EvolutionaryEngine(population=cfg.ea_population,
+                                  generations=cfg.ea_generations,
+                                  seed=seed, comm_model=comm_model)
+    if algo == "anneal":
+        return AnnealEngine(iters=cfg.anneal_iters,
+                            chains=cfg.anneal_chains,
+                            temperature=cfg.anneal_temperature,
+                            seed=seed, comm_model=comm_model)
     raise KeyError(f"unknown search algo {algo!r}; "
                    "have brute|beam|beam_jax|evolutionary|anneal")

@@ -12,9 +12,10 @@ batch on one of three backends, on the caller's device:
   take it on a GPU.
 
 The float32 backends compute their comm terms as ``cost.comm_from_parts``
-— the function the float64 oracle runs — does (the plain version calls it,
-the kernel repeats its float32 operations), so the comm geometry is
-shared by construction.
+(and, under the congestion model, ``cost.congestion_correction``) — the
+functions the float64 oracle runs — do (the plain version calls them, the
+kernel repeats their float32 operations), so the comm geometry is shared
+by construction.
 
 Selection: explicit ``backend=`` (``SearchConfig.eval_backend`` everywhere
 in the pipeline), else ``"auto"``, which keeps the reference's rule: below
@@ -34,8 +35,8 @@ from repro_torch.kernels.scar_eval import ops as scar_eval_ops
 from repro_torch.launch import platform
 
 from .chiplet import MCM
-from .cost import BatchedModelCandidates, check_comm_model, \
-    eval_model_candidates
+from .cost import (BatchedModelCandidates, check_comm_model,
+                   eval_model_candidates, link_bandwidths, n_interposer_links)
 from .maestro import CostDB
 
 BACKENDS = ("auto", "torch", "torch_ref", "cuda")
@@ -71,7 +72,8 @@ def eval_candidates(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
                     n_active: int, prev_end: Optional[int] = None,
                     pipelined: bool = True,
                     backend: Optional[str] = None,
-                    comm_model: str = "analytic", *,
+                    comm_model: str = "analytic",
+                    link_occ: Optional[np.ndarray] = None, *,
                     device: Optional[torch.device] = None
                     ) -> tuple[np.ndarray, np.ndarray]:
     """``(lat[B], energy[B])`` float64 host arrays via the selected backend.
@@ -82,6 +84,14 @@ def eval_candidates(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
     backends are parity-tested against the float64 oracle within float32
     tolerance; callers that need deterministic cross-backend ordering
     quantise scores before sorting (``sched.build_candidates``).
+
+    ``comm_model="congestion"`` routes transfers over interposer links and
+    prices contention with the background byte occupancy ``link_occ``
+    (``[n_links]``, None = uncontended); every backend applies the same
+    ``cost.congestion_correction`` terms.  The float32 backends take the
+    per-link waiting time ``link_occ / bandwidth``, divided in float64 on
+    the host and rounded to float32, as the reference builds its wait
+    tables.
     """
     dev = platform.resolve_device(device)
     check_comm_model(comm_model)
@@ -93,12 +103,21 @@ def eval_candidates(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
         if resolved == "torch":
             lat, energy = platform.device_fetch(*eval_model_candidates(
                 db, mcm, cand, n_active, prev_end=prev_end,
-                pipelined=pipelined, device=dev))
+                pipelined=pipelined, comm_model=comm_model,
+                link_occ=link_occ, device=dev))
             return lat, energy
+        cost = None
+        if comm_model == "congestion":
+            if link_occ is None:
+                link_occ = np.zeros(n_interposer_links(mcm.rows, mcm.cols))
+            cost = (np.asarray(link_occ, np.float64)
+                    / link_bandwidths(mcm)).astype(np.float32)
         batch = scar_eval_ops.pack_window(
             [scar_eval_ops.model_inputs(db, cand, prev_end,
-                                        pipelined=pipelined)],
-            mcm.class_map, mcm.pkg, mcm.cols, n_active, device=dev)
+                                        pipelined=pipelined,
+                                        link_cost=cost)],
+            mcm.class_map, mcm.pkg, mcm.cols, n_active, device=dev,
+            rows=mcm.rows, noc=mcm.noc)
         (out,) = platform.device_fetch(
             scar_eval_ops.evaluate(batch, use_kernel=(resolved == "cuda")))
     return out[:, 0].astype(np.float64), out[:, 1].astype(np.float64)

@@ -127,7 +127,8 @@ def build_candidates(db: CostDB, mcm: MCM, model_idx: int,
                      metric: str = "edp",
                      frontier_cap: Optional[int] = None,
                      backend: Optional[str] = None,
-                     comm_model: str = "analytic", *,
+                     comm_model: str = "analytic",
+                     link_occ: Optional[np.ndarray] = None, *,
                      device: Optional[torch.device] = None
                      ) -> ModelCandidateSet:
     """Enumerate (segmentation x path) candidates for one model, keep top-k.
@@ -148,6 +149,12 @@ def build_candidates(db: CostDB, mcm: MCM, model_idx: int,
     float32 and float64 scores land across a quantisation boundary may
     still swap between backends; such swaps are score-equivalent within the
     documented f32 tolerance.
+
+    ``comm_model="congestion"`` makes the scoring congestion-aware:
+    ``link_occ`` carries the interposer byte occupancy of the models already
+    placed in this window (``scheduler.build_window_sets`` threads it), so
+    candidates whose routes overlap the established traffic rank lower —
+    this is the placement co-search half of the congestion model.
     """
     start, end = rng_range
     cand, tiers, (words, chips, seg_arr) = assemble_candidates(
@@ -156,7 +163,8 @@ def build_candidates(db: CostDB, mcm: MCM, model_idx: int,
     n_segs = cand.n_segs
     lat, energy = eval_candidates(db, mcm, cand, n_active=n_active,
                                   prev_end=prev_end, backend=backend,
-                                  comm_model=comm_model, device=device)
+                                  comm_model=comm_model, link_occ=link_occ,
+                                  device=device)
     if metric == "latency":
         score = lat
     elif metric == "energy":

@@ -14,6 +14,7 @@ import collections
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import obs
@@ -21,7 +22,8 @@ from repro_torch.launch.platform import resolve_device
 
 from .chiplet import MCM, make_mcm
 from .cost import (ModelWindowPlan, ScheduleResult, WindowPlan,
-                   check_comm_model, evaluate_schedule)
+                   check_comm_model, evaluate_schedule, n_interposer_links,
+                   plan_link_bytes)
 from .maestro import CostDB, build_cost_db
 from .engine import WindowSearchResult, get_engine
 from .reconfig import WindowAssignment, greedy_pack, uniform_pack
@@ -39,9 +41,7 @@ class SearchConfig:
     algo: str = "brute"                 # brute|beam (host numpy BeamEngine)
     #                                     | beam_jax (fused device search,
     #                                     DeviceBeamEngine; the reference's
-    #                                     name); the reference's
-    #                                     evolutionary | anneal are not
-    #                                     ported yet and raise
+    #                                     name) | evolutionary | anneal
     seg_top_k: int = 4
     seg_cap: int = 512
     path_cap: int = 128
@@ -59,8 +59,8 @@ class SearchConfig:
     #                                     edges out 24 at modest cost; more
     #                                     iters / hotter chains don't pay
     seed: int = 0
-    refine_iters: int = 0               # beyond-paper refinement (> 0 is
-    #                                     not ported yet and raises)
+    refine_iters: int = 0               # beyond-paper anneal refinement
+    #                                     (core.refine)
     eval_backend: str = "auto"          # candidate evaluator backend
     #                                     (repro_torch.core.evaluator): torch
     #                                     float64 oracle | torch_ref plain
@@ -69,9 +69,11 @@ class SearchConfig:
     #                                     routes large ones (16x16
     #                                     path_cap=1024 territory) through
     #                                     the kernel on a GPU
-    comm_model: str = "analytic"        # analytic (paper hop geometry);
-    #                                     the reference's congestion model is
-    #                                     not ported yet and raises
+    comm_model: str = "analytic"        # analytic (paper hop geometry) |
+    #                                     congestion (routed interposer-link
+    #                                     occupancy, MCM.noc bandwidths,
+    #                                     congestion-aware candidate scoring;
+    #                                     see cost.congestion_correction)
 
 
 @dataclasses.dataclass
@@ -163,20 +165,37 @@ def build_window_sets(db: CostDB, mcm: MCM, cfg: SearchConfig,
     device)) memoises each model's candidate set on its exact subproblem —
     window range, provisioned nodes, active-model count, locality anchor —
     which fully determines it, so a hit returns bit-identical candidates.
+
+    Under ``cfg.comm_model="congestion"`` candidate scoring is placement
+    co-searched: models are processed in index order, each scored against
+    the link-byte occupancy of the earlier models' greedy-best plans
+    (``cost.plan_link_bytes``), so later tenants are priced for routing
+    over the interposer links earlier tenants already load.  The memo key
+    then includes that background, which is itself a pure function of the
+    window subproblem.
     """
     alloc = provision(db, mcm.class_counts(), ranges, mcm.n_chiplets,
                       metric=cfg.metric,
                       max_nodes_per_model=cfg.max_nodes_per_model)
     sets = []
     n_active = len(ranges)
+    congestion = cfg.comm_model == "congestion"
+    link_occ = (np.zeros(n_interposer_links(mcm.rows, mcm.cols))
+                if congestion else None)
     for mi, (s, e) in sorted(ranges.items()):
         key = None
         if memo is not None:
             key = ("cands", memo_base, mi, (s, e), int(alloc[mi]), n_active,
                    prev_end.get(mi))
+            if congestion:
+                key = key + (link_occ.tobytes(),)
             if key in memo:
                 _CAND_HIT.inc()
-                sets.append(memo[key])
+                cs = memo[key]
+                sets.append(cs)
+                if congestion:
+                    link_occ = link_occ + plan_link_bytes(
+                        db, mcm, _greedy_best_plan(cs), prev_end)
                 continue
             _CAND_MISS.inc()
         with obs.span("window_build", cat="scheduler", model=mi,
@@ -189,26 +208,43 @@ def build_window_sets(db: CostDB, mcm: MCM, cfg: SearchConfig,
                 prev_end=prev_end.get(mi), path_cap=cfg.path_cap,
                 keep=cfg.keep_per_model, metric=cfg.metric,
                 frontier_cap=cfg.frontier_cap, backend=cfg.eval_backend,
-                comm_model=cfg.comm_model, device=device)
+                comm_model=cfg.comm_model, link_occ=link_occ, device=device)
         if key is not None:
             memo[key] = cs
         sets.append(cs)
+        if congestion:
+            link_occ = link_occ + plan_link_bytes(
+                db, mcm, _greedy_best_plan(cs), prev_end)
     return sets
 
 
-def check_config(cfg: SearchConfig) -> None:
-    """Raise ``NotImplementedError`` for a search this port cannot run yet.
+def _greedy_best_plan(cs) -> ModelWindowPlan:
+    """Rank-0 candidate of a sorted ``ModelCandidateSet`` as a window plan.
 
-    The reference's stochastic engines, refinement and congestion model
-    (with any engine, ``beam_jax`` included) each wait on a ROADMAP.md
-    item; none of them may silently run something else.
+    The placement co-search uses it as the provisional placement whose
+    interposer traffic later models are scored against (the fused device
+    search picks the same candidate on the device via the packed order
+    key).
+    """
+    k = int(cs.n_segs[0])
+    return ModelWindowPlan(
+        model_idx=cs.model_idx, start=cs.start, end=cs.end,
+        seg_ends=tuple(int(x) for x in cs.seg_arr[0][:k]),
+        chiplets=tuple(int(c) for c in cs.chips[0][:k]))
+
+
+def check_config(cfg: SearchConfig, prev_end=None) -> None:
+    """Raise for a configuration the reference refuses too.
+
+    Unknown engines (``KeyError``) and comm models (``ValueError``), and,
+    as the reference does, ``refine_iters`` with warm-start anchors
+    (``NotImplementedError``).
     """
     get_engine(cfg)
-    if cfg.refine_iters > 0:
-        raise NotImplementedError(
-            "refine_iters > 0 is not ported yet (ROADMAP.md queue 1, item "
-            "6c: core/refine.py)")
     check_comm_model(cfg.comm_model)
+    if cfg.refine_iters > 0 and prev_end:
+        raise NotImplementedError(
+            "refine_iters does not support warm-start anchors yet")
 
 
 def schedule(sc: Scenario, mcm: MCM,
@@ -230,7 +266,7 @@ def schedule(sc: Scenario, mcm: MCM,
     to recomputed ones (see ``schedule_incremental``).
     """
     cfg = cfg or SearchConfig()
-    check_config(cfg)
+    check_config(cfg, prev_end)
     dev = resolve_device(device)
     with obs.span("schedule", cat="scheduler", scenario=sc.name,
                   mcm=mcm.name, algo=cfg.algo, metric=cfg.metric,
@@ -308,9 +344,16 @@ def _schedule_inner(sc: Scenario, mcm: MCM, cfg: SearchConfig, *,
                                    [wr.plan for wr in window_results],
                                    validate=True, prev_end=prev_end,
                                    comm_model=cfg.comm_model)
-    return ScheduleOutcome(scenario=sc.name, mcm=mcm.name, config=cfg,
-                           result=result, windows=window_results,
-                           assignment=wa, explored=explored)
+    outcome = ScheduleOutcome(scenario=sc.name, mcm=mcm.name, config=cfg,
+                              result=result, windows=window_results,
+                              assignment=wa, explored=explored)
+    if cfg.refine_iters > 0:
+        from .refine import refine  # local import: refine uses this module
+        outcome = refine(sc, mcm, outcome, metric=cfg.metric,
+                         iters=cfg.refine_iters, seed=cfg.seed,
+                         backend=cfg.eval_backend,
+                         comm_model=cfg.comm_model, device=device)
+    return outcome
 
 
 def _cfg_key(cfg: SearchConfig) -> tuple:

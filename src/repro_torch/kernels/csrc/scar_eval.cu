@@ -13,12 +13,21 @@
 // and of the weight bytes, the segment weight sums and last-layer output
 // bytes, hop counts, the DRAM and NoP formulas of cost.comm_from_parts
 // with the first segment's cold-DRAM or anchored input, the segment sums
-// and the pipelined max.
+// and the pipelined max.  Under the congestion comm model
+// (cost.congestion_correction, which the TPU path adds to the comm latency
+// before its kernel) the launch also takes each model's background waiting
+// time per interposer link and adds, per transfer, the routed rate term and
+// alpha times the largest link wait along the transfer's XY or DRAM route,
+// the max taken here over the route's links (a max is exact, so it equals
+// the plain version's route_wait_tables lookup).  The analytic launch
+// passes no link costs and skips those terms.
 //
 // Launch: a segmented batch.  A descriptor row per model gives its
 // candidate offset and count, table offset and layer count, anchor
 // chiplet (-1: cold DRAM input), pipelined flag and first CTA.  A CTA
-// scores blockDim.x consecutive candidates of one model.
+// scores blockDim.x consecutive candidates of one model.  A launch covers
+// a range of models (the whole window, or one model when the congestion
+// chain scores models one at a time) and writes their rows only.
 //
 // Bound on an H100: neither bytes nor operations.  The largest 16x16
 // window reads about 1 MB of candidate integers and writes 8 B a
@@ -65,11 +74,13 @@ __host__ __device__ __forceinline__ int level_sizes(int Lw, int* len) {
 }
 
 // Package constants, rounded to float32 by the wrapper as torch rounds a
-// Python scalar against a float32 tensor.
+// Python scalar against a float32 tensor; the last five are the
+// congestion model's (alpha, rate_d, 1/h_bw, 1/v_bw, 1/nop_bw).
 struct Consts {
   float inv_dram, inv_nop, hop_lat, dram_lat, delta_dram, delta_nop,
       dram_e_pj, nop_e_pj, bits, pj;
-  int cols, C, S, n_models;
+  float alpha, rate_d, inv_h, inv_v, inv_nop_c;
+  int rows, cols, C, S, model_lo, model_hi, cta_base, out_base;
 };
 
 __device__ __forceinline__ float dram_lat(const Consts& k, float sz,
@@ -108,18 +119,62 @@ __device__ __forceinline__ float hops_between(int a, int b, int cols) {
   return (float)(abs(a / cols - b / cols) + abs(a % cols - b % cols));
 }
 
+// Largest link cost on chiplet chip's DRAM-port route (horizontal, to the
+// nearer edge column, ties to the left), 0 on an empty route.
+__device__ __forceinline__ float dram_wait(const Consts& k, const float* cost,
+                                           int chip) {
+  const int cols = k.cols, r = chip / cols, c = chip % cols;
+  const int e = c <= cols - 1 - c ? 0 : cols - 1;
+  float w = 0.f;
+  for (int cc = min(c, e); cc < max(c, e); ++cc)
+    w = fmaxf(w, cost[r * (cols - 1) + cc]);
+  return w;
+}
+
+// Largest link cost on the XY route src -> dst: the horizontal leg on the
+// source row, the vertical leg on the destination column.
+__device__ __forceinline__ float pair_wait(const Consts& k, const float* cost,
+                                           int src, int dst) {
+  const int cols = k.cols, n_h = k.rows * (cols - 1);
+  const int r1 = src / cols, c1 = src % cols, r2 = dst / cols, c2 = dst % cols;
+  float w = 0.f;
+  for (int c = min(c1, c2); c < max(c1, c2); ++c)
+    w = fmaxf(w, cost[r1 * (cols - 1) + c]);
+  for (int r = min(r1, r2); r < max(r1, r2); ++r)
+    w = fmaxf(w, cost[n_h + r * cols + c2]);
+  return w;
+}
+
+// Congestion corrections of one DRAM / NoP transfer, in the plain torch
+// expression's order: sz * rate + alpha * wait.
+__device__ __forceinline__ float dram_corr(const Consts& k, float sz,
+                                           float hops, float wait) {
+  if (!(sz > 0.f)) return 0.f;
+  return __fadd_rn(__fmul_rn(sz, hops > 0.f ? k.rate_d : 0.f),
+                   __fmul_rn(k.alpha, wait));
+}
+
+__device__ __forceinline__ float nop_corr(const Consts& k, float sz, int h,
+                                          int v, float wait) {
+  if (!(sz > 0.f && h + v > 0)) return 0.f;
+  const float inv_route = fmaxf(h > 0 ? k.inv_h : 0.f, v > 0 ? k.inv_v : 0.f);
+  return __fadd_rn(__fmul_rn(sz, __fsub_rn(inv_route, k.inv_nop_c)),
+                   __fmul_rn(k.alpha, wait));
+}
+
 __global__ void scar_eval_kernel(
     const float* __restrict__ lat_tab, const float* __restrict__ e_tab,
     const float* __restrict__ w_bytes, const float* __restrict__ out_bytes,
     const float* __restrict__ act_in, const int* __restrict__ chips,
     const int* __restrict__ last, const int* __restrict__ n_segs,
     const int* __restrict__ class_map, const int* __restrict__ desc,
-    Consts k, float* __restrict__ out) {
+    const float* __restrict__ link_cost, Consts k, float* __restrict__ out) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x, nt = blockDim.x;
-  int m = 0;
-  for (int i = 1; i < k.n_models; ++i)
-    if (desc[i * kDesc + 6] <= (int)blockIdx.x) m = i;
+  const int blk = (int)blockIdx.x + k.cta_base;
+  int m = k.model_lo;
+  for (int i = k.model_lo + 1; i < k.model_hi; ++i)
+    if (desc[i * kDesc + 6] <= blk) m = i;
   const int* d = desc + m * kDesc;
   const int cand_off = d[0], B = d[1], tab_off = d[2], Lw = d[3];
   const int prev_end = d[4], pipelined = d[5], cta0 = d[6];
@@ -192,7 +247,7 @@ __global__ void scar_eval_kernel(
   }
 
   // 4. one thread a candidate
-  const int local = (blockIdx.x - cta0) * nt + tid;
+  const int local = (blk - cta0) * nt + tid;
   if (local >= B) return;
   const size_t row = (size_t)cand_off + local;
   const int S = k.S, cols = k.cols;
@@ -201,6 +256,10 @@ __global__ void scar_eval_kernel(
   const int* crow = chips + row * S;
   const int* lrow = last + row * S;
   const float* outb = out_bytes + tab_off;
+  const float* cost =
+      link_cost ? link_cost + (size_t)m * (k.rows * (cols - 1) +
+                                           (k.rows - 1) * cols)
+                : nullptr;
   float lat_sum = 0.f, lat_max = -INFINITY, e_sum = 0.f;
   int lo = 0;
   for (int s = 0; s < ns; ++s) {
@@ -213,26 +272,47 @@ __global__ void scar_eval_kernel(
     const float seg_w =
         __fsub_rn(cum[hi * K + 2 * C], cum[lo * K + 2 * C]);
     float ip_lat = dram_lat(k, seg_w, hd), ip_e = dram_e(k, seg_w, hd);
+    float wd = 0.f, ip_corr = 0.f;
+    if (cost) {
+      wd = dram_wait(k, cost, chip);
+      ip_corr = dram_corr(k, seg_w, hd, wd);
+    }
     if (s == 0) {
       const float act = act_in[m];
       if (prev_end < 0) {
         ip_lat = __fadd_rn(ip_lat, dram_lat(k, act, hd));
         ip_e = __fadd_rn(ip_e, dram_e(k, act, hd));
+        if (cost) ip_corr = __fadd_rn(ip_corr, dram_corr(k, act, hd, wd));
       } else {
         const float h0 = hops_between(chip, prev_end, cols);
         ip_lat = __fadd_rn(ip_lat, nop_lat(k, act, h0));
         ip_e = __fadd_rn(ip_e, nop_e(k, act, h0));
+        if (cost)
+          ip_corr = __fadd_rn(
+              ip_corr, nop_corr(k, act, abs(cc - prev_end % cols),
+                                abs(chip / cols - prev_end / cols),
+                                pair_wait(k, cost, prev_end, chip)));
       }
     }
     const float slo = outb[hi - 1];
-    float op_lat, op_e;
+    float op_lat, op_e, op_corr = 0.f;
     if (s == n_raw - 1) {                      // DRAM writeback
       op_lat = dram_lat(k, slo, hd);
       op_e = dram_e(k, slo, hd);
+      if (cost) op_corr = dram_corr(k, slo, hd, wd);
     } else {                                   // NoP to the next segment
-      const float hn = hops_between(chip, max(crow[(s + 1) % S], 0), cols);
+      const int nxt = max(crow[(s + 1) % S], 0);
+      const float hn = hops_between(chip, nxt, cols);
       op_lat = nop_lat(k, slo, hn);
       op_e = nop_e(k, slo, hn);
+      if (cost)
+        op_corr = nop_corr(k, slo, abs(cc - nxt % cols),
+                           abs(chip / cols - nxt / cols),
+                           pair_wait(k, cost, chip, nxt));
+    }
+    if (cost) {
+      ip_lat = __fadd_rn(ip_lat, ip_corr);
+      op_lat = __fadd_rn(op_lat, op_corr);
     }
     const float comp_lat =
         __fsub_rn(cum[hi * K + cls], cum[lo * K + cls]);
@@ -245,8 +325,9 @@ __global__ void scar_eval_kernel(
     e_sum = __fadd_rn(e_sum, seg_e);
     lo = min(max(lv, -1) + 1, Lw);
   }
-  out[2 * row] = (pipelined && n_raw > 1) ? lat_max : lat_sum;
-  out[2 * row + 1] = e_sum;
+  const size_t orow = row - k.out_base;
+  out[2 * orow] = (pipelined && n_raw > 1) ? lat_max : lat_sum;
+  out[2 * orow + 1] = e_sum;
 }
 
 }  // namespace
@@ -262,17 +343,22 @@ extern "C" long long scar_eval_smem_bytes(int Lw, int C) {
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// consts: the 10 float32 package constants in Consts' order; desc: [M, 8]
-// ints on the device; n_ctas: the total of every model's CTAs; Lw_max: the
-// widest model of the window (it sizes the shared memory).
+// Scores models [model_lo, model_hi) of the window: cta_base is model_lo's
+// first CTA, out_base its first candidate row (out row 0), n_ctas the
+// total of those models' CTAs.  consts: the 15 float32 constants in
+// Consts' order; desc: [M, 8] ints on the device; link_cost: [M, n_links]
+// floats on the device under the congestion model, else null; Lw_max: the
+// widest model launched (it sizes the shared memory).
 extern "C" int scar_eval_launch(const float* lat_tab, const float* e_tab,
                                 const float* w_bytes, const float* out_bytes,
                                 const float* act_in, const int* chips,
                                 const int* last, const int* n_segs,
                                 const int* class_map, const int* desc,
-                                int n_models, int n_ctas, int threads,
-                                int Lw_max, const float* consts, int cols,
-                                int C, int S, float* out, void* stream) {
+                                const float* link_cost, int model_lo,
+                                int model_hi, int cta_base, int out_base,
+                                int n_ctas, int threads, int Lw_max,
+                                const float* consts, int rows, int cols, int C,
+                                int S, float* out, void* stream) {
   if (n_ctas == 0) return (int)cudaGetLastError();
   Consts k;
   k.inv_dram = consts[0];
@@ -285,10 +371,19 @@ extern "C" int scar_eval_launch(const float* lat_tab, const float* e_tab,
   k.nop_e_pj = consts[7];
   k.bits = consts[8];
   k.pj = consts[9];
+  k.alpha = consts[10];
+  k.rate_d = consts[11];
+  k.inv_h = consts[12];
+  k.inv_v = consts[13];
+  k.inv_nop_c = consts[14];
+  k.rows = rows;
   k.cols = cols;
   k.C = C;
   k.S = S;
-  k.n_models = n_models;
+  k.model_lo = model_lo;
+  k.model_hi = model_hi;
+  k.cta_base = cta_base;
+  k.out_base = out_base;
   const size_t smem = (size_t)scar_eval_smem_bytes(Lw_max, C);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -298,6 +393,6 @@ extern "C" int scar_eval_launch(const float* lat_tab, const float* e_tab,
   }
   scar_eval_kernel<<<n_ctas, threads, smem, (cudaStream_t)stream>>>(
       lat_tab, e_tab, w_bytes, out_bytes, act_in, chips, last, n_segs,
-      class_map, desc, k, out);
+      class_map, desc, link_cost, k, out);
   return (int)cudaGetLastError();
 }

@@ -2,17 +2,20 @@
 
 Counterpart of the Pallas kernel ``repro/kernels/scar_eval/kernel.py`` and
 of the jitted code around it (``repro/kernels/scar_eval/ops.py::
-evaluate_traceable`` with the analytic comm model).  One call scores every
-candidate of every model of a window (a ``WindowBatch``, made by
-``ops.pack_window``) and returns ``[B, 2]`` float32 (window latency,
-window energy), ``B`` the candidates of all models in model order.
+evaluate_traceable``, both comm models).  One call scores every candidate
+of every model of a window (a ``WindowBatch``, made by
+``ops.pack_window``), or of one model of it, and returns ``[B, 2]``
+float32 (window latency, window energy), ``B`` the candidates of those
+models in model order.
 
 ``scar_eval`` launches the kernel (``kernels/csrc/scar_eval.cu``) for
 CUDA tensors and uses ``scar_eval_window_plain`` only for tensors on the
 CPU; a CUDA tensor never falls back.  ``scar_eval_window_plain`` is
-``core.cost.comm_from_parts`` plus ``scar_eval_plain`` per model: the
-kernel does the same float32 operations in the same order, so the two
-give the same bits.
+``core.cost.comm_from_parts`` (plus, under the congestion model,
+``core.cost.route_wait_tables`` and ``congestion_correction``) and
+``scar_eval_plain`` per model: the kernel does the same float32 operations
+in the same order, and takes the max of the link costs along each route
+itself (a max is exact), so the two give the same bits.
 
 ``scar_eval_plain`` is the scoring half in the compact form the Pallas
 kernel's tests compare (per-segment class, last layer, live count and
@@ -40,6 +43,8 @@ from ..build import load_library
 __all__ = ["CANDS_PER_CTA", "ModelSlot", "WindowBatch", "blocked_cumsum",
            "comm_constants", "scar_eval", "scar_eval_plain",
            "scar_eval_window_plain"]
+
+N_CONSTS = 15             # float32 constants of a launch (scar_eval.cu Consts)
 
 PREFIX_BLOCK = 16
 CANDS_PER_CTA = 32        # candidates (threads) a CTA of the kernel
@@ -80,6 +85,12 @@ class WindowBatch(NamedTuple):
     ``[M, 8]`` int32 descriptor ``desc``.  Host values: ``models`` (one
     ``ModelSlot`` each, the descriptor's integers), the package constants
     ``pkg``, the mesh width ``cols`` and the window's ``n_active``.
+
+    Under the congestion comm model ``link_cost`` is each model's
+    ``[M, n_links]`` float32 background waiting time per interposer link
+    (co-tenant bytes / link bandwidth), ``rows`` the mesh height and
+    ``noc`` the link parameters (``chiplet.NoCConfig``); under the
+    analytic model ``link_cost`` and ``noc`` are None.
     """
 
     lat_tab: torch.Tensor
@@ -96,6 +107,9 @@ class WindowBatch(NamedTuple):
     pkg: object
     cols: int
     n_active: int
+    link_cost: Optional[torch.Tensor] = None
+    rows: int = 0
+    noc: object = None
 
 
 def blocked_cumsum(x: torch.Tensor, block: int = PREFIX_BLOCK
@@ -162,18 +176,34 @@ def scar_eval_plain(lat_tab: torch.Tensor, e_tab: torch.Tensor,
     return torch.stack([lat, e_sum], dim=1)
 
 
-def scar_eval_window_plain(w: WindowBatch) -> torch.Tensor:
+def _model_range(w: WindowBatch, model: Optional[int]) -> range:
+    if model is None:
+        return range(len(w.models))
+    if not 0 <= model < len(w.models):
+        raise ValueError(f"scar_eval: no model {model} in a window of "
+                         f"{len(w.models)}")
+    return range(model, model + 1)
+
+
+def scar_eval_window_plain(w: WindowBatch,
+                           model: Optional[int] = None) -> torch.Tensor:
     """Plain torch version of the kernel: ``[B, 2]`` float32.
 
-    Per model: the segment weight sums (differences of the blocked prefix
-    of ``w_bytes``) and last-layer output bytes, ``comm_from_parts`` for
-    the comm terms, then ``scar_eval_plain``.
+    Per model (every model, or only ``model``): the segment weight sums
+    (differences of the blocked prefix of ``w_bytes``) and last-layer
+    output bytes, ``comm_from_parts`` for the comm terms, under the
+    congestion model the routed corrections added to the comm latencies
+    (``route_wait_tables`` of the model's ``link_cost`` row, then
+    ``congestion_correction``), then ``scar_eval_plain``.
     """
     # imported here: repro_torch.core imports this package
-    from repro_torch.core.cost import comm_from_parts
+    from repro_torch.core.cost import (comm_from_parts,
+                                       congestion_correction,
+                                       route_wait_tables)
 
     outs = []
-    for slot in w.models:
+    for i in _model_range(w, model):
+        slot = w.models[i]
         rows = slice(slot.cand_off, slot.cand_off + slot.n_cand)
         tabs = slice(slot.tab_off, slot.tab_off + slot.n_layers)
         chips, last, n_segs = w.chips[rows], w.last[rows], w.n_segs[rows]
@@ -192,28 +222,41 @@ def scar_eval_window_plain(w: WindowBatch) -> torch.Tensor:
         ip_lat, ip_e, op_lat, op_e = comm_from_parts(
             w.pkg, w.cols, cpos, seg_w, seg_last_out, n_segs, w.n_active,
             slot.act_in, slot.prev_end)
+        if w.link_cost is not None:
+            wait_pair, wait_dram = route_wait_tables(w.link_cost[i], w.rows,
+                                                     w.cols)
+            ip_corr, op_corr = congestion_correction(
+                w.pkg, w.noc, w.cols, cpos.long(), seg_w, seg_last_out,
+                n_segs, slot.act_in, slot.prev_end, wait_pair, wait_dram)
+            ip_lat = ip_lat + ip_corr
+            op_lat = op_lat + op_corr
         outs.append(scar_eval_plain(
             w.lat_tab[tabs], w.e_tab[tabs], w.class_map[cpos.long()], last,
             n_segs, ip_lat + op_lat, ip_e + op_e, slot.pipelined))
     return torch.cat(outs)
 
 
-def comm_constants(pkg, n_active: int) -> np.ndarray:
-    """The kernel's 10 float32 package constants (``Consts`` order).
+def comm_constants(pkg, n_active: int, noc=None) -> np.ndarray:
+    """The kernel's 15 float32 constants (``Consts`` order).
 
     Each is the float32 that torch computes with when ``comm_from_parts``
-    meets the Python float against a float32 tensor: the double rounded
-    to nearest; the bandwidths as float32 reciprocals
-    (``cost._per_bandwidth``).
+    or ``congestion_correction`` meets the Python float against a float32
+    tensor: the double rounded to nearest; the analytic bandwidths as
+    float32 reciprocals (``cost._per_bandwidth``).  The last five are the
+    congestion model's ``(alpha, rate_d, 1/h_bw, 1/v_bw, 1/nop_bw)``
+    (``cost.congestion_constants``), zeros without ``noc``.
     """
+    from repro_torch.core.cost import congestion_constants
     f = np.float32
     crowd = max(0, n_active - 1)
+    noc_consts = (0.0,) * 5 if noc is None else \
+        congestion_constants(pkg, noc)
     return np.array([f(1) / f(pkg.dram_bw), f(1) / f(pkg.nop_bw),
                      pkg.nop_hop_lat_s, pkg.dram_lat_s,
                      pkg.contention_delta * crowd / pkg.dram_bw,
                      pkg.contention_delta * crowd / pkg.nop_bw,
                      pkg.dram_e_pj_per_bit, pkg.nop_e_pj_per_bit, 8.0,
-                     1e-12], dtype=np.float32)
+                     1e-12, *noc_consts], dtype=np.float32)
 
 
 def _check(w: WindowBatch) -> None:
@@ -231,6 +274,12 @@ def _check(w: WindowBatch) -> None:
             "n_segs": (torch.int32, (B,)),
             "class_map": (torch.int32, (w.class_map.shape[0],)),
             "desc": (torch.int32, (n_models, DESC_INTS))}
+    if w.link_cost is not None:
+        if w.noc is None or w.rows < 1 or w.cols < 1:
+            raise ValueError("scar_eval: link costs need the mesh rows and "
+                             "the NoC parameters")
+        want["link_cost"] = (torch.float32, (n_models, w.rows * (w.cols - 1)
+                                             + (w.rows - 1) * w.cols))
     dev = w.chips.device
     for name, (dtype, shape) in want.items():
         t = getattr(w, name)
@@ -257,37 +306,45 @@ def _check(w: WindowBatch) -> None:
                          f"S={S}")
 
 
-def scar_eval(w: WindowBatch) -> torch.Tensor:
+def scar_eval(w: WindowBatch, model: Optional[int] = None) -> torch.Tensor:
     """``[B, 2]`` (latency, energy): the CUDA kernel on CUDA tensors.
 
-    Tensors on the CPU take ``scar_eval_window_plain``.
-    ``scar_eval.launches`` counts kernel launches (one per call).
+    ``model`` scores only that model's candidates (a launch over its
+    CTAs); None scores the whole window.  Tensors on the CPU take
+    ``scar_eval_window_plain``.  ``scar_eval.launches`` counts kernel
+    launches (one per call).
     """
     _check(w)
+    span = _model_range(w, model)
     dev = w.chips.device
     if dev.type == "cpu":
-        return scar_eval_window_plain(w)
+        return scar_eval_window_plain(w, model)
     if dev.type != "cuda":
         raise ValueError(f"scar_eval: no kernel for {dev}")
     C = w.lat_tab.shape[1]
-    B, S = w.chips.shape
-    lw_max = max(s.n_layers for s in w.models)
+    S = w.chips.shape[1]
+    slots = [w.models[i] for i in span]
+    lw_max = max(s.n_layers for s in slots)
     lib = _lib()
     smem = lib.scar_eval_smem_bytes(lw_max, C)
     if smem > _SMEM_MAX:
         raise ValueError(f"scar_eval: Lw={lw_max}, C={C} needs {smem} B of "
                          f"shared memory (limit {_SMEM_MAX})")
-    n_ctas = sum(-(-s.n_cand // CANDS_PER_CTA) for s in w.models)
-    consts = comm_constants(w.pkg, w.n_active)
-    out = torch.empty((B, 2), dtype=torch.float32, device=dev)
+    n_ctas = sum(-(-s.n_cand // CANDS_PER_CTA) for s in slots)
+    consts = comm_constants(w.pkg, w.n_active, w.noc)
+    out = torch.empty((sum(s.n_cand for s in slots), 2), dtype=torch.float32,
+                      device=dev)
+    cost = w.link_cost
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.scar_eval_launch(
             w.lat_tab.data_ptr(), w.e_tab.data_ptr(), w.w_bytes.data_ptr(),
             w.out_bytes.data_ptr(), w.act_in.data_ptr(), w.chips.data_ptr(),
             w.last.data_ptr(), w.n_segs.data_ptr(), w.class_map.data_ptr(),
-            w.desc.data_ptr(), len(w.models), n_ctas, CANDS_PER_CTA, lw_max,
-            consts.ctypes.data, w.cols, C, S, out.data_ptr(), stream)
+            w.desc.data_ptr(), None if cost is None else cost.data_ptr(),
+            span.start, span.stop, slots[0].cta_off, slots[0].cand_off,
+            n_ctas, CANDS_PER_CTA, lw_max, consts.ctypes.data, w.rows,
+            w.cols, C, S, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"scar_eval launch failed: CUDA error {err}")
     scar_eval.launches += 1
@@ -306,8 +363,8 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = load_library("scar_eval")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.scar_eval_launch.argtypes = [p] * 10 + [i, i, i, i, p, i, i, i,
-                                                    p, p]
+        lib.scar_eval_launch.argtypes = [p] * 11 + [i] * 7 + [p] + [i] * 4 \
+            + [p, p]
         lib.scar_eval_launch.restype = i
         lib.scar_eval_smem_bytes.argtypes = [i, i]
         lib.scar_eval_smem_bytes.restype = ctypes.c_longlong

@@ -9,7 +9,9 @@ per dtype (``launch.platform.device_upload``) and wraps them for
 ``scar_eval``, whose one launch then computes everything the reference's
 jitted wrapper (``repro/kernels/scar_eval/ops.py::evaluate_traceable``)
 computes around its kernel.  ``evaluate`` picks the kernel or its plain
-version.
+version.  Under the congestion comm model each model also carries its
+per-link background waiting time (``link_cost``), and the one launch
+adds the routed corrections to the comm terms.
 """
 from __future__ import annotations
 
@@ -31,7 +33,9 @@ class ModelInputs(NamedTuple):
     """One model's host arrays: its window's CostDB rows (``lat_tab`` /
     ``e_tab`` ``[Lw, C]``, ``w_bytes`` / ``out_bytes`` ``[Lw]``), its input
     activation bytes, and per candidate the chiplet and window-relative
-    last layer of each segment (``[B, S]``) and the live segment count."""
+    last layer of each segment (``[B, S]``) and the live segment count;
+    under the congestion model ``link_cost``, the ``[n_links]`` float32
+    background waiting time per interposer link."""
 
     lat_tab: np.ndarray
     e_tab: np.ndarray
@@ -43,10 +47,12 @@ class ModelInputs(NamedTuple):
     n_segs: np.ndarray
     prev_end: Optional[int] = None
     pipelined: bool = True
+    link_cost: Optional[np.ndarray] = None
 
 
 def model_inputs(db, cand, prev_end: Optional[int] = None, *,
-                 pipelined: bool = True) -> ModelInputs:
+                 pipelined: bool = True,
+                 link_cost: Optional[np.ndarray] = None) -> ModelInputs:
     """``ModelInputs`` of a ``BatchedModelCandidates`` over ``db``."""
     S = max(1, int(cand.n_segs.max()))
     sl = slice(cand.start, cand.end)
@@ -59,7 +65,7 @@ def model_inputs(db, cand, prev_end: Optional[int] = None, *,
                        db.out_bytes[sl],
                        float(np.float32(db.in_bytes[cand.start])),
                        cand.chiplets[:, :S], last, cand.n_segs, prev_end,
-                       pipelined)
+                       pipelined, link_cost)
 
 
 def _widen(a: np.ndarray, S: int) -> np.ndarray:
@@ -74,7 +80,8 @@ def window_arrays(models: Sequence[ModelInputs], class_map
     """The host arrays of one ``WindowBatch`` of ``models``, keyed and
     ordered by its tensor fields, and the models' slots.
 
-    The segment axis is the widest model's live segment count.
+    The segment axis is the widest model's live segment count.  Link
+    costs, when the models carry them, stack to ``[M, n_links]``.
     """
     S = max(max(1, int(np.max(m.n_segs))) for m in models)
     slots, desc = [], np.zeros((len(models), DESC_INTS), np.int32)
@@ -106,21 +113,29 @@ def window_arrays(models: Sequence[ModelInputs], class_map
         "class_map": np.asarray(class_map, np.int32),
         "desc": desc,
     }
+    if models[0].link_cost is not None:
+        arrays["link_cost"] = np.stack([np.asarray(m.link_cost, np.float32)
+                                        for m in models])
     return arrays, tuple(slots)
 
 
 def pack_window(models: Sequence[ModelInputs], class_map, pkg, cols: int,
-                n_active: int, *, device: torch.device) -> WindowBatch:
+                n_active: int, *, device: torch.device, rows: int = 0,
+                noc=None) -> WindowBatch:
     """One ``WindowBatch`` of ``models`` on ``device``, uploaded in one
-    copy per dtype."""
+    copy per dtype.  Models with link costs need the mesh ``rows`` and the
+    ``noc`` link parameters."""
     arrays, slots = window_arrays(models, class_map)
     dev = platform.device_upload(arrays, device)
-    return WindowBatch(*(dev[k] for k in arrays), models=slots, pkg=pkg,
-                       cols=int(cols), n_active=int(n_active))
+    return WindowBatch(**dev, models=slots, pkg=pkg, cols=int(cols),
+                       n_active=int(n_active), rows=int(rows),
+                       noc=noc if "link_cost" in dev else None)
 
 
-def evaluate(batch: WindowBatch, *, use_kernel: bool) -> torch.Tensor:
-    """``[B, 2]`` float32 (latency, energy) of a window batch.
+def evaluate(batch: WindowBatch, *, use_kernel: bool,
+             model: Optional[int] = None) -> torch.Tensor:
+    """``[B, 2]`` float32 (latency, energy) of a window batch, or of its
+    model ``model`` only.
 
     ``use_kernel=True`` launches the CUDA kernel (and raises on a CPU
     device: there is no kernel to run there); ``False`` runs the plain
@@ -129,8 +144,8 @@ def evaluate(batch: WindowBatch, *, use_kernel: bool) -> torch.Tensor:
     """
     if not use_kernel:
         _check(batch)
-        return scar_eval_window_plain(batch)
+        return scar_eval_window_plain(batch, model)
     if batch.chips.device.type != "cuda":
         raise RuntimeError("the scar_eval kernel needs a CUDA device; "
                            f"the batch is on {batch.chips.device}")
-    return scar_eval(batch)
+    return scar_eval(batch, model)

@@ -11,7 +11,12 @@ terms included, from the raw integers the host holds.  Its plain version
 * bit for bit against its own definition, ``core.cost.comm_from_parts``
   plus ``scar_eval_plain``, composed here per model as the port composed
   them before the kernel took the comm terms in;
-* bit for bit between one multi-model launch and one call per model.
+* bit for bit between one multi-model launch and one call per model;
+* under the congestion comm model (each model's per-link waiting times
+  in the batch, the three NoC presets): against the reference's
+  ``evaluate(..., congestion=True)`` at 2e-4, bit for bit against
+  ``comm_from_parts`` + ``congestion_correction`` + ``scar_eval_plain``,
+  and one multi-model call against one call per model.
 
 ``scar_eval_plain``, the scoring half in the compact form, stays held
 against the Pallas kernel (``interpret=True``) and the jnp oracle
@@ -39,7 +44,10 @@ from repro_torch.kernels.scar_eval import (ModelInputs, blocked_cumsum,
 RTOL = 2e-5
 REF_RTOL = 2e-4           # the reference's float32 evaluator tolerance
 COLS = 6
+ROWS = 6
 N_CHIPLETS = 36
+N_LINKS = ROWS * (COLS - 1) + (ROWS - 1) * COLS
+NOC_PRESETS = ("uniform", "het_rows", "narrow")
 
 # (B, Lw, S, C): single candidate/layer, ragged batches, the 6x6 and 16x16
 # main-path widths (Lw 56..80, S 6, C 2), a deep window and 3 classes.
@@ -110,13 +118,22 @@ def window(models, class_map, n_active, device="cpu", pkg=None):
 
 
 def reference_scores(m: ModelInputs, class_map, n_active, cols=COLS,
-                     pkg=None):
-    """The reference's jitted float32 evaluator on the same inputs."""
+                     pkg=None, noc=None, rows=ROWS):
+    """The reference's jitted float32 evaluator on the same inputs; with
+    ``noc`` (a preset name), under the congestion model, its wait tables
+    built from the model's link costs."""
     import jax.numpy as jnp
     from repro.core.chiplet import PackageParams
+    from repro.core.cost import route_wait_tables
+    from repro.core.scenarios import noc_config
     from repro.kernels.scar_eval.ops import evaluate
     S = max(1, int(m.n_segs.max()))
     f = np.float32
+    if noc is not None:
+        wait_pair, wait_dram = (a.astype(f) for a in route_wait_tables(
+            np, m.link_cost.astype(np.float64), rows, cols))
+    else:
+        wait_pair, wait_dram = np.zeros((1, 1), f), np.zeros(1, f)
     args = [jnp.asarray(a) for a in (
         np.asarray(m.lat_tab, f), np.asarray(m.e_tab, f),
         np.asarray(m.w_bytes, f), np.asarray(m.out_bytes, f),
@@ -124,17 +141,22 @@ def reference_scores(m: ModelInputs, class_map, n_active, cols=COLS,
         np.asarray(m.chips[:, :S], np.int32),
         np.zeros((m.n_segs.shape[0], 1), np.int32),
         np.asarray(m.last[:, :S], np.int32), np.asarray(m.n_segs, np.int32),
-        f(m.act_in), np.int32(m.prev_end or 0),
-        np.zeros((1, 1), f), np.zeros(1, f))]
+        f(m.act_in), np.int32(m.prev_end or 0), wait_pair, wait_dram)]
     return np.asarray(evaluate(
         *args, pkg=pkg or PackageParams(), mcm_cols=cols, n_active=n_active,
         pipelined=m.pipelined, has_prev=m.prev_end is not None,
-        congestion=False, noc=None, use_kernel=False))
+        congestion=noc is not None,
+        noc=noc_config(noc) if noc is not None else None, use_kernel=False))
 
 
-def composed_scores(m: ModelInputs, class_map, pkg, cols, n_active):
-    """``comm_from_parts`` + ``scar_eval_plain`` on one model's inputs."""
-    from repro_torch.core.cost import comm_from_parts
+def composed_scores(m: ModelInputs, class_map, pkg, cols, n_active,
+                    noc=None, rows=ROWS):
+    """``comm_from_parts`` (+ ``congestion_correction`` over the wait
+    tables of ``m.link_cost`` when the model carries them) +
+    ``scar_eval_plain`` on one model's inputs."""
+    from repro_torch.core.cost import (comm_from_parts,
+                                       congestion_correction,
+                                       route_wait_tables)
     S = max(1, int(m.n_segs.max()))
     t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in (
         ("lat", np.asarray(m.lat_tab, np.float32)),
@@ -158,6 +180,13 @@ def composed_scores(m: ModelInputs, class_map, pkg, cols, n_active):
     ip_lat, ip_e, op_lat, op_e = comm_from_parts(
         pkg, cols, cpos, seg_w, seg_last_out, t["n"], n_active, m.act_in,
         m.prev_end)
+    if m.link_cost is not None:
+        wait_pair, wait_dram = route_wait_tables(
+            torch.from_numpy(m.link_cost), rows, cols)
+        ip_corr, op_corr = congestion_correction(
+            pkg, noc, cols, cpos.long(), seg_w, seg_last_out, t["n"],
+            m.act_in, m.prev_end, wait_pair, wait_dram)
+        ip_lat, op_lat = ip_lat + ip_corr, op_lat + op_corr
     return scar_eval_plain(t["lat"], t["e"], t["cls"][cpos.long()],
                            t["last"], t["n"], ip_lat + op_lat,
                            ip_e + op_e, m.pipelined).numpy()
@@ -322,6 +351,66 @@ def test_segmented_launch_equals_one_call_per_model():
     assert torch.equal(whole, parts)
 
 
+def with_link_costs(rng, models):
+    """The models with seeded per-link waiting times (seconds, some links
+    idle), as the congestion model's batches carry them."""
+    out = []
+    for m in models:
+        cost = rng.lognormal(-9, 2, N_LINKS).astype(np.float32)
+        cost[rng.random(N_LINKS) < 0.2] = 0
+        out.append(m._replace(link_cost=cost))
+    return out
+
+
+def congestion_window(models, class_map, n_active, noc, device="cpu"):
+    from repro_torch.core.scenarios import noc_config
+    return pack_window(models, class_map, port_pkg(), COLS, n_active,
+                       device=torch.device(device), rows=ROWS,
+                       noc=noc_config(noc))
+
+
+@pytest.mark.parametrize("B,Lw,S,C", SHAPES)
+@pytest.mark.parametrize("anchor", [None, 14])
+@pytest.mark.parametrize("noc", NOC_PRESETS)
+def test_congestion_window_plain_matches_reference(B, Lw, S, C, anchor, noc):
+    """Seeded random batches with link costs: the plain version against
+    the reference's ``evaluate(..., congestion=True)`` at its 2e-4 and
+    bitwise against its definition; contention never lowers a score."""
+    rng = np.random.default_rng(B * 7 + Lw * 3 + S + C + len(noc))
+    cmap = class_map_of(rng, C)
+    (m,) = with_link_costs(rng, [random_model(rng, B, Lw, S, C,
+                                              prev_end=anchor,
+                                              pipelined=B % 2 == 0)])
+    from repro_torch.core.scenarios import noc_config
+    ours = scar_eval_window_plain(congestion_window([m], cmap, 3, noc))
+    ours = ours.numpy()
+    np.testing.assert_allclose(ours, reference_scores(m, cmap, 3, noc=noc),
+                               rtol=REF_RTOL)
+    np.testing.assert_array_equal(
+        ours, composed_scores(m, cmap, port_pkg(), COLS, 3,
+                              noc=noc_config(noc)))
+    analytic = scar_eval_window_plain(window([m._replace(link_cost=None)],
+                                             cmap, 3)).numpy()
+    assert (ours[:, 0] >= analytic[:, 0]).all()
+    np.testing.assert_array_equal(ours[:, 1], analytic[:, 1])
+
+
+def test_congestion_segmented_call_equals_one_call_per_model():
+    """Four models with their own link costs: one call == one call per
+    model in its own batch == the whole batch's per-model calls."""
+    rng = np.random.default_rng(13)
+    models = with_link_costs(rng, four_models(rng, 40, 30, 6, 3))
+    cmap = class_map_of(rng, 3)
+    batch = congestion_window(models, cmap, 4, "narrow")
+    whole = scar_eval_window_plain(batch)
+    parts = torch.cat([scar_eval_window_plain(
+        congestion_window([m], cmap, 4, "narrow")) for m in models])
+    assert torch.equal(whole, parts)
+    by_model = torch.cat([scar_eval(batch, model=i)
+                          for i in range(len(models))])
+    assert torch.equal(whole, by_model)
+
+
 def test_wrapper_on_cpu_tensors_is_the_plain_version():
     """A CPU tensor takes the plain version and launches nothing."""
     rng = np.random.default_rng(3)
@@ -406,3 +495,30 @@ def test_cuda_segmented_launch_equals_one_launch_per_model():
                        for m in models])
     torch.cuda.synchronize()
     assert torch.equal(whole, parts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noc", NOC_PRESETS)
+@pytest.mark.parametrize("n_models", [1, 4])
+def test_cuda_congestion_kernel_matches_plain_bitwise(noc, n_models):
+    """On the card, under the congestion model: the whole-window launch
+    and the one-model launches against the plain version, bit for bit,
+    over the (B, Lw, S) sweep at C = 2."""
+    needs_card()
+    rng = np.random.default_rng(len(noc) * 10 + n_models)
+    cmap = class_map_of(rng, 2)
+    for B in CARD_B:
+        for Lw in CARD_LW:
+            for S in CARD_S:
+                models = (four_models(rng, B, Lw, S, 2) if n_models == 4
+                          else [random_model(rng, B, Lw, S, 2,
+                                             prev_end=B % 7)])
+                batch = congestion_window(with_link_costs(rng, models),
+                                          cmap, n_models, noc, "cuda")
+                out = scar_eval(batch)
+                parts = torch.cat([scar_eval(batch, model=i)
+                                   for i in range(n_models)])
+                plain = scar_eval_window_plain(batch)
+                torch.cuda.synchronize()
+                assert torch.equal(out, plain), (B, Lw, S, noc, n_models)
+                assert torch.equal(parts, plain), (B, Lw, S, noc, n_models)

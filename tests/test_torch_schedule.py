@@ -7,12 +7,13 @@ paper's 6x6 ``het_cross`` package.  On the CPU the large 6x6 batches go
 through the plain float32 version of the kernel, as the reference's go
 through its jax_ref form.
 
-The guards pin the no-fallback contract: no device without CUDA raises, the
-``cuda`` backend on a CPU device raises, and the reference's engines and
-options that are not ported yet (the congestion comm model, with the fused
-``beam_jax`` search as with the host beam) raise ``NotImplementedError``.  The import
-guard checks that the port (and ``chip_smoke.py``) import neither ``jax``
-nor ``repro``.
+The guards pin the no-fallback contract: no device without CUDA raises and
+the ``cuda`` backend on a CPU device raises.  The search options the port
+reached last (the congestion comm model, with the fused ``beam_jax``
+search as with the host beam, the stochastic engines and refinement) run
+and give the reference's plans; what still raises is what the reference
+refuses too.  The import guard checks that the port (and
+``chip_smoke.py``) import neither ``jax`` nor ``repro``.
 """
 import ast
 import os
@@ -134,9 +135,20 @@ def test_cuda_backend_on_cpu_raises():
     dict(algo="anneal"), dict(refine_iters=10),
     dict(comm_model="congestion")])
 def test_unported_options_raise(change):
+    """Each option that raised ``NotImplementedError`` before the port
+    reached it now gives the reference's schedule; the one refusal left
+    is the reference's own: ``refine_iters`` with warm-start anchors."""
     sc, mcm = small_case()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.schedule(sc, mcm, T.SearchConfig(**change), device="cpu")
+    ref = R.schedule(R.get_scenario(sc.name),
+                     R.make_mcm("het_sides", n_pe=256),
+                     R.SearchConfig(**change))
+    ours = T.schedule(sc, mcm, T.SearchConfig(**change), device="cpu")
+    assert plan_tuples(ours) == plan_tuples(ref)
+    assert ours.edp == ref.edp
+    if change.get("refine_iters"):
+        with pytest.raises(NotImplementedError, match="warm-start"):
+            T.schedule(sc, mcm, T.SearchConfig(**change), prev_end={0: 0},
+                       device="cpu")
 
 
 # --------------------------- import guard ----------------------------------
