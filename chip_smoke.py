@@ -8,8 +8,9 @@ search (``algo="beam_jax"``), and holds its plans and float64 metrics
 against the golden file the JAX reference wrote
 (``tests/fixtures/torch_port_golden.json``); then serves zamba2-2.7b at
 full width and holds reduced zamba2's logits against the reference's
-(``tests/fixtures/torch_lm_golden.npz``).  It imports neither JAX nor the
-reference package.  Phases, each printed as it runs:
+(``tests/fixtures/torch_lm_golden.npz``); then replays the online serving
+layer's traces on the card.  It imports neither JAX nor the reference
+package.  Phases, each printed as it runs:
 
 1. card: ``nvidia-smi`` name, power limit and SM clock, library versions,
    kernel builds (one ``nvcc`` per source, all at once)
@@ -76,8 +77,26 @@ reference package.  Phases, each printed as it runs:
 7. reference parity: reduced zamba2 in float32 on the card (kernels on,
    TF32 off) against the logits the JAX reference wrote
    (``tests/fixtures/torch_lm_golden.npz``)
-8. summary: one JSON line of per-kernel numbers
-9. last line: ``{"ok": true, "device": {...}}``
+9. online serving (``repro_torch.online``, run before the summary), against
+   the records the JAX reference wrote
+   (``tests/fixtures/torch_online_golden.json``), every run's counts from
+   zero and its planning caches cleared first: ``dc_churn_6x6`` on 6x6
+   ``het_cross`` (``path_cap=64``, ``seg_cap=128``) warm and cold under
+   ``auto`` (== the float64 record), warm and cold with every batch on
+   ``scar_eval`` (== the reference's float32 record but for its known
+   exact ties; warm == cold; one launch and one fetch a scoring batch)
+   and under ``beam_jax`` (the same ties; warm == cold; one fetch and one
+   ``scar_eval`` launch a window searched, ``scar_search`` launched), with
+   the median re-plan times, and the warm runs profiled and traced;
+   ``dc_churn_8x8_slo`` under ``drain`` and ``preempt`` with
+   reconfiguration (== the record), and the latter under ``beam_jax``,
+   held equal to the port's plain-kernel run on the CPU; ``xr8_cadence``;
+   ``dc_fleet_smoke`` through both routings; ``bench_fleet_serving``'s
+   open-loop trace streamed over 5 000 s (``scripts/torch_fleet_stream.py``,
+   at most 16 events buffered)
+8. summary: one JSON line of per-kernel numbers (``launches_by_path``
+   includes the online runs)
+10. last line: ``{"ok": true, "device": {...}}``
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without a CUDA device.
@@ -578,6 +597,213 @@ def run_case(case, cfg, dev, *, exact_plans: bool = True):
           f"latency {rec['latency']}, golden edp {case['edp']} latency "
           f"{case['latency']}")
     return out, wall
+
+
+# online serving (phase 9): the records the JAX reference wrote
+# (scripts/make_torch_online_golden.py), and the epochs of dc_churn_6x6 where
+# the all-float32 runs break an exact tie the other way (ROADMAP.md §3;
+# tests/test_torch_online_golden_f32.py pins the same on the CPU)
+ONLINE_6X6 = "online_rescheduling_6x6/auto"
+ONLINE_6X6_F32 = "online_rescheduling_6x6/jax_ref"
+ONLINE_6X6_TIES = {"cuda": [9, 48, 50], "beam_jax": [9, 48, 50, 56, 62, 64]}
+ONLINE_SLO = ("online_slo_8x8/drain/auto",
+              "online_slo_8x8/preempt_reconfig/auto")
+# bench_fleet_serving's trace cut from 50 000 s to this horizon (~1e5 events)
+FLEET_STREAM_HORIZON = 5_000.0
+
+
+def online_run(og, key, dev, mode="warm", **change):
+    """One run of the online golden spec ``key`` on ``dev``, every count
+    (launches, fetches, evaluator calls, memo counters) from zero and every
+    planning cache cleared first.  Returns the ``SimResult`` (or
+    ``FleetReport``), its record, the counts and the host wall seconds."""
+    from repro_torch import obs
+    from repro_torch.core.scheduler import clear_caches
+    from repro_torch.kernels.scar_eval import scar_eval
+    from repro_torch.kernels.scar_search import scar_search
+    from repro_torch.online import qos_report, slo_report
+    clear_caches()
+    obs.reset()
+    scar_eval.launches = 0
+    scar_search.launches = 0
+    t0 = time.perf_counter()
+    out = og.port_run(key, dev, mode=mode, **change)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"scar_eval": scar_eval.launches,
+              "scar_search": scar_search.launches, **obs.counters()}
+    rec = (og.fleet_record(out) if og.RUNS[key]["kind"] == "fleet"
+           else og.sim_record(out, qos_report, slo_report))
+    return out, rec, counts, wall
+
+
+def replan_ms(sim) -> float:
+    """Median planner wall time of a run's re-planned epochs, ms."""
+    import statistics
+    return statistics.median(e.replan_wall_s * 1e3 for e in sim.epochs
+                             if e.outcome is not None)
+
+
+def online_phase(dev) -> dict:
+    """Phase 9: the online serving layer on the card (see the docstring).
+
+    Returns the kernel launches of its runs by path for the summary line.
+    """
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import make_torch_online_golden as og
+    import torch_fleet_stream as fleet_stream
+    with open(og.GOLDEN) as fh:
+        gold = json.load(fh)["runs"]
+    launches = {}
+    fetches = "launch.platform.sync_count"
+
+    want = gold[ONLINE_6X6]["record"]
+    med = {}
+    for mode in ("warm", "cold"):
+        sim, rec, cnt, wall = online_run(og, ONLINE_6X6, dev, mode)
+        if mode == "warm":
+            check(rec == want, "dc_churn_6x6 auto warm: not the golden "
+                  "record")
+        else:
+            check(og.without_memo(rec) == og.without_memo(want),
+                  "dc_churn_6x6 auto cold: not the golden record")
+        med["auto", mode] = replan_ms(sim)
+        print(f"dc_churn_6x6 6x6 het_cross auto {mode}: == golden "
+              f"({len(sim.epochs)} epochs, {sim.n_replans} re-plans, "
+              f"{sim.n_memo_hits} memo hits); wall {wall:.3f} s, median "
+              f"re-plan {med['auto', mode]:.3f} ms, {cnt[fetches]} fetches, "
+              f"scar_eval launches {cnt['scar_eval']}")
+    f32 = gold[ONLINE_6X6_F32]["record"]
+    recs = {}
+    for mode in ("warm", "cold"):
+        sim, recs[mode], cnt, wall = online_run(og, ONLINE_6X6_F32, dev,
+                                                mode)
+        diff, ties = og.tie_departures(recs[mode], f32)
+        check(diff == ties == ONLINE_6X6_TIES["cuda"],
+              f"dc_churn_6x6 cuda {mode}: plans depart from the reference's "
+              f"float32 record at epochs {diff}, exact ties {ties} (want the "
+              f"ties {ONLINE_6X6_TIES['cuda']})")
+        calls = cnt["evaluator.eval_calls.cuda"]
+        check(cnt["scar_eval"] == calls > 0 and cnt[fetches] == calls,
+              f"dc_churn_6x6 cuda {mode}: {cnt['scar_eval']} scar_eval "
+              f"launches and {cnt[fetches]} fetches for {calls} scoring "
+              "batches (want one each a batch)")
+        if mode == "warm":
+            launches["online_cuda"] = cnt["scar_eval"]
+        med["cuda", mode] = replan_ms(sim)
+        print(f"dc_churn_6x6 cuda {mode}: plans == the reference's float32 "
+              f"run but the exact ties at epochs {ties}; wall {wall:.3f} s, "
+              f"median re-plan {med['cuda', mode]:.3f} ms, scar_eval "
+              f"launches {cnt['scar_eval']} == eval calls, {cnt[fetches]} "
+              "fetches")
+    check(og.without_memo(recs["warm"]) == og.without_memo(recs["cold"]),
+          "dc_churn_6x6 cuda: warm and cold runs differ")
+    print("dc_churn_6x6 cuda: warm == cold bit for bit")
+    for mode in ("warm", "cold"):
+        sim, recs[mode], cnt, wall = online_run(og, ONLINE_6X6_F32, dev,
+                                                mode, algo="beam_jax")
+        diff, ties = og.tie_departures(recs[mode], f32)
+        check(diff == ties == ONLINE_6X6_TIES["beam_jax"],
+              f"dc_churn_6x6 beam_jax {mode}: plans depart at epochs {diff}"
+              f", exact ties {ties} (want the ties "
+              f"{ONLINE_6X6_TIES['beam_jax']})")
+        # windows searched: the warm run's window-memo misses; the cold
+        # run keeps no memo and searches every window of every re-plan
+        windows = (cnt["window_memo.cache_miss"] if mode == "warm" else
+                   sum(len(e.outcome.windows) for e in sim.epochs
+                       if e.outcome is not None))
+        check(cnt[fetches] == windows == cnt["scar_eval"] > 0
+              and cnt["scar_search"] > 0,
+              f"dc_churn_6x6 beam_jax {mode}: {cnt[fetches]} fetches, "
+              f"{cnt['scar_eval']} scar_eval and {cnt['scar_search']} "
+              f"scar_search launches for {windows} windows searched (want "
+              "one fetch and one scar_eval a window, scar_search > 0)")
+        if mode == "warm":
+            launches["online"] = {k: cnt[k]
+                                  for k in ("scar_eval", "scar_search")}
+        med["beam_jax", mode] = replan_ms(sim)
+        print(f"dc_churn_6x6 beam_jax {mode}: plans == the reference's "
+              f"float32 run but the exact ties at epochs {ties}; wall "
+              f"{wall:.3f} s, median re-plan {med['beam_jax', mode]:.3f} ms;"
+              f" {windows} windows searched, {cnt[fetches]} fetches, "
+              f"launches scar_eval {cnt['scar_eval']}, scar_search "
+              f"{cnt['scar_search']}")
+    check(og.without_memo(recs["warm"]) == og.without_memo(recs["cold"]),
+          "dc_churn_6x6 beam_jax: warm and cold runs differ")
+    print("dc_churn_6x6 beam_jax: warm == cold bit for bit")
+    print("median re-plan ms (warm / cold): " + "; ".join(
+        f"{b} {med[b, 'warm']:.3f} / {med[b, 'cold']:.3f} = "
+        f"{med[b, 'cold'] / med[b, 'warm']:.2f}x"
+        for b in ("auto", "cuda", "beam_jax"))
+        + " (the reference bench's target: warm >= 3x faster than cold)")
+    for label, key, change in (("auto", ONLINE_6X6, {}),
+                               ("cuda", ONLINE_6X6_F32, {}),
+                               ("beam_jax", ONLINE_6X6_F32,
+                                {"algo": "beam_jax"})):
+        def run(key=key, change=change):
+            return online_run(og, key, dev, "warm", **change)
+        wall, busy, top, n_ev = device_time_of(run)
+        print(f"profiled dc_churn_6x6 {label} warm: wall {wall:.4f} s, "
+              f"device busy {busy:.6f} s ({100 * busy / wall:.2f}%) in "
+              f"{n_ev} device events, top by device time:"
+              + "; ".join(f" {k} x{c} {t:.6f} s" for k, c, t in top))
+        print(f"traced dc_churn_6x6 {label} warm, seconds by span (nested "
+              "spans overlap): " + span_totals(run))
+
+    for key in ONLINE_SLO:
+        sim, rec, cnt, wall = online_run(og, key, dev)
+        check(rec == gold[key]["record"], f"{key}: not the golden record")
+        lc = rec["slo"]["per_class"]
+        lc = [c for c in lc if c["slo"] == "latency_critical"][0]
+        print(f"{key}: == golden (preemptions {rec['slo']['n_preemptions']},"
+              f" switches {rec['slo']['n_switches']}, latency-critical miss "
+              f"rate {lc['miss_rate']}, EDP per iteration "
+              f"{rec['slo']['edp_per_iteration']}); wall {wall:.3f} s, "
+              f"median re-plan {replan_ms(sim):.3f} ms")
+    key = ONLINE_SLO[1]
+    sim, rec, cnt, wall = online_run(og, key, dev, algo="beam_jax")
+    windows = cnt["window_memo.cache_miss"]
+    check(cnt[fetches] == windows == cnt["scar_eval"] > 0
+          and cnt["scar_search"] > 0,
+          f"{key} beam_jax: {cnt[fetches]} fetches, {cnt['scar_eval']} "
+          f"scar_eval and {cnt['scar_search']} scar_search launches for "
+          f"{windows} windows searched")
+    launches["online_slo"] = {k: cnt[k] for k in ("scar_eval", "scar_search")}
+    t0 = time.perf_counter()
+    plain = og.port_record(key, "cpu", algo="beam_jax")
+    cpu_wall = time.perf_counter() - t0
+    check(rec == plain, f"{key} beam_jax: the card's run differs from the "
+          "port's plain run on the CPU")
+    auto = gold[key]["record"]
+    same = sum(a["plans"] == b["plans"]
+               for a, b in zip(rec["epochs"], auto["epochs"]))
+    print(f"{key} beam_jax: == the port's plain-kernel run on the CPU "
+          f"({cpu_wall:.3f} s there), every epoch; {same} of "
+          f"{len(auto['epochs'])} epochs' plans also == the float64 record "
+          f"(float32 ties carry through the anchors); wall {wall:.3f} s, "
+          f"median re-plan {replan_ms(sim):.3f} ms; {windows} windows "
+          f"searched, {cnt[fetches]} fetches, launches "
+          f"{launches['online_slo']}")
+
+    key = "online_cadence/auto"
+    sim, rec, cnt, wall = online_run(og, key, dev)
+    check(rec == gold[key]["record"], f"{key}: not the golden record")
+    print(f"xr8_cadence 3x3 het_sides: == golden ({len(sim.frames)} frames)"
+          f", wall {wall:.3f} s")
+    for key in ("fleet/least_loaded", "fleet/round_robin"):
+        rep, rec, cnt, wall = online_run(og, key, dev)
+        check(rec == gold[key]["record"], f"{key}: not the golden record")
+        print(f"dc_fleet_smoke {key}: == golden (attainment "
+              f"{rec['attainment']}, score {rec['score']}); wall {wall:.3f} s")
+    out = fleet_stream.run(FLEET_STREAM_HORIZON, dev)
+    for routing, (rep, _) in out.items():
+        check(rep.max_buffered_events <= 16 and rep.n_events > 50_000,
+              f"streamed fleet {routing}: {rep.max_buffered_events} events "
+              f"buffered over {rep.n_events} (want <= 16)")
+    print(f"streamed open-loop fleet, horizon {FLEET_STREAM_HORIZON} s: "
+          + fleet_stream.summary(out))
+    return launches
 
 
 def kernel_err_of_max(out, ref, what: str) -> float:
@@ -1557,6 +1783,10 @@ def main() -> None:
           f"); launches flash_attention {flash_attention.launches}, ssd_scan "
           f"{ssd_scan.launches} (forward and prefill; decode is plain)")
 
+    phase("9 online: dc_churn_6x6, dc_churn_8x8_slo, xr8_cadence, the "
+          "fleet")
+    online = online_phase(dev)
+
     phase("8 summary")
     print(json.dumps({"kernels": [{
         "name": "scar_eval", "route": "cuda",
@@ -1566,7 +1796,11 @@ def main() -> None:
         "max_abs_err": worst, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "device_ms": dev_ms,
-        "launches_by_path": {a: launches[a]["scar_eval"] for a in launches},
+        "launches_by_path": {**{a: launches[a]["scar_eval"]
+                                for a in launches},
+                             "online": online["online"]["scar_eval"],
+                             "online_cuda": online["online_cuda"],
+                             "online_slo": online["online_slo"]["scar_eval"]},
         "congestion": cong,
     }, {
         "name": "scar_search", "route": "cuda",
@@ -1576,8 +1810,11 @@ def main() -> None:
         "max_abs_err": s_err, "ms": s_ms,
         "plain_ms": s_p_ms, "bound_ms": s_b_ms, "bound_by": s_b_by,
         "library_ms": None, "device_ms": s_dev_ms,
-        "launches_by_path": {a: launches[a]["scar_search"]
-                             for a in launches},
+        "launches_by_path": {**{a: launches[a]["scar_search"]
+                                for a in launches},
+                             "online": online["online"]["scar_search"],
+                             "online_slo":
+                                 online["online_slo"]["scar_search"]},
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

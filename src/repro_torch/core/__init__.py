@@ -11,7 +11,8 @@ from .provision import provision
 from .scheduler import (ScheduleOutcome, SearchConfig, clear_caches,
                         final_anchors, run_config, schedule,
                         schedule_incremental, standalone_schedule)
-from .scenarios import (ARVR, DATACENTER, SCENARIO_NAMES, all_scenarios,
-                        get_scenario)
+from .scenarios import (ARVR, DATACENTER, SCENARIO_NAMES, TRACE_PRESETS,
+                        all_scenarios, get_scenario, get_trace,
+                        iter_trace_events)
 from .workload import Layer, Model, OpType, Scenario
 from .refine import refine

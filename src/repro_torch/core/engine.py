@@ -31,6 +31,7 @@ and float64 fitness follow the reference's trajectories step for step.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Protocol
 
 import numpy as np
@@ -783,9 +784,18 @@ def get_engine(cfg, seed: int = 0,
     the host stochastic engines.  ``seed`` is the per-window seed
     (``cfg.seed + window_index``) so the stochastic engines decorrelate
     across windows, as in the reference.
+
+    The ``SCAR_SEARCH_BACKEND`` env var overrides the beam-family choice
+    (``brute``/``beam`` -> host, ``beam_jax`` -> device), as in the
+    reference, and is ignored for the stochastic engines, whose
+    trajectories are algorithm-specific; an unknown name raises
+    ``KeyError``.
     """
     algo = cfg.algo
     comm_model = getattr(cfg, "comm_model", "analytic")
+    env = os.environ.get("SCAR_SEARCH_BACKEND", "").strip()
+    if env and algo in ("brute", "beam", "beam_jax"):
+        algo = env
     if algo in ("brute", "beam"):
         return BeamEngine(beam=cfg.beam, comm_model=comm_model)
     if algo == "beam_jax":

@@ -22,9 +22,16 @@ in the pipeline), else ``"auto"``, which keeps the reference's rule: below
 ``AUTO_WORK_THRESHOLD`` B*Lw elements the float64 oracle, above it the
 kernel on a CUDA device and its plain version on the CPU.  ``cuda`` on a
 CPU device raises.
+
+Environment overrides, read per call as in the reference:
+``SCAR_EVAL_BACKEND`` (one of the port's names, ``torch`` | ``torch_ref``
+| ``cuda``) replaces ``"auto"`` only, so an explicit backend wins; an
+unknown name raises ``KeyError``.  ``SCAR_EVAL_AUTO_THRESHOLD`` replaces
+``AUTO_WORK_THRESHOLD``.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -48,14 +55,22 @@ _EVAL_CALLS = {b: obs.counter(f"evaluator.eval_calls.{b}")
 
 # auto: batches below this many B*Lw elements stay on the float64 oracle
 # (the reference's threshold: 3x3 batches sit at <= 9k elements, 16x16
-# path_cap=1024 batches at 50k-260k).
+# path_cap=1024 batches at 50k-260k).  The default of the
+# SCAR_EVAL_AUTO_THRESHOLD override.
 AUTO_WORK_THRESHOLD = 32_768
+
+
+def _auto_threshold() -> int:
+    env = os.environ.get("SCAR_EVAL_AUTO_THRESHOLD", "").strip()
+    return int(env) if env else AUTO_WORK_THRESHOLD
 
 
 def resolve_backend(backend: Optional[str], work: int,
                     device: torch.device) -> str:
     """Concrete backend name for a request (see module docstring)."""
     b = backend or "auto"
+    if b == "auto":
+        b = os.environ.get("SCAR_EVAL_BACKEND", "").strip() or "auto"
     if b not in BACKENDS:
         raise KeyError(f"unknown eval backend {b!r}; have {BACKENDS}")
     if b == "cuda" and device.type != "cuda":
@@ -63,7 +78,7 @@ def resolve_backend(backend: Optional[str], work: int,
                            f"{device}; use 'torch_ref' on the CPU")
     if b != "auto":
         return b
-    if work < AUTO_WORK_THRESHOLD:
+    if work < _auto_threshold():
         return "torch"
     return "cuda" if device.type == "cuda" else "torch_ref"
 

@@ -51,6 +51,11 @@ def pow10_table(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return _POW10_ON[key]
 
 
+def pow10_table_clear() -> None:
+    """Drop the device copies of the table (``scheduler.clear_caches``)."""
+    _POW10_ON.clear()
+
+
 def quantize_scores(scores: np.ndarray, sig: int = 11) -> np.ndarray:
     """Round to ``sig + 1`` significant digits (12 at the default).
 

@@ -1,4 +1,5 @@
-"""The paper's ten multi-model workload scenarios (Table II)."""
+"""The paper's ten multi-model workload scenarios (Table II), the mesh and
+NoC presets, and the online trace presets (``get_trace``)."""
 from __future__ import annotations
 
 from .chiplet import NoCConfig
@@ -74,6 +75,106 @@ def mesh_shape(preset: str) -> tuple[int, int]:
     except KeyError:
         raise KeyError(f"unknown mesh preset {preset!r}; "
                        f"have {sorted(MESH_PRESETS)}") from None
+
+
+# Online trace presets (the dynamic analogue of the static Table II rows).
+# Values are the generator parameters of ``repro_torch.online.traces``;
+# build one with ``get_trace``.  Times are simulated seconds.
+# ``dc_churn_6x6`` is the bench/fixture workload (datacenter tenants on a
+# 6x6 package); ``dc_churn_smoke`` is the short nightly/CI variant; the
+# ``*_cadence`` presets replay Table II AR/VR scenarios at their paper
+# frame rates.
+# Tenant zoo the churn presets sample from: a 4-entry subset of the full
+# Table II datacenter zoo (``repro_torch.online.traces.DC_TENANT_ZOO``, the
+# generator default), chosen so realistic mix recurrence shows up within a
+# bench-sized horizon.  Changing it invalidates the committed fixtures and
+# the online bench baseline — regenerate both together.
+_DC_CHURN_ZOO = (("gpt-l", 1), ("bert-l", 3), ("bert-base", 24),
+                 ("resnet-50", 32))
+# SLO class mix the *_slo churn presets sample tenants from (the remaining
+# probability mass is the default "standard" class).  Mirrors a serving
+# fleet: a minority of interactive latency-critical tenants, a batch tail
+# that is happy to be preempted.
+_DC_SLO_MIX = {"latency_critical": 0.35, "best_effort": 0.35}
+TRACE_PRESETS: dict[str, dict] = {
+    "dc_churn_6x6": dict(kind="churn", seed=17, horizon=60.0,
+                         arrival_rate=1.0, mean_lifetime=2.5, max_active=3,
+                         zoo=_DC_CHURN_ZOO),
+    "dc_churn_smoke": dict(kind="churn", seed=3, horizon=10.0,
+                           arrival_rate=1.0, mean_lifetime=2.0, max_active=2,
+                           zoo=_DC_CHURN_ZOO),
+    # SLO-classed churn: the bench workload for the SLO-aware serving layer
+    # (tenant priorities, sub-iteration preemption, MCM reconfiguration) on
+    # an 8x8 package, and its short smoke/test variant on 3x3.  Changing
+    # either invalidates the committed fixtures and the
+    # BENCH_online_slo_8x8 baseline — regenerate together.
+    "dc_churn_8x8_slo": dict(kind="churn", seed=29, horizon=40.0,
+                             arrival_rate=1.2, mean_lifetime=2.5,
+                             max_active=4, zoo=_DC_CHURN_ZOO,
+                             slo_mix=_DC_SLO_MIX),
+    "dc_churn_slo_smoke": dict(kind="churn", seed=11, horizon=12.0,
+                               arrival_rate=1.0, mean_lifetime=2.0,
+                               max_active=2, zoo=_DC_CHURN_ZOO,
+                               slo_mix=_DC_SLO_MIX),
+    "xr8_cadence": dict(kind="cadence", scenario="xr8_outdoors", horizon=0.5),
+    "xr6_cadence": dict(kind="cadence", scenario="xr6_ar_assistant",
+                        horizon=0.5),
+    # Open-loop fleet churn: tenants carry request rates (diurnal + bursty
+    # arrivals, log-uniform per-tenant demand) and are served by the
+    # multi-package fleet driver (``repro_torch.online.fleet``).  The smoke
+    # preset is test/doc sized; the bench builds its million-event trace
+    # directly from ``iter_open_loop_churn`` so nothing that large is
+    # materialised.
+    "dc_fleet_smoke": dict(kind="open_churn", seed=23, horizon=30.0,
+                           base_rate=0.8, mean_lifetime=4.0,
+                           zoo=_DC_CHURN_ZOO, slo_mix=_DC_SLO_MIX,
+                           request_rate=(0.5, 8.0)),
+}
+
+
+def get_trace(preset: str):
+    """Build the named online trace preset (a ``Trace`` of
+    ``repro_torch.online.traces``).
+
+    Imported lazily: ``repro_torch.online`` depends on this package, so the
+    trace generators can't be imported at module load without a cycle.
+    """
+    from repro_torch.online.traces import (frame_cadence_trace,
+                                           open_loop_churn_trace,
+                                           poisson_churn_trace)
+    try:
+        spec = dict(TRACE_PRESETS[preset])
+    except KeyError:
+        raise KeyError(f"unknown trace preset {preset!r}; "
+                       f"have {sorted(TRACE_PRESETS)}") from None
+    kind = spec.pop("kind")
+    if kind == "churn":
+        return poisson_churn_trace(name=preset, **spec)
+    if kind == "open_churn":
+        return open_loop_churn_trace(name=preset, **spec)
+    return frame_cadence_trace(name=preset, **spec)
+
+
+def iter_trace_events(preset: str):
+    """Stream the named churn preset's events without materialising them.
+
+    Returns ``(event iterator, horizon)``.  Yields exactly the events
+    ``get_trace(preset)`` would materialise (pinned by the trace tests);
+    cadence presets have no streaming form and raise ``KeyError``.
+    """
+    from repro_torch.online.traces import (iter_open_loop_churn,
+                                           iter_poisson_churn)
+    try:
+        spec = dict(TRACE_PRESETS[preset])
+    except KeyError:
+        raise KeyError(f"unknown trace preset {preset!r}; "
+                       f"have {sorted(TRACE_PRESETS)}") from None
+    kind = spec.pop("kind")
+    if kind == "churn":
+        return iter_poisson_churn(**spec), spec["horizon"]
+    if kind == "open_churn":
+        return iter_open_loop_churn(**spec), spec["horizon"]
+    raise KeyError(f"trace preset {preset!r} ({kind}) has no streaming form")
 
 
 def get_scenario(name: str) -> Scenario:

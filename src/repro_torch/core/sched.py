@@ -8,6 +8,9 @@ path space is enumerated by the batched frontier expansion in ``paths.py``;
 per-model candidates are scored by ``evaluator.eval_candidates`` on the
 caller's device, and ``engine.BeamEngine`` combines disjoint per-model paths
 into the window schedule.  This module owns candidate *construction*.
+``enumerate_paths`` — the reference's recursive DFS — is kept as the parity
+oracle of the frontier builder, and ``combine_candidates`` is the
+reference's engine-agnostic combination entry point.
 """
 from __future__ import annotations
 
@@ -18,14 +21,52 @@ import torch
 
 from .chiplet import MCM
 from .cost import BatchedModelCandidates
-from .engine import ModelCandidateSet, WindowSearchResult
+from .engine import BeamEngine, ModelCandidateSet, WindowSearchResult
 from .evaluator import eval_candidates
 from .maestro import CostDB
 from .paths import frontier_paths
 from .quantize import SCORE_SIG, quantize_scores
 
-__all__ = ["assemble_candidates", "build_candidates", "ModelCandidateSet",
-           "WindowSearchResult"]
+__all__ = ["enumerate_paths", "assemble_candidates", "build_candidates",
+           "combine_candidates", "ModelCandidateSet", "WindowSearchResult"]
+
+
+def enumerate_paths(mcm: MCM, length: int, starts: list[int],
+                    cap: int = 512) -> list[tuple[int, ...]]:
+    """Constrained DFS: self-avoiding XY-mesh paths of ``length`` chiplets.
+
+    The enumeration budget is split evenly across the valid start positions
+    (the scheduling-tree roots) so every subtree contributes candidates.
+
+    This is the scalar *oracle*: ``paths.frontier_paths`` reproduces its
+    output bit-for-bit (same start pool, budget split and emission order)
+    and is what the production pipeline runs (held against the
+    reference's DFS and the builder in ``tests/test_torch_main_leftovers``).
+    """
+    paths: list[tuple[int, ...]] = []
+    per_start = max(1, cap // max(1, len(starts)))
+
+    def dfs(path: list[int], budget: list[int]) -> bool:
+        if len(path) == length:
+            paths.append(tuple(path))
+            budget[0] -= 1
+            return budget[0] <= 0
+        for nb in mcm.neighbors(path[-1]):
+            if nb in path:
+                continue
+            path.append(nb)
+            if dfs(path, budget):
+                return True
+            path.pop()
+        return False
+
+    seen: set[int] = set()
+    for s in starts:
+        if s in seen:
+            continue
+        seen.add(s)
+        dfs([s], [per_start])
+    return paths
 
 
 def assemble_candidates(mcm: MCM, model_idx: int,
@@ -180,3 +221,23 @@ def build_candidates(db: CostDB, mcm: MCM, model_idx: int,
         lat=lat[order], energy=energy[order], keep=keep,
         mask_words=words[order], chips=chips[order],
         n_segs=n_segs[order], seg_arr=seg_arr[order])
+
+
+def combine_candidates(db: CostDB, mcm: MCM,
+                       sets: list[ModelCandidateSet],
+                       prev_end: dict[int, int],
+                       metric: str = "edp",
+                       beam: int = 64,
+                       max_expansions: int = 20000,
+                       engine=None) -> WindowSearchResult:
+    """Beam search over disjoint per-model path combinations.
+
+    Backward-compatible wrapper around the vectorized ``engine.BeamEngine``
+    (bit-identical results to the original Python loop; see
+    ``engine.reference_combine`` for the oracle).  ``engine`` substitutes any
+    other ``SearchEngine`` — e.g. ``engine.DeviceBeamEngine`` to run the
+    combination on the device (its protocol ``combine``, bit-identical to
+    the reference oracle).
+    """
+    eng = engine or BeamEngine(beam=beam, max_expansions=max_expansions)
+    return eng.combine(db, mcm, sets, prev_end, metric=metric)

@@ -12,6 +12,10 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
+import os
+import pickle
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -99,6 +103,61 @@ _DB_CACHE: "collections.OrderedDict[tuple, CostDB]" = collections.OrderedDict()
 _DB_CACHE_MAX = 128
 _DB_HIT = obs.counter("costdb.cache_hit")
 _DB_MISS = obs.counter("costdb.cache_miss")
+_DB_DISK_HIT = obs.counter("costdb.disk_hit")
+_DB_DISK_MISS = obs.counter("costdb.disk_miss")
+
+# Salt of the on-disk CostDB cache's file key: the package that wrote the
+# pickle and the layout version.  A directory shared with the JAX reference
+# (the same ``SCAR_COSTDB_CACHE``) then never hands one package the other's
+# pickle; bump the version when the cost model or the CostDB layout changes.
+_COSTDB_DISK_SALT = ("repro_torch", 1)
+
+
+def costdb_cache_dir() -> Optional[str]:
+    """Shared on-disk CostDB cache directory (``SCAR_COSTDB_CACHE``).
+
+    Unset (the default) disables the disk layer.  When set, cost databases
+    are pickled under the directory keyed by a content hash of
+    ``cost_db_key`` and ``_COSTDB_DISK_SALT``, so processes that build the
+    same CostDB share it.  The directory is user-managed: safe to delete at
+    any time, and to be wiped when switching versions whose cost model
+    differs (the salt guards the package and the layout only).
+    """
+    d = os.environ.get("SCAR_COSTDB_CACHE", "").strip()
+    return d or None
+
+
+def _disk_cache_path(cache_dir: str, key: tuple) -> str:
+    digest = hashlib.sha256(
+        repr((_COSTDB_DISK_SALT, key)).encode()).hexdigest()[:32]
+    return os.path.join(cache_dir, f"costdb_{digest}.pkl")
+
+
+def _disk_cache_load(path: str) -> Optional[CostDB]:
+    try:
+        with open(path, "rb") as fh:
+            db = pickle.load(fh)
+    except (OSError, pickle.UnpicklingError, EOFError, AttributeError,
+            ImportError):
+        return None
+    return db if isinstance(db, CostDB) else None
+
+
+def _disk_cache_store(path: str, db: CostDB) -> None:
+    # atomic publish (tmp + rename): processes racing on one key never
+    # expose a torn file
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
+                               prefix=".costdb_tmp_")
+    try:
+        with os.fdopen(fd, "wb") as fh:
+            pickle.dump(db, fh, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, path)
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
 _CAND_HIT = obs.counter("candidates.cache_hit")
 _CAND_MISS = obs.counter("candidates.cache_miss")
 _WIN_HIT = obs.counter("window_memo.cache_hit")
@@ -118,13 +177,29 @@ def cost_db_key(sc: Scenario, mcm: MCM) -> tuple:
 
 
 def get_cost_db(sc: Scenario, mcm: MCM) -> CostDB:
-    """Memoised ``build_cost_db`` keyed on ``cost_db_key`` (LRU-bounded)."""
+    """Memoised ``build_cost_db`` keyed on ``cost_db_key`` (LRU-bounded).
+
+    With ``SCAR_COSTDB_CACHE`` set, a process-shared disk layer sits under
+    the in-memory LRU: a miss first tries the pickled store and builds only
+    on a double miss, then publishes atomically for other processes
+    (``costdb.disk_hit`` / ``costdb.disk_miss`` count the layer).
+    """
     key = cost_db_key(sc, mcm)
     if key not in _DB_CACHE:
         _DB_MISS.inc()
-        with obs.span("costdb_build", cat="scheduler", scenario=sc.name,
-                      mcm=mcm.name):
-            _DB_CACHE[key] = build_cost_db(sc, mcm.classes, mcm.pkg)
+        cache_dir = costdb_cache_dir()
+        db = None
+        if cache_dir:
+            path = _disk_cache_path(cache_dir, key)
+            db = _disk_cache_load(path)
+            (_DB_DISK_HIT if db is not None else _DB_DISK_MISS).inc()
+        if db is None:
+            with obs.span("costdb_build", cat="scheduler", scenario=sc.name,
+                          mcm=mcm.name):
+                db = build_cost_db(sc, mcm.classes, mcm.pkg)
+            if cache_dir:
+                _disk_cache_store(path, db)
+        _DB_CACHE[key] = db
         while len(_DB_CACHE) > _DB_CACHE_MAX:
             _DB_CACHE.popitem(last=False)
     else:
@@ -134,18 +209,24 @@ def get_cost_db(sc: Scenario, mcm: MCM) -> CostDB:
 
 
 def clear_caches() -> None:
-    """Drop every per-process scheduling cache (CostDB memo + path LRU).
+    """Drop every per-process scheduling cache.
 
-    This is what the online re-scheduler's ``cold`` oracle calls before each
-    epoch so its re-plan really is a from-scratch re-schedule.  The
-    registry-backed cache counters (``obs.cache_stats()``) reset with the
-    caches, so hit rates always describe the caches' current lifetime.
+    The CostDB memo, the frontier-path LRU and the device-resident tables
+    kept between calls (the quantiser's powers of ten,
+    ``quantize.pow10_table``).  This is what the online re-scheduler's
+    ``cold`` oracle calls before each epoch so its re-plan really is a
+    from-scratch re-schedule.  The registry-backed cache counters
+    (``obs.cache_stats()``, the disk layer's too) reset with the caches, so
+    hit rates always describe the caches' current lifetime.  The built CUDA
+    kernels stay loaded: they are not a planning cache.
     """
     from .paths import path_cache_clear
+    from .quantize import pow10_table_clear
     _DB_CACHE.clear()
     path_cache_clear()
-    for c in (_DB_HIT, _DB_MISS, _CAND_HIT, _CAND_MISS, _WIN_HIT,
-              _WIN_MISS):
+    pow10_table_clear()
+    for c in (_DB_HIT, _DB_MISS, _DB_DISK_HIT, _DB_DISK_MISS,
+              _CAND_HIT, _CAND_MISS, _WIN_HIT, _WIN_MISS):
         c.reset()
 
 

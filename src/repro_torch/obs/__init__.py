@@ -11,22 +11,28 @@ The counterpart of ``repro.obs`` (stdlib only):
   (CostDB memo, window/candidate memo, frontier-path LRU), the kernel
   launch counts and the ``launch.platform`` sync count read through it.
 
-The Chrome-trace exporter of the reference (``repro.obs.export``) is not
-ported yet; ``Tracer.events`` holds the raw records.
+* **Exporters** (``obs.export``) — ``obs.chrome_trace`` (Chrome-trace /
+  Perfetto JSON), ``obs.summary`` / ``obs.format_summary`` (flat per-phase
+  table), ``obs.bench_dump`` (counters + span roll-ups as one JSON-safe
+  dict); ``obs.snapshot`` / ``obs.merge_snapshot`` fold another process's
+  spans and counters into this one.
 """
 from __future__ import annotations
 
 import os
 from typing import Optional
 
+from . import export as _export
 from . import registry
 from .registry import (Counter, Gauge, counter, counters,  # noqa: F401
                        gauge, gauges)
 from .tracer import NULL_SPAN, Span, Tracer, _NullSpan  # noqa: F401
 
-__all__ = ["Counter", "Gauge", "Span", "Tracer", "cache_stats", "counter",
-           "counters", "disable", "enable", "enabled", "event", "gauge",
-           "gauges", "registry", "reset", "span", "tracer"]
+__all__ = ["Counter", "Gauge", "Span", "Tracer", "bench_dump",
+           "cache_stats", "chrome_trace", "counter", "counters", "disable",
+           "enable", "enabled", "event", "format_summary", "gauge", "gauges",
+           "merge_snapshot", "registry", "reset", "snapshot", "span",
+           "summary", "tracer"]
 
 # The installed tracer, or None.  ``span``/``event`` check this one global;
 # when it is None they cost a single global load + return.
@@ -79,6 +85,48 @@ def reset(counters_too: bool = True) -> None:
         registry.reset()
 
 
+# ---------------------------------------------------------------------------
+# cross-process plumbing (portfolio workers)
+# ---------------------------------------------------------------------------
+
+def snapshot() -> Optional[dict]:
+    """Picklable dump of this process's tracer (None when disabled).
+
+    Workers return this to the parent, which folds it into its own tracer
+    via ``merge_snapshot`` — span ids are rebased and timestamps shifted
+    onto the parent's time base, so one Chrome trace shows every process.
+    """
+    if _TRACER is None:
+        return None
+    return {"pid": _TRACER.pid, "wall0": _TRACER.wall0,
+            "events": list(_TRACER.events),
+            "counters": registry.counters(),
+            "gauges": registry.gauges()}
+
+
+def merge_snapshot(snap: Optional[dict], pid: Optional[int] = None) -> None:
+    """Fold a worker ``snapshot()`` into the live tracer (+ its counters).
+
+    ``pid`` assigns a stable caller-chosen process id to the merged spans
+    (the portfolio numbers workers by submission order).  Worker counter
+    values are *added* into this process's registry so fleet-wide cache
+    hit rates survive the process boundary.
+    """
+    if snap is None:
+        return
+    if _TRACER is not None:
+        _TRACER.merge(snap, pid=pid)
+    for name, val in snap.get("counters", {}).items():
+        if val:
+            registry.counter(name).inc(val)
+    for name, val in snap.get("gauges", {}).items():
+        registry.gauge(name).set(val)
+
+
+# ---------------------------------------------------------------------------
+# views
+# ---------------------------------------------------------------------------
+
 def cache_stats() -> dict[str, dict]:
     """Hit/miss/rate per cache site, discovered from the counter registry.
 
@@ -100,6 +148,33 @@ def cache_stats() -> dict[str, dict]:
         total = site["hits"] + site["misses"]
         site["hit_rate"] = site["hits"] / total if total else 0.0
     return sites
+
+
+def chrome_trace(path: Optional[str] = None) -> dict:
+    """Export the live tracer as Chrome-trace JSON (see ``obs.export``)."""
+    if _TRACER is None:
+        raise RuntimeError("tracing is not enabled "
+                           "(call repro_torch.obs.enable())")
+    return _export.chrome_trace(_TRACER, path=path)
+
+
+def summary() -> list[dict]:
+    """Per-(cat, name) span aggregates of the live tracer."""
+    if _TRACER is None:
+        return []
+    return _export.summary(_TRACER)
+
+
+def format_summary(max_rows: int = 40) -> str:
+    """The flat per-phase summary table as text."""
+    if _TRACER is None:
+        return "(tracing disabled)"
+    return _export.format_summary(_TRACER, max_rows=max_rows)
+
+
+def bench_dump() -> dict:
+    """Telemetry blob for bench rows (counters + span roll-ups)."""
+    return _export.bench_dump(_TRACER)
 
 
 if os.environ.get("SCAR_TRACE", "").strip() not in ("", "0"):

@@ -24,7 +24,7 @@ from __future__ import annotations
 import threading
 
 __all__ = ["Counter", "Gauge", "counter", "gauge", "counters", "gauges",
-           "reset"]
+           "reset", "value"]
 
 
 class Counter:
@@ -127,3 +127,9 @@ def reset(prefix: str = "") -> None:
         for n, g in _GAUGES.items():
             if n.startswith(prefix):
                 g.reset()
+
+
+def value(name: str) -> int:
+    """Current value of counter ``name`` (0 if never registered)."""
+    c = _COUNTERS.get(name)
+    return 0 if c is None else c.value

@@ -101,8 +101,9 @@ class Tracer:
 
     ``events`` holds finished span records (dicts, see ``Span.__exit__``)
     and zero-duration instant records (``dur`` absent).  Times are relative
-    to ``t0`` (``perf_counter`` at construction); ``wall0`` is ``time.time``
-    at construction.
+    to ``t0`` (``perf_counter`` at construction); ``wall0`` (``time.time``
+    at construction) lets snapshots from other processes be shifted onto
+    this tracer's time base when merged.
     """
 
     def __init__(self) -> None:
@@ -147,3 +148,30 @@ class Tracer:
             "pid": self.pid, "tid": self._tid(),
             "args": attrs,
         })
+
+    # -- cross-process merge ------------------------------------------------
+    def merge(self, snapshot: dict, pid: int | None = None) -> None:
+        """Fold a worker ``repro_torch.obs.snapshot()`` into this tracer.
+
+        Worker timestamps are shifted onto this tracer's time base via the
+        wall-clock offset between the two tracers' births.  ``pid``
+        overrides the recorded process id with a caller-chosen stable id
+        (the portfolio numbers workers by submission order so merged traces
+        are deterministic across runs).
+        """
+        shift = snapshot["wall0"] - self.wall0
+        base = next(self._ids)
+        use_pid = snapshot["pid"] if pid is None else pid
+        max_sid = base - 1
+        for ev in snapshot["events"]:
+            ev = dict(ev)
+            ev["ts"] += shift
+            ev["pid"] = use_pid
+            ev["sid"] += base
+            if ev["parent"] >= 0:
+                ev["parent"] += base
+            self.events.append(ev)
+            max_sid = max(max_sid, ev["sid"])
+        # keep ids unique if more spans open after the merge (worker sids
+        # may be sparse: unclosed spans consume ids without emitting events)
+        self._ids = itertools.count(max_sid + 1)

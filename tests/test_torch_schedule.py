@@ -172,6 +172,29 @@ def test_port_imports_neither_jax_nor_repro():
                    timeout=120)
 
 
+def test_guard_covers_the_online_layer():
+    """The online layer, its entry point and what ``chip_smoke.py`` takes
+    from the online golden script import neither ``jax`` nor ``repro``."""
+    mods = port_modules()
+    for m in ("repro_torch.online", "repro_torch.online.fleet",
+              "repro_torch.online.rescheduler", "repro_torch.online.simulator",
+              "repro_torch.online.traces", "repro_torch.obs.export",
+              "repro_torch.launch.online_serve"):
+        assert m in mods, m
+    code = ("import sys\n"
+            f"sys.path.insert(0, {str(ROOT / 'scripts')!r})\n"
+            "import make_torch_online_golden as g\n"
+            "import repro_torch.online, repro_torch.launch.online_serve\n"
+            "rec = g.port_record('online_cadence/auto', 'cpu')\n"
+            "assert rec['frames']\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
+            "m.startswith(('jax.', 'repro.')))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
 def test_no_jax_or_repro_import_statements():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
