@@ -9,7 +9,9 @@ against the golden file the JAX reference wrote
 (``tests/fixtures/torch_port_golden.json``); then serves zamba2-2.7b at
 full width and holds reduced zamba2's logits against the reference's
 (``tests/fixtures/torch_lm_golden.npz``); then replays the online serving
-layer's traces on the card.  It imports neither JAX nor the reference
+layer's traces on the card; then runs the portfolio sweeps, plans and
+realizes three models on a pod, and serves the MoE and xLSTM models at
+full width.  It imports neither JAX nor the reference
 package.  Phases, each printed as it runs:
 
 1. card: ``nvidia-smi`` name, power limit and SM clock, library versions,
@@ -42,6 +44,12 @@ package.  Phases, each printed as it runs:
    carry, in bf16 exactly over 8 chunks; slow-decay cases up to the serve
    shape; batch-1 prompts up to 32k rows, timed) and on the inputs of the
    first Mamba-2 block
+2e. the kernels at the new models' shapes: ``ssd_scan`` at xlstm-350m's
+   mLSTM widths (q, k, v [4, 1024, 4, 256] bf16, chunk 256) with its
+   normaliser in the same launch, ``flash_attention`` at head_dim 128
+   (qwen2-moe-a2.7b's MHA [4, 1024, 16, 128], minitron-8b's GQA [4, 1024,
+   32, 128] over 8 kv heads): each output within 2e-2 of the largest plain
+   output, times, bounds, SDPA for attention
 3. paper package: the ten Table II scenarios on the 6x6 ``het_cross`` MCM,
    under ``eval_backend="auto"`` (as the golden file was made), with every
    batch on the kernel (``eval_backend="cuda"``), and with
@@ -94,8 +102,33 @@ package.  Phases, each printed as it runs:
    ``dc_fleet_smoke`` through both routings; ``bench_fleet_serving``'s
    open-loop trace streamed over 5 000 s (``scripts/torch_fleet_stream.py``,
    at most 16 events buffered)
-8. summary: one JSON line of per-kernel numbers (``launches_by_path``
-   includes the online runs)
+10. portfolio (``repro_torch.core.portfolio``) against the records the
+   JAX reference wrote (``tests/fixtures/torch_portfolio_golden.json``):
+   the headline grid (ten scenarios x seven packages, 3x3) inline with its
+   two EDP reductions, and the large-mesh grid (dc4, xr7 x het_cb,
+   het_sides x 8x8, 16x16, ``path_cap=512``) under the default search and
+   ``beam_jax``, inline and on four ``spawn`` workers sharing the card:
+   ``==`` the records, launches summed over the workers' jobs == inline,
+   wall time and each worker's peak memory
+11. multimodel (``repro_torch.multimodel``): the 16x16 pod plan == the
+   record; then minitron-8b, qwen2-moe-a2.7b and xlstm-350m planned at
+   batch 4, sequence 1024 and realized at full width one at a time on the
+   card: launches, prefill time, peak memory, every kernel call of one
+   prefill against its plain version (2e-2); the bf16 last-token logits
+   against the plain path's (each routing its own tokens) beside a
+   witness, the plain path with one-ulp moves at the share of outputs the
+   kernels leave unequal, both printed; for minitron-8b and
+   qwen2-moe-a2.7b the same prefill realized in float32, kernels against
+   plain versions within 1e-3 of the largest logit (phase 6's check)
+12. serving qwen2-moe-a2.7b and xlstm-350m at full width (batch 4, prompt
+   1024, 32 tokens): prefill time, decode tokens/s, peak memory, launches
+   per prefill (none in decode), a profiled prefill's device idle share,
+   and, printed, the step where each row's greedy tokens part from the
+   plain versions' run
+8. summary: a JSON line of the portfolio, multimodel and serving numbers,
+   then one of per-kernel numbers (``launches_by_path`` includes the
+   online, portfolio, realized and served runs; ``shapes`` the new models'
+   kernel shapes of phase 2e)
 10. last line: ``{"ok": true, "device": {...}}``
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -131,6 +164,28 @@ LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LM_MODEL_REL = 5e-5
 SERVE_ARGV = ["--arch", "zamba2-2.7b", "--batch", "4", "--prompt-len",
               "1024", "--gen", "32"]
+# the new models' kernel shapes: xlstm-350m's mLSTM scan (B, L, H, N = P,
+# chunk; with its normaliser), qwen2-moe-a2.7b's MHA and minitron-8b's GQA
+# attention (B, S, Hq, Hkv, D), causal
+XLSTM_SSD = (4, 1024, 4, 256, 256)
+ATTN_D128 = {"qwen2-moe-a2.7b": (4, 1024, 16, 16, 128),
+             "minitron-8b": (4, 1024, 32, 8, 128)}
+# the models served at full width (phases 11 and 12), batch 4, prompt 1024:
+# each kernel's launches per prefill (one per layer of its kind)
+NEW_SERVE = {"qwen2-moe-a2.7b": {"flash_attention": 24, "ssd_scan": 0},
+             "xlstm-350m": {"flash_attention": 0, "ssd_scan": 12}}
+POD_ARCHS = ("minitron-8b", "qwen2-moe-a2.7b", "xlstm-350m")
+POD_LAUNCHES = {"minitron-8b": {"flash_attention": 32, "ssd_scan": 0},
+                **NEW_SERVE}
+PORTFOLIO_GOLDEN = (ROOT / "tests" / "fixtures"
+                    / "torch_portfolio_golden.json")
+# the realized models whose float32 prefill fits on the card and whose
+# kernel shapes the float32 kernels take (xlstm-350m's N = P = 256 is above
+# the float32 scan's 128): kernel path against plain path, each routing its
+# own tokens, within 1e-3 of the largest logit (phase 6's float32 check)
+F32_POD_ARCHS = ("minitron-8b", "qwen2-moe-a2.7b")
+PROFILER_TRIES = 2              # sessions before a profiled time is None
+PORTFOLIO_PROCS = 4
 FLASH_S = (1, 64, 1000, 2048)
 FLASH_D = (16, 64, 80, 128)
 FLASH_G = (1, 2, 8)
@@ -219,7 +274,17 @@ def profiled_device_ms(fn, reps: int = 25):
     """Device time (ms) of one ``fn()`` call from ``torch.profiler``: the
     sum over every device event the call makes (all its kernels, and any
     fill it needs), with the parts as ``(name, events per call, ms per
-    call)``; ``(None, [])`` when the profiler records none."""
+    call)``; ``(None, [])`` when the profiler records none in
+    ``PROFILER_TRIES`` sessions (it sometimes returns a session without
+    device events)."""
+    for _ in range(PROFILER_TRIES):
+        ms, parts = _profiled_device_ms(fn, reps)
+        if parts:
+            return ms, parts
+    return None, []
+
+
+def _profiled_device_ms(fn, reps: int):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -466,17 +531,20 @@ def span_totals(run) -> str:
                      sorted(totals.items(), key=lambda kv: -kv[1]))
 
 
-def device_time_of(run) -> tuple[float, float, list, int]:
+def device_time_of(run, host_ops: bool = True
+                   ) -> tuple[float, float, list, int]:
     """``(wall s, device-busy s, top kernels, device events)`` of one
     ``run()`` under ``torch.profiler``: the sum of the device's own events
     (kernels, copies, memsets), the five largest by total time, and their
-    number.  The profiler
-    slows the host, so the wall time here is longer than unprofiled."""
+    number.  The profiler slows the host, so the wall time here is longer
+    than unprofiled; ``host_ops=False`` records the device alone (a run of
+    some 10^5 launches then takes seconds, not minutes, to summarise)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops
+                                      else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -858,14 +926,15 @@ def flash_bound_ms(q, k, causal, q_offset, kv_len) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ssd_bound_ms(q, k, v, chunk) -> tuple[float, str]:
+def ssd_bound_ms(q, k, v, chunk, norm: bool = False) -> tuple[float, str]:
     """``ssd_scan``'s least time: q and k read once (once per batch row
-    when they are broadcast over heads), v and a read and o written once;
-    per (batch, head) the in-chunk causal pairs times (N + P) multiply-adds
-    plus the inter-chunk and state products, 4 L N P, at the peak rate of
-    the inputs' type."""
+    when they are broadcast over heads), v and a read and o written once
+    (and the normaliser written, with ``norm``); per (batch, head) the
+    in-chunk causal pairs times (N + P) multiply-adds plus the inter-chunk
+    and state products, 4 L N P (with ``norm`` P + 1 columns), at the peak
+    rate of the inputs' type."""
     B, L, H, N = q.shape
-    P = v.shape[-1]
+    P = v.shape[-1] + (1 if norm else 0)
     c = min(chunk, L)
     es = v.element_size()
     heads_q = 1 if q.stride(2) == 0 else H
@@ -902,7 +971,7 @@ def recording_calls(calls: list):
         def call(*args, **kwargs):
             out = real[name](*args, **kwargs)
             calls.append((name, tuple(keep(a) for a in args), dict(kwargs),
-                          out.clone()))
+                          tuple(o.clone() for o in outputs(out))))
             return out
         return call
 
@@ -992,8 +1061,14 @@ def logit_agreement(lk, lp) -> dict:
         "plain_top2_gap": gap.tolist()}
 
 
+def outputs(out) -> tuple:
+    """A kernel call's outputs as a tuple (``ssd_scan`` with ``norm=True``
+    returns the scan and its normaliser)."""
+    return out if isinstance(out, tuple) else (out,)
+
+
 def check_calls(calls: list) -> dict:
-    """Each recorded call's output against its kernel's plain version on
+    """Each recorded call's outputs against its kernel's plain version on
     the same inputs, elementwise at the bf16 tolerance (``kernel_err``);
     per kernel the calls, the largest difference and the least share of
     outputs equal to the plain version's."""
@@ -1001,31 +1076,473 @@ def check_calls(calls: list) -> dict:
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
     plain = {"flash_attention": attention_plain, "ssd_scan": ssd_scan_plain}
     seen = {}
-    for name, args, kwargs, out in calls:
-        ref = plain[name](*args, **kwargs)
+    for name, args, kwargs, outs in calls:
+        refs = outputs(plain[name](*args, **kwargs))
         n, err, same = seen.get(name, (0, 0.0, 1.0))
-        err = max(err, kernel_err(out, ref, out.dtype,
-                                  f"{name}, call {n} of the bf16 prefill"))
-        same = min(same, (out == ref).float().mean().item())
+        for out, ref in zip(outs, refs):
+            err = max(err, kernel_err(
+                out, ref, out.dtype, f"{name}, call {n} of the bf16 "
+                "prefill"))
+            same = min(same, (out == ref).float().mean().item())
         seen[name] = (n + 1, err, same)
     return {k: {"calls": n, "max_abs": e, "least_equal_share": sh}
             for k, (n, e, sh) in seen.items()}
 
 
+def ulp_flips(t, share: float, gen):
+    """``t`` with a random ``share`` of its nonzero entries moved one unit
+    in the last place (the magnitude up or down at random)."""
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    bits = t.contiguous().view(ints[t.dtype])
+    flip = (torch.rand(t.shape, generator=gen, device=t.device) < share) \
+        & (t != 0)
+    step = torch.where(torch.rand(t.shape, generator=gen, device=t.device)
+                       < 0.5, 1, -1).to(bits.dtype)
+    return (bits + flip.to(bits.dtype) * step).view(t.dtype)
+
+
 @contextlib.contextmanager
-def plain_kernels(flash: bool = True, ssd: bool = True):
+def plain_kernels(flash: bool = True, ssd: bool = True,
+                  perturb: float = 0.0):
     """The model layers take the named kernels' plain versions inside (on
-    the card: the comparison prefills of phase 6)."""
+    the card: the comparison prefills of phases 6, 11 and 12).  With
+    ``perturb``, every plain output has that share of its entries moved
+    one ulp (``ulp_flips``): the plain path with as many last-bit
+    differences as the kernels leave, at random places, a witness of how
+    far the model itself carries such differences."""
     from repro_torch.kernels.flash_attention import attention_plain
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
     from repro_torch.models import layers
     real = layers.flash_attention, layers.ssd_scan
-    layers.flash_attention = attention_plain if flash else real[0]
-    layers.ssd_scan = ssd_scan_plain if ssd else real[1]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def perturbed(fn):
+        if not perturb:
+            return fn
+
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            outs = tuple(ulp_flips(o, perturb, gen) for o in outputs(out))
+            return outs if isinstance(out, tuple) else outs[0]
+        return call
+
+    layers.flash_attention = perturbed(attention_plain) if flash \
+        else real[0]
+    layers.ssd_scan = perturbed(ssd_scan_plain) if ssd else real[1]
     try:
         yield
     finally:
         layers.flash_attention, layers.ssd_scan = real
+
+
+def new_shapes_phase(g, dev, smi) -> dict:
+    """Phase 2e: the kernels at the new models' shapes, random inputs:
+    ``ssd_scan`` at xlstm-350m's mLSTM widths with its normaliser in the
+    same launch, ``flash_attention`` at head_dim 128 (qwen2-moe-a2.7b's MHA,
+    minitron-8b's GQA).  Each output within 2e-2 of the largest plain
+    output; times, bounds and, for attention, SDPA on the same inputs."""
+    from repro_torch.kernels.flash_attention import (attention_plain,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import kernel as flash_mod
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import kernel as ssd_mod
+    bf = torch.bfloat16
+    rec = {}
+
+    def of_max(out, ref, what):
+        o, r = out.float(), ref.float()
+        check(bool(torch.isfinite(o).all()), f"{what}: output not finite")
+        err = (o - r).abs().max().item()
+        limit = LM_TOL[bf] * r.abs().max().item()
+        check(err <= limit, f"{what}: max |kernel - plain| = {err}, beyond "
+              f"2e-2 of max |plain| ({limit})")
+        return err
+
+    B, L, H, N, P = XLSTM_SSD
+    # the mLSTM's inputs: q / sqrt(P), log sigmoid forget gates
+    q = randn((B, L, H, N), g, bf, dev) / 16
+    k = randn((B, L, H, N), g, bf, dev)
+    v = randn((B, L, H, P), g, bf, dev)
+    a = -torch.nn.functional.softplus(-randn((B, L, H), g, torch.float32,
+                                             dev))
+    ssd_scan.launches = 0
+    num, den = ssd_scan(q, k, v, a, chunk=256, norm=True)
+    check(ssd_scan.launches == 1, "the scan and its normaliser took "
+          f"{ssd_scan.launches} launches, want 1")
+    p_num, p_den = ssd_scan_plain(q, k, v, a, chunk=256, norm=True)
+    torch.cuda.synchronize()
+    err = max(of_max(num, p_num, "ssd_scan at xLSTM's widths"),
+              of_max(den, p_den, "ssd_scan's normaliser at xLSTM's widths"))
+    kw = dict(chunk=256, norm=True)
+    ms = cuda_ms(lambda: ssd_scan(q, k, v, a, **kw))
+    plain_ms = cuda_ms(lambda: ssd_scan_plain(q, k, v, a, **kw), reps=5)
+    dev_ms, parts = profiled_device_ms(lambda: ssd_scan(q, k, v, a, **kw))
+    b_ms, b_by = ssd_bound_ms(q, k, v, 256, norm=True)
+    smem = ssd_mod._lib().ssd_scan_smem_bytes(N, P, 256, 1, 1)
+    rec["ssd_scan"] = {"xlstm-350m": {
+        "shape": [B, L, H, N, P], "chunk": 256, "normaliser": True,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}}
+    print(f"ssd_scan q/k/v {tuple(q.shape)} bf16, chunk 256, with the "
+          f"normaliser, one launch: max |kernel - plain| {err!r} (output "
+          f"and normaliser, each within 2e-2 of max |plain|); per call "
+          f"(CUDA events, median): kernel {ms:.6f} ms, plain (two scans) "
+          f"{plain_ms:.6f} ms; kernel device time (profiler) {dev_ms!r} ms "
+          f"[{show_parts(parts)}]; bound {b_ms:.6f} ms ({b_by}); {smem} B "
+          f"of dynamic shared memory a CTA; on {smi}; library: none")
+    del q, k, v, a, num, den, p_num, p_den
+
+    rec["flash_attention"] = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for arch, (B, S, Hq, Hkv, D) in ATTN_D128.items():
+        q = randn((B, S, Hq, D), g, bf, dev)
+        k = randn((B, S, Hkv, D), g, bf, dev)
+        v = randn((B, S, Hkv, D), g, bf, dev)
+        out = flash_attention(q, k, v, causal=True)
+        ref = attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = of_max(out, ref, f"flash_attention at {arch}'s shape")
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
+        plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=True),
+                           reps=5)
+        dev_ms, parts = profiled_device_ms(
+            lambda: flash_attention(q, k, v, causal=True))
+        b_ms, b_by = flash_bound_ms(q, k, True, 0, S)
+        lq, lk, lv = (t.transpose(1, 2) for t in (q, k, v))
+        gqa = dict(enable_gqa=True) if Hkv != Hq else {}
+        lib = sdpa(lq, lk, lv, is_causal=True, **gqa).transpose(1, 2)
+        lib_err = (lib.float() - out.float()).abs().max().item()
+        lib_ms = cuda_ms(lambda: sdpa(lq, lk, lv, is_causal=True, **gqa))
+        smem = flash_mod._lib().flash_attention_smem_bytes(
+            D, flash_mod._DTYPES[bf])
+        rec["flash_attention"][arch] = {
+            "shape": [B, S, Hq, Hkv, D], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "device_ms": dev_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+        print(f"flash_attention {arch}: q {tuple(q.shape)} k/v "
+              f"{tuple(k.shape)} bf16 causal: max |kernel - plain| {err!r} "
+              f"(within 2e-2 of max |plain|); per call (CUDA events, "
+              f"median): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+              f"F.scaled_dot_product_attention {lib_ms:.6f} ms (max |sdpa - "
+              f"kernel| {lib_err!r}); kernel device time (profiler) "
+              f"{dev_ms!r} ms [{show_parts(parts)}]; bound {b_ms:.6f} ms "
+              f"({b_by}); {smem} B of dynamic shared memory a CTA; on {smi}")
+        del q, k, v, out, ref, lq, lk, lv, lib
+    torch.cuda.empty_cache()
+    return rec
+
+
+def portfolio_phase() -> dict:
+    """Phase 10: the portfolio runner on the card against the JAX
+    reference's records (``tests/fixtures/torch_portfolio_golden.json``):
+    the headline grid inline, then the large-mesh grid under the default
+    search and ``beam_jax``, inline and on a spawn pool of
+    ``PORTFOLIO_PROCS`` workers sharing the card.  Returns per grid and
+    worker count the wall time, the kernel launches (summed over the jobs'
+    own counts) and each worker's peak device memory."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import make_torch_portfolio_golden as pg
+    import repro_torch.core.portfolio as TP
+    import repro_torch.core.scenarios as TS
+    from repro_torch.core.scheduler import clear_caches
+    from repro_torch.kernels.scar_eval import scar_eval
+    from repro_torch.kernels.scar_search import scar_search
+    with open(PORTFOLIO_GOLDEN) as fh:
+        fix = json.load(fh)
+
+    def counts():
+        return {"scar_eval": scar_eval.launches,
+                "scar_search": scar_search.launches}
+
+    def zero():
+        clear_caches()
+        scar_eval.launches = 0
+        scar_search.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+
+    zero()
+    t0 = time.perf_counter()
+    head = pg.headline_record(TP, TS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = sorted(k for k in fix["headline"]["points"]
+                 if head["points"].get(k) != fix["headline"]["points"][k])
+    check(not bad and head == fix["headline"],
+          f"headline grid: {len(bad)} points differ from the reference's "
+          f"records ({bad[:5]})")
+    print(f"headline grid (10 scenarios x {len(pg.CONFIG_SET)} packages, "
+          f"3x3, auto, inline on the card) == the reference's records; "
+          f"EDP reductions {head['reductions']}; wall {wall:.3f} s; "
+          f"launches {counts()}")
+    out = {"headline": {"wall_s": wall, "launches": counts()}}
+    for algo, jobs in pg.large_jobs(TP).items():
+        runs = {}
+        for procs in (1, PORTFOLIO_PROCS):
+            zero()
+            t0 = time.perf_counter()
+            res = TP.run_portfolio(jobs, processes=procs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rec = pg.results_record(res)
+            want = fix["large_mesh"][algo]
+            bad = sorted(k for k in want if rec.get(k) != want[k])
+            check(not bad and sorted(rec) == sorted(want),
+                  f"large-mesh grid {algo}, {procs} process(es): {bad} "
+                  "differ from the reference's records")
+            summed = {k: sum(r.launches[k] for r in res) for k in counts()}
+            peaks: dict[int, int] = {}
+            for r in res:
+                peaks[r.pid] = max(peaks.get(r.pid, 0), r.peak_bytes)
+            runs[procs] = {"wall_s": wall, "launches": summed,
+                           "parent_launches": counts(),
+                           "worker_peak_gib": sorted(
+                               round(b / 2 ** 30, 4)
+                               for b in peaks.values())}
+            print(f"large-mesh grid {algo} ({len(jobs)} jobs: "
+                  f"{'/'.join(pg.LARGE_SCENARIOS)} x "
+                  f"{'/'.join(pg.LARGE_PATTERNS)} x "
+                  f"{'/'.join(pg.LARGE_MESHES)}, path_cap 512, seg_cap "
+                  f"128), {procs} process(es): == the reference's records; "
+                  f"wall {wall:.3f} s; launches summed over the jobs "
+                  f"{summed}, counted in this process {counts()}; peak "
+                  f"device memory by worker {runs[procs]['worker_peak_gib']}"
+                  " GiB")
+        one, pool = runs[1], runs[PORTFOLIO_PROCS]
+        check(one["launches"] == one["parent_launches"]
+              and one["launches"]["scar_eval"] > 0,
+              f"{algo} inline: jobs' launches {one['launches']}, process "
+              f"{one['parent_launches']} (want equal, scar_eval > 0)")
+        check(pool["launches"] == one["launches"]
+              and not any(pool["parent_launches"].values()),
+              f"{algo}: the pool's workers launched {pool['launches']}, "
+              f"inline {one['launches']}; the parent "
+              f"{pool['parent_launches']} (want none)")
+        out[algo] = runs
+    return out
+
+
+def greedy_tokens(cfg, dims, params, batch, gen):
+    """Greedy prefill + ``gen - 1`` decode steps: tokens [B, gen]."""
+    from repro_torch.models import decode_step, prefill
+    S = batch["tokens"].shape[1]
+    logits, cache = prefill(cfg, dims, params, batch, S + gen)
+    toks = [logits.argmax(-1)[:, None]]
+    for i in range(gen - 1):
+        logits, cache = decode_step(cfg, dims, params, toks[-1], cache,
+                                    S + i)
+        toks.append(logits.argmax(-1)[:, None])
+    return torch.cat(toks, 1)
+
+
+def realized_prefill(pod, pl, reqs, dev) -> dict:
+    """One placement of ``pod`` realized alone at full width on the card:
+    its launches per prefill, the prefill's time and peak memory, each
+    kernel call of one prefill against its plain version, the last-token
+    logits against the same prefill with the plain versions (each path
+    routing its own tokens) and, as a printed witness, the plain path
+    with one-ulp moves at the share of outputs the kernels leave unequal.
+    For ``F32_POD_ARCHS`` the same pair of prefills again in float32
+    (``realize(dtype="float32")``).  Each model is released on return."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.multimodel import realize
+    one = dataclasses.replace(pod, placements=[pl])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (d, prefill_fn), = realize(one, reqs, device=dev,
+                               window=pl.window).values()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(d == dev, f"{pl.arch} realized on {d}, want {dev}")
+    prefill_fn()                              # warm-up
+    flash_attention.launches = 0
+    ssd_scan.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last_k, cache = prefill_fn()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches,
+                "ssd_scan": ssd_scan.launches}
+    check(launches == POD_LAUNCHES[pl.arch],
+          f"{pl.arch} prefill launched {launches}, want "
+          f"{POD_LAUNCHES[pl.arch]}")
+    del cache
+    calls = []
+    with recording_calls(calls):
+        prefill_fn()
+    by_call = check_calls(calls)
+    del calls
+    with plain_kernels():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last_p, cache = prefill_fn()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    del cache
+    share = max(1 - v["least_equal_share"] for v in by_call.values())
+    with plain_kernels(perturb=share):
+        last_f, cache = prefill_fn()
+    del cache, prefill_fn
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(bool(torch.isfinite(last_k.float()).all()),
+          f"{pl.arch}: prefill logits not finite")
+    out = {"window": pl.window, "chips": list(pl.chips),
+           "template": pl.template, "build_s": build_s,
+           "prefill_s": prefill_s, "plain_prefill_s": plain_s,
+           "peak_gib": peak, "launches": launches, "calls": by_call,
+           "logits": logit_agreement(last_k.float(), last_p.float()),
+           "perturbed_share": share,
+           "witness": logit_agreement(last_f.float(), last_p.float())}
+    for r in (out["logits"], out["witness"]):
+        del r["plain_top2_gap"]
+    if pl.arch in F32_POD_ARCHS:
+        torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        (_, prefill_fn), = realize(one, reqs, device=dev, window=pl.window,
+                                   dtype="float32").values()
+        last_k, cache = prefill_fn()
+        del cache
+        with plain_kernels():
+            last_p, cache = prefill_fn()
+        del cache, prefill_fn
+        f32 = logit_agreement(last_k, last_p)
+        del f32["plain_top2_gap"]
+        out["float32_logits"] = f32
+        out["float32_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(bool(torch.isfinite(last_k).all())
+              and f32["max_abs"] <= 1e-3 * f32["max_logit"]
+              and f32["top1"] == 1.0,
+              f"{pl.arch}: float32 full-width prefill, kernels vs plain "
+              f"versions: {f32}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def multimodel_phase(dev, smi) -> dict:
+    """Phase 11: the pod orchestrator on the card.  The 16x16 plan of the
+    reference test's requests against the reference's record, then the
+    three models planned with requests of batch 4, sequence 1024 and
+    realized at full width one at a time (``realized_prefill``)."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import make_torch_portfolio_golden as pg
+    from repro_torch.core.scheduler import SearchConfig, clear_caches
+    from repro_torch.multimodel import ServeRequest, plan
+    with open(PORTFOLIO_GOLDEN) as fh:
+        fix = json.load(fh)["pod"]
+    clear_caches()
+    reqs = [ServeRequest(*r) for r in fix["requests"]]
+    t0 = time.perf_counter()
+    pod = plan(reqs, rows=fix["rows"], cols=fix["cols"],
+               pattern=fix["pattern"], cfg=SearchConfig(metric=fix["metric"]),
+               device=dev)
+    wall = time.perf_counter() - t0
+    rec = pg.pod_record(pod)
+    check(rec == {k: fix[k] for k in rec},
+          f"16x16 pod plan: {rec} differs from the reference's record")
+    print(f"16x16 het_sides pod plan of {fix['requests']}: == the "
+          f"reference's record ({len(pod.placements)} placements, EDP "
+          f"{rec['edp']}); wall {wall:.3f} s")
+    reqs = [ServeRequest(a, batch=4, seq=1024) for a in POD_ARCHS]
+    pod = plan(reqs, rows=16, cols=16, pattern="het_sides",
+               cfg=SearchConfig(metric="edp"), device=dev)
+    print("plan of " + ", ".join(POD_ARCHS) + " at batch 4, sequence 1024: "
+          + "; ".join(f"{p.arch} window {p.window} chips {p.chips} "
+                      f"{p.template}" for p in pod.placements))
+    out = {}
+    for arch in POD_ARCHS:
+        pl = next(p for p in pod.placements if p.arch == arch)
+        out[arch] = realized_prefill(pod, pl, reqs, dev)
+        torch.cuda.empty_cache()
+        r = out[arch]
+        f32 = r.get("float32_logits",
+                    "not run (no float32 kernel takes these shapes)")
+        print(f"{arch} realized at full width (window {r['window']}, chips "
+              f"{r['chips']}, {r['template']}), tp = 1 on the card: build "
+              f"{r['build_s']:.3f} s, prefill [4, 1024] {r['prefill_s']:.4f}"
+              f" s (plain versions {r['plain_prefill_s']:.4f} s), peak "
+              f"{r['peak_gib']:.3f} GiB, launches {r['launches']}; kernel "
+              f"calls vs plain (2e-2 elementwise) {r['calls']}; bf16 "
+              f"last-token logits vs plain {r['logits']}; witness, the "
+              f"plain path with {r['perturbed_share']:.3g} of each plain "
+              f"output moved one ulp, vs plain {r['witness']}; float32 "
+              f"logits vs plain (1e-3 of the largest) {f32}; on {smi}")
+    return out
+
+
+def serve_phase(dev, smi) -> dict:
+    """Phase 12: ``serve.main`` on qwen2-moe-a2.7b and xlstm-350m at full
+    width (batch 4, prompt 1024, 32 greedy tokens, bf16): prefill time,
+    decode tokens/s, peak memory, launches (all in the prefill), one
+    profiled prefill's device busy share, and, printed, the greedy tokens
+    beside a run with the kernels' plain versions on the same weights and
+    prompt (phase 11 holds these models' logits)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import serve
+    from repro_torch.models import ModelDims, get_arch, init_params, prefill
+    from repro_torch.models.testing import synth_batch
+    out = {}
+    for arch, want in NEW_SERVE.items():
+        torch.cuda.empty_cache()
+        flash_attention.launches = 0
+        ssd_scan.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        res = serve.main(["--arch", arch, "--batch", "4", "--prompt-len",
+                          "1024", "--gen", "32"])
+        torch.cuda.synchronize()
+        launches = {"flash_attention": flash_attention.launches,
+                    "ssd_scan": ssd_scan.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(launches == want, f"serve {arch} launched {launches}, want "
+              f"{want}: one per layer of the kernel's kind in the prefill, "
+              "none in decode")
+        cfg = get_arch(arch)
+        tokens = res["tokens"]
+        check(tuple(tokens.shape) == (4, 32) and bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()),
+            f"serve {arch} returned tokens {tuple(tokens.shape)}")
+        dims = ModelDims.create(cfg)
+        with torch.inference_mode():
+            params = init_params(cfg, dims, generator=torch.Generator(
+                device=dev).manual_seed(0))
+            batch = synth_batch(cfg, batch=4, seq=1024, seed=0, device=dev)
+            batch.pop("labels")
+            wall, busy, top, n = device_time_of(
+                lambda: prefill(cfg, dims, params, batch, 1056),
+                host_ops=False)
+            with plain_kernels():
+                plain = greedy_tokens(cfg, dims, params, batch, 32)
+        del params
+        torch.cuda.empty_cache()
+        parted = [None if bool((tokens[r] == plain[r]).all())
+                  else int((tokens[r] != plain[r]).nonzero()[0, 0])
+                  for r in range(tokens.shape[0])]
+        dec_tok_s = 4 * 31 / res["decode_s"]
+        out[arch] = {"prefill_s": res["prefill_s"],
+                     "decode_s": res["decode_s"],
+                     "decode_tok_s": dec_tok_s, "peak_gib": peak,
+                     "launches_per_prefill": launches,
+                     "profiled_prefill_wall_s": wall,
+                     "device_busy_s": busy,
+                     "device_idle_share": 1 - busy / wall,
+                     "device_events": n,
+                     "first_step_parting_plain": parted}
+        print(f"serve {arch} (batch 4, prompt 1024, 32 tokens, bf16): "
+              f"prefill {res['prefill_s'] * 1e3:.3f} ms, decode "
+              f"{res['decode_s'] * 1e3:.3f} ms = {dec_tok_s:.1f} tokens/s, "
+              f"peak {peak:.3f} GiB, launches per prefill {launches} (none "
+              f"in decode); profiled prefill: wall {wall:.4f} s, device "
+              f"busy {busy:.6f} s (idle {100 * (1 - busy / wall):.2f}%) in "
+              f"{n} device events, top:"
+              + "; ".join(f" {k} x{c} {t:.6f} s" for k, c, t in top)
+              + f"; greedy tokens against the plain versions' run, per row "
+              f"the first step where they part (None: all 32 equal): "
+              f"{parted}; on {smi}")
+    return out
 
 
 def main() -> None:
@@ -1379,7 +1896,8 @@ def main() -> None:
     ssd_b_ms, ssd_b_by = ssd_bound_ms(sq, sk, sv, skw["chunk"])
     from repro_torch.kernels.ssd_scan import kernel as ssd_mod
     ssd_smem = ssd_mod._lib().ssd_scan_smem_bytes(
-        sq.shape[-1], sv.shape[-1], skw["chunk"], ssd_mod._DTYPES[sv.dtype])
+        sq.shape[-1], sv.shape[-1], skw["chunk"], ssd_mod._DTYPES[sv.dtype],
+        0)
     print(f"serve prefill's first Mamba-2 scan: q/k {tuple(sq.shape)} (head "
           f"stride {sq.stride(2)}), v {tuple(sv.shape)} {sv.dtype}, {skw}: "
           f"max |kernel - plain| = {s_real_err!r}, share of outputs equal to "
@@ -1408,6 +1926,10 @@ def main() -> None:
     del real, fq, fk, fv, f_out, f_ref, f_lib_ref, lq, lk, lv
     del sq, sk, sv, sa, s_out, s_ref
     torch.cuda.empty_cache()
+
+    phase("2e kernels at the new models' shapes: ssd_scan at xlstm-350m's "
+          "N = P = 256 with its normaliser, flash_attention at head_dim 128")
+    new_shapes = new_shapes_phase(g, dev, smi)
 
     phase("3 paper package: ten scenarios, 6x6 het_cross, auto, cuda, "
           "beam_jax")
@@ -1787,7 +2309,21 @@ def main() -> None:
           "fleet")
     online = online_phase(dev)
 
+    phase("10 portfolio: the headline grid and the large-mesh grid, inline "
+          f"and on {PORTFOLIO_PROCS} spawn workers")
+    portfolio = portfolio_phase()
+
+    phase("11 multimodel: the 16x16 pod plan, then minitron-8b, "
+          "qwen2-moe-a2.7b and xlstm-350m realized at full width")
+    pod = multimodel_phase(dev, smi)
+
+    phase("12 serve: qwen2-moe-a2.7b and xlstm-350m at full width, batch 4, "
+          "prompt 1024, 32 tokens, bf16, greedy")
+    served = serve_phase(dev, smi)
+
     phase("8 summary")
+    print(json.dumps({"portfolio": portfolio, "multimodel": pod,
+                      "serve": served}))
     print(json.dumps({"kernels": [{
         "name": "scar_eval", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scar_eval.cu",
@@ -1800,7 +2336,11 @@ def main() -> None:
                                 for a in launches},
                              "online": online["online"]["scar_eval"],
                              "online_cuda": online["online_cuda"],
-                             "online_slo": online["online_slo"]["scar_eval"]},
+                             "online_slo": online["online_slo"]["scar_eval"],
+                             "portfolio": {
+                                 algo: portfolio[algo][1]["launches"][
+                                     "scar_eval"]
+                                 for algo in ("auto", "beam_jax")}},
         "congestion": cong,
     }, {
         "name": "scar_search", "route": "cuda",
@@ -1814,7 +2354,11 @@ def main() -> None:
                                 for a in launches},
                              "online": online["online"]["scar_search"],
                              "online_slo":
-                                 online["online_slo"]["scar_search"]},
+                                 online["online_slo"]["scar_search"],
+                             "portfolio": {
+                                 algo: portfolio[algo][1]["launches"][
+                                     "scar_search"]
+                                 for algo in ("auto", "beam_jax")}},
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1823,6 +2367,13 @@ def main() -> None:
         "max_abs_err": f_max_err, "ms": f_ms,
         "plain_ms": f_p_ms, "bound_ms": f_b_ms, "bound_by": f_b_by,
         "library_ms": f_lib_ms, "device_ms": f_dev_ms,
+        "launches_by_path": {
+            "serve_zamba2": serve_launches["flash_attention"],
+            **{f"realize_{a}": pod[a]["launches"]["flash_attention"]
+               for a in POD_ARCHS},
+            **{f"serve_{a}": served[a]["launches_per_prefill"][
+                "flash_attention"] for a in NEW_SERVE}},
+        "shapes": new_shapes["flash_attention"],
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1831,6 +2382,13 @@ def main() -> None:
         "max_abs_err": ssd_max_err, "ms": ssd_ms,
         "plain_ms": ssd_p_ms, "bound_ms": ssd_b_ms, "bound_by": ssd_b_by,
         "library_ms": None, "device_ms": ssd_dev_ms,
+        "launches_by_path": {
+            "serve_zamba2": serve_launches["ssd_scan"],
+            **{f"realize_{a}": pod[a]["launches"]["ssd_scan"]
+               for a in POD_ARCHS},
+            **{f"serve_{a}": served[a]["launches_per_prefill"]["ssd_scan"]
+               for a in NEW_SERVE}},
+        "shapes": new_shapes["ssd_scan"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

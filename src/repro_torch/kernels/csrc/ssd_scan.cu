@@ -78,8 +78,28 @@
 //    so chunk c - 1 of the same head took its ticket B H earlier and has
 //    started (the wait cannot deadlock), and when B H fills the card's
 //    slots it has long finished.
-//  * It takes N, P <= 64 and chunks <= 256 rows (every configuration of
-//    the repository); the wrapper raises beyond.
+//  * It takes N, P <= 64 and chunks <= 256 rows (zamba2's widths).
+//
+// bf16, wide heads (xLSTM's mLSTM: N = P = 256, chunk 256, and its
+// normaliser): ssd_wide_tc.  A chunk's float32 state at 256 x 256 is 256 KB,
+// more than a CTA's shared memory, so one CTA of 8 warps takes (batch, head,
+// chunk, 64 state columns): B * H * L / chunk * P / 64 = 256 CTAs at the
+// serve shape, one an SM (175 KB of shared memory).  Each CTA holds the
+// chunk's k (all N columns) and its 64 columns of v in shared memory, forms
+// its [N, 64] tile of the chunk state (warp w: state rows 16 w and
+// 16 (w + 8)), hands that tile on as ssd_chunk_tc hands the whole state
+// (one ready flag per tile), computes S = q k^T over all N (16-column
+// k-steps, q's fragments in registers) for its output columns, and after
+// the intra term reuses k's shared memory for prev_c's tile in three bf16
+// terms.  The q k^T products are repeated by the P / 64 column tiles of a
+// chunk.  With a normaliser pointer (den, [B, L, H] in v's type) the
+// column-0 tile also computes what the reference's second call,
+// gla_chunked(q, k, ones), computes: den_i = sum_{j <= i} G_ij +
+// exp(cum_i) (q_i . nprev_c), the row sums of the float32 gated scores it
+// already forms and q against the normaliser state nprev (the column sums
+// of the decayed k, handed on in float32 beside the state tile), so the
+// normaliser takes no second launch.  It takes N <= 256 (a multiple of 8),
+// any P that is a multiple of 8, and chunks <= 256 rows.
 //
 // float32 (the parity path): the CUDA-core kernel ssd_f32_kernel, one
 // block of 256 threads per (batch, head) that walks the chunks in order
@@ -101,6 +121,8 @@ constexpr int kF32Threads = 256;  // float32: one block per (batch, head)
 constexpr int kTcThreads = 256;   // bf16: 8 warps per chunk
 constexpr int kTcMaxNP = 64;      // bf16: N and P
 constexpr int kTcMaxChunk = 256;  // bf16: rows of a chunk
+constexpr int kWMaxN = 256;       // bf16 wide: N
+constexpr int kWPT = 64;          // bf16 wide: state columns a CTA
 
 struct Args {
   const void* q;
@@ -111,7 +133,10 @@ struct Args {
   float* ws;                      // bf16: [B, nc - 1, H, N, P], the
                                   // states entering chunks 1 .. nc - 1
   int* sync;                      // bf16: ticket counter, then one flag
-                                  // per ws slot, all zero
+                                  // per ws slot (wide: per slot and
+                                  // column tile), all zero
+  void* den;                      // wide only: the normaliser [B, L, H],
+                                  // or null
   int B, L, H, N, P, chunk, nc;
   long long qs[3], ks[3], vs[3], as[3];   // batch, sequence, head strides
 };
@@ -779,6 +804,384 @@ __global__ void __launch_bounds__(kTcThreads, 2) ssd_chunk_tc(Args g) {
   }
 }
 
+// ------------------------ bf16, wide heads: tiles of P ----------------------
+
+// q's A fragments of one 16-row slice over up to kWMaxN columns, from
+// global memory.
+__device__ __forceinline__ void q_frags_wide(uint32_t (*qa)[4], const bf16* Q,
+                                             long long stride, int row, int c,
+                                             int N) {
+  const int g4 = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int ks = 0; ks < kWMaxN / 16; ++ks) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row + g4 + 8 * (e % 2);
+      const int col = 16 * ks + 2 * t4 + 8 * (e / 2);
+      qa[ks][e] = r < c && col < N
+                      ? *reinterpret_cast<const uint32_t*>(Q + r * stride +
+                                                           col)
+                      : 0u;
+    }
+  }
+}
+
+// Sum over the four lanes of a quad (the lanes holding one row's columns).
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x;
+}
+
+// One CTA of 8 warps per (batch, head, chunk, 64 state columns).  Tickets
+// as in ssd_chunk_tc, chunk slowest: ticket t is chunk t / (B H T) of batch,
+// head and column tile (t % (B H T)) / (H T), (t / T) % H, t % T, so the
+// CTA of the same tile in the chunk before has always started.  ws slot
+// (b, c, h) holds N x P floats of state and, with a normaliser, N more;
+// each column tile has its own ready flag.
+//  0. k (N columns) and the tile's v columns into shared memory (cp.async,
+//     a group per 64 rows), cum, w_j = exp(total - cum_j).
+//  1. the tile of state_c, warp w: state rows 16 w and 16 (w + 8), all 64
+//     columns; tile 0 with a normaliser: nstate_c[n] = sum_j k_jn w_j, in
+//     float32 by thread n.
+//  2. the hand-over of the tile (and of nprev, tile 0) as in ssd_chunk_tc.
+//  3. intra for slices w and 15 - w: S over N in 16-column k-steps, G, the
+//     row sums of G (tile 0 with a normaliser), acc += sum_t G_t v.
+//  4. prev_c's tile into the shared memory k held, in kTerms bf16 terms;
+//     inter: acc += exp(cum_i) (q_i . prev_c); den_i += exp(cum_i) (q_i .
+//     nprev_c); the bf16 outputs.
+__global__ void __launch_bounds__(kTcThreads, 1) ssd_wide_tc(Args g) {
+  constexpr int ldk = kWMaxN + 8, ldv = kWPT + 8;   // padded by 16 B
+  extern __shared__ __align__(16) uint8_t smem_w[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_w);     // kTcMaxChunk x ldk
+  bf16* sV = sK + kTcMaxChunk * ldk;              // kTcMaxChunk x ldv
+  float* sCum = reinterpret_cast<float*>(sV + kTcMaxChunk * ldv);
+  float* sW = sCum + kTcMaxChunk;                 // exp(total - cum)
+  float* sTot = sW + kTcMaxChunk;                 // 16 + 16 scan slots
+  float* sCarry = sTot + 16;
+  float* sNorm = sCarry + 16;                     // nprev_c, kWMaxN
+  int* sTicket = reinterpret_cast<int*>(sNorm + kWMaxN);
+  bf16* sP = sK;             // step 4: kTerms x kWMaxN x ldv, over k
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g4 = lane / 4, t4 = lane % 4;
+  if (tid == 0) *sTicket = atomicAdd(g.sync, 1);
+  __syncthreads();
+  const int ticket = *sTicket;
+  const int N = g.N, P = g.P, c = g.chunk;
+  const int n_pt = (P + kWPT - 1) / kWPT;
+  const int per_chunk = g.B * g.H * n_pt;
+  const int ci = ticket / per_chunk, rest = ticket % per_chunk;
+  const int b = rest / (g.H * n_pt), h = (rest / n_pt) % g.H,
+            pt = rest % n_pt;
+  const int p0 = pt * kWPT, PT = min(kWPT, P - p0);
+  const int NP = round16(N), PPT = round16(PT);
+  const int c16 = round16(c);
+  const int n_groups = (c16 + kT - 1) / kT;
+  const int c0 = ci * c;
+  const bf16* Q = static_cast<const bf16*>(g.q) + b * g.qs[0] + h * g.qs[2] +
+                  c0 * g.qs[1];
+  const bf16* K = static_cast<const bf16*>(g.k) + b * g.ks[0] + h * g.ks[2] +
+                  c0 * g.ks[1];
+  const bf16* V = static_cast<const bf16*>(g.v) + b * g.vs[0] + h * g.vs[2] +
+                  c0 * g.vs[1] + p0;
+  const float* A = g.a + b * g.as[0] + h * g.as[2] + c0 * g.as[1];
+  bf16* O = static_cast<bf16*>(g.o) + ((long long)b * g.L * g.H + h) * P +
+            (long long)c0 * g.H * P + p0;
+  const long long o_row = (long long)g.H * P;
+  const bool norm = g.den != nullptr, own_norm = norm && pt == 0;
+  const long long slot_floats = (long long)N * P + (norm ? N : 0);
+  const bool has_prev = ci > 0, has_next = ci + 1 < g.nc;
+  const long long slot_prev = has_prev ? ws_slot(g, b, ci - 1, h) : 0;
+  const long long slot_next = has_next ? ws_slot(g, b, ci, h) : 0;
+
+  // 0. loads (a group per 64 rows), prefix sums, decays
+  for (int grp = 0; grp < n_groups; ++grp) {
+    const int r0 = grp * kT, rows = min(kT, c16 - r0);
+    load_rows(sK + r0 * ldk, ldk, K + r0 * g.ks[1], g.ks[1], rows, c - r0, N,
+              NP);
+    load_rows(sV + r0 * ldv, ldv, V + r0 * g.vs[1], g.vs[1], rows, c - r0,
+              PT, PPT);
+    cp_async_commit();
+  }
+  blocked_cumsum(A, g.as[1], c, sCum, sTot, sCarry);
+  const float total = sCum[c - 1];
+  for (int j = c + tid; j < c16; j += kTcThreads) sCum[j] = 0.f;
+  for (int j = tid; j < c16; j += kTcThreads)
+    sW[j] = j < c ? expf(total - sCum[j]) : 0.f;
+
+  // 1. the tile of the chunk's own state (not needed for the last chunk)
+  float st[2][kWPT / 8][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int nt = 0; nt < kWPT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[m][nt][e] = 0.f;
+  for (int grp = 0; grp < n_groups; ++grp) {
+    switch (n_groups - 1 - grp) {
+      case 0: cp_async_wait<0>(); break;
+      case 1: cp_async_wait<1>(); break;
+      case 2: cp_async_wait<2>(); break;
+      default: cp_async_wait<3>(); break;
+    }
+    __syncthreads();
+    if (!has_next) continue;
+    for (int j16 = grp * kT; j16 < min(c16, (grp + 1) * kT); j16 += 16) {
+      uint32_t vb[kWPT / 16][4];
+#pragma unroll
+      for (int np2 = 0; np2 < kWPT / 16; ++np2)
+        if (16 * np2 < PPT)
+          ldsm4_t(vb[np2], sV + (j16 + lane % 16) * ldv + 16 * np2 +
+                               (lane / 16) * 8);
+      const float2 w0 = *reinterpret_cast<const float2*>(sW + j16 + 2 * t4);
+      const float2 w8 =
+          *reinterpret_cast<const float2*>(sW + j16 + 8 + 2 * t4);
+      const int mi = lane / 8;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int mt = warp + 8 * m;
+        if (16 * mt >= NP) continue;
+        uint32_t kr[4], ak[kTerms][4];
+        ldsm4_t(kr, sK + (j16 + (mi / 2) * 8 + lane % 8) * ldk + 16 * mt +
+                        (mi % 2) * 8);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = unpack(kr[e]);
+          const float2 w = e < 2 ? w0 : w8;
+          uint32_t t[kTerms];
+          split(x.x * w.x, x.y * w.y, t);
+#pragma unroll
+          for (int i = 0; i < kTerms; ++i) ak[i][e] = t[i];
+        }
+#pragma unroll
+        for (int np2 = 0; np2 < kWPT / 16; ++np2) {
+          if (16 * np2 >= PPT) continue;
+#pragma unroll
+          for (int i = 0; i < kTerms; ++i) {
+            mma(st[m][2 * np2], ak[i], vb[np2][0], vb[np2][1]);
+            mma(st[m][2 * np2 + 1], ak[i], vb[np2][2], vb[np2][3]);
+          }
+        }
+      }
+    }
+  }
+  float nst = 0.f;                       // nstate_c[tid], tile 0
+  if (own_norm && has_next && tid < N)
+    for (int j = 0; j < c; ++j)
+      nst = fmaf(__bfloat162float(sK[j * ldk + tid]), sW[j], nst);
+
+  // 2. the hand-over of the tile (and of the normaliser state)
+  if (has_prev) {
+    if (tid == 0) {
+      const int* flag = g.sync + 1 + slot_prev * n_pt + pt;
+      for (int spins = 0; ld_acquire(flag) == 0;)
+        if (++spins > (1 << 22)) __trap();
+    }
+    __syncthreads();
+  }
+  if (own_norm && tid < N)
+    sNorm[tid] = has_prev ? __ldcg(g.ws + slot_prev * slot_floats +
+                                   (long long)N * P + tid)
+                          : 0.f;
+  if (has_next) {
+    const float decay = expf(total);
+    const float* S0 = g.ws + slot_prev * slot_floats;
+    float* S1 = g.ws + slot_next * slot_floats;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int r = 16 * (warp + 8 * m) + g4;
+#pragma unroll
+      for (int nt = 0; nt < kWPT / 8; ++nt) {
+        const int col = p0 + 8 * nt + 2 * t4;
+        if (8 * nt + 2 * t4 >= PT) continue;     // PT is a multiple of 8
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int rr = r + 8 * half;
+          if (rr >= N) continue;
+          float2 x = make_float2(st[m][nt][2 * half], st[m][nt][2 * half + 1]);
+          if (has_prev) {
+            const float2 pv = __ldcg(
+                reinterpret_cast<const float2*>(S0 + rr * P + col));
+            x.x = fmaf(pv.x, decay, x.x);
+            x.y = fmaf(pv.y, decay, x.y);
+          }
+          *reinterpret_cast<float2*>(S1 + rr * P + col) = x;
+        }
+      }
+    }
+    if (own_norm && tid < N)
+      S1[(long long)N * P + tid] =
+          has_prev ? fmaf(sNorm[tid], decay, nst) : nst;
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) st_release(g.sync + 1 + slot_next * n_pt + pt, 1);
+  }
+
+  // 3. intra, slices w and 15 - w
+  float acc[2][kWPT / 8][4];
+  float rs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};   // row sums of G (rows a, b)
+#pragma unroll
+  for (int sl = 0; sl < 2; ++sl)
+#pragma unroll
+    for (int nt = 0; nt < kWPT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[sl][nt][e] = 0.f;
+#pragma unroll
+  for (int sl = 0; sl < 2; ++sl) {
+    const int i0 = 16 * (sl == 0 ? warp : 15 - warp);
+    if (i0 >= c) continue;
+    uint32_t qa[kWMaxN / 16][4];
+    q_frags_wide(qa, Q, g.qs[1], i0, c, N);
+    const int ia = i0 + g4, ib = ia + 8;
+    const float cum_a = sCum[ia], cum_b = sCum[ib];   // 0 past the chunk
+    for (int j16 = 0; j16 <= i0; j16 += 16) {
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int ks = 0; ks < kWMaxN / 16; ++ks) {
+        if (16 * ks >= NP) continue;
+        uint32_t kb[4];
+        ldsm4(kb, sK + (j16 + lane % 8 + (lane / 16) * 8) * ldk + 16 * ks +
+                      ((lane / 8) % 2) * 8);
+        mma(sc[0], qa[ks], kb[0], kb[1]);
+        mma(sc[1], qa[ks], kb[2], kb[3]);
+      }
+      const bool edge = j16 == i0 || i0 + 16 > c;
+      uint32_t gk[kTerms][4];
+#pragma unroll
+      for (int jt = 0; jt < 2; ++jt) {
+        const int j = j16 + 8 * jt + 2 * t4;
+        const float2 cj = *reinterpret_cast<const float2*>(sCum + j);
+        float x[4] = {sc[jt][0] * expf(cum_a - cj.x),
+                      sc[jt][1] * expf(cum_a - cj.y),
+                      sc[jt][2] * expf(cum_b - cj.x),
+                      sc[jt][3] * expf(cum_b - cj.y)};
+        if (edge) {
+          if (j > ia || ia >= c) x[0] = 0.f;
+          if (j + 1 > ia || ia >= c) x[1] = 0.f;
+          if (j > ib || ib >= c) x[2] = 0.f;
+          if (j + 1 > ib || ib >= c) x[3] = 0.f;
+        }
+        rs[sl][0] += x[0] + x[1];
+        rs[sl][1] += x[2] + x[3];
+        uint32_t ta[kTerms], tb[kTerms];
+        split(x[0], x[1], ta);
+        split(x[2], x[3], tb);
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i) {
+          gk[i][2 * jt] = ta[i];
+          gk[i][2 * jt + 1] = tb[i];
+        }
+      }
+#pragma unroll
+      for (int np2 = 0; np2 < kWPT / 16; ++np2) {
+        if (16 * np2 >= PPT) continue;
+        uint32_t vb[4];
+        ldsm4_t(vb, sV + (j16 + lane % 16) * ldv + 16 * np2 +
+                        (lane / 16) * 8);
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i) {
+          mma(acc[sl][2 * np2], gk[i], vb[0], vb[1]);
+          mma(acc[sl][2 * np2 + 1], gk[i], vb[2], vb[3]);
+        }
+      }
+    }
+  }
+
+  // 4. prev_c's tile as kTerms bf16 terms over k's shared memory
+  if (has_prev) {
+    __syncthreads();                           // every warp is done with k
+    const float* S0 = g.ws + slot_prev * slot_floats;
+    for (int e = tid; e < NP * (PPT / 2); e += kTcThreads) {
+      const int r = e / (PPT / 2), col = 2 * (e % (PPT / 2));
+      float2 x = make_float2(0.f, 0.f);
+      if (r < N && col < PT)
+        x = __ldcg(reinterpret_cast<const float2*>(S0 + r * P + p0 + col));
+      uint32_t t[kTerms];
+      split(x.x, x.y, t);
+#pragma unroll
+      for (int i = 0; i < kTerms; ++i)
+        *reinterpret_cast<uint32_t*>(sP + (i * kWMaxN + r) * ldv + col) = t[i];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int sl = 0; sl < 2; ++sl) {
+    const int i0 = 16 * (sl == 0 ? warp : 15 - warp);
+    if (i0 >= c) continue;
+    const int ia = i0 + g4, ib = ia + 8;
+    float dq[2] = {0.f, 0.f};                  // q_i . nprev_c, partial
+    if (has_prev) {
+      uint32_t qa[kWMaxN / 16][4];
+      q_frags_wide(qa, Q, g.qs[1], i0, c, N);
+      const float ea = ia < c ? expf(sCum[ia]) : 0.f;
+      const float eb = ib < c ? expf(sCum[ib]) : 0.f;
+#pragma unroll
+      for (int np2 = 0; np2 < kWPT / 16; ++np2) {
+        if (16 * np2 >= PPT) continue;
+        float tmp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int ks = 0; ks < kWMaxN / 16; ++ks) {
+          if (16 * ks >= NP) continue;
+          const int off = (16 * ks + lane % 16) * ldv + 16 * np2 +
+                          (lane / 16) * 8;
+#pragma unroll
+          for (int t = 0; t < kTerms; ++t) {
+            uint32_t pb[4];
+            ldsm4_t(pb, sP + t * kWMaxN * ldv + off);
+            mma(tmp[0], qa[ks], pb[0], pb[1]);
+            mma(tmp[1], qa[ks], pb[2], pb[3]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          acc[sl][2 * np2 + e][0] += ea * tmp[e][0];
+          acc[sl][2 * np2 + e][1] += ea * tmp[e][1];
+          acc[sl][2 * np2 + e][2] += eb * tmp[e][2];
+          acc[sl][2 * np2 + e][3] += eb * tmp[e][3];
+        }
+      }
+      if (own_norm) {
+        // a lane's q pairs: row a in fragments 0 and 2, row b in 1 and 3
+#pragma unroll
+        for (int ks = 0; ks < kWMaxN / 16; ++ks) {
+          if (16 * ks >= NP) continue;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 16 * ks + 2 * t4 + 8 * (e / 2);
+            const float2 x = unpack(qa[ks][e]);
+            const float2 nv = col < N ? make_float2(sNorm[col],
+                                                    sNorm[col + 1])
+                                      : make_float2(0.f, 0.f);
+            dq[e % 2] = fmaf(x.x, nv.x, fmaf(x.y, nv.y, dq[e % 2]));
+          }
+        }
+        dq[0] *= ea;
+        dq[1] *= eb;
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kWPT / 8; ++nt) {
+      const int p = 8 * nt + 2 * t4;         // PT is a multiple of 8
+      if (p >= PT) continue;
+      if (ia < c)
+        *reinterpret_cast<__nv_bfloat162*>(O + ia * o_row + p) =
+            __floats2bfloat162_rn(acc[sl][nt][0], acc[sl][nt][1]);
+      if (ib < c)
+        *reinterpret_cast<__nv_bfloat162*>(O + ib * o_row + p) =
+            __floats2bfloat162_rn(acc[sl][nt][2], acc[sl][nt][3]);
+    }
+    if (own_norm) {
+      const float da = quad_sum(rs[sl][0] + dq[0]);
+      const float db = quad_sum(rs[sl][1] + dq[1]);
+      bf16* D = static_cast<bf16*>(g.den) +
+                ((long long)b * g.L + c0) * g.H + h;
+      if (t4 == 0 && ia < c) D[(long long)ia * g.H] = __float2bfloat16_rn(da);
+      if (t4 == 0 && ib < c) D[(long long)ib * g.H] = __float2bfloat16_rn(db);
+    }
+  }
+}
+
 // ------------------------------- launches --------------------------------
 
 size_t f32_bytes(int N, int P, int chunk) {
@@ -789,6 +1192,21 @@ size_t f32_bytes(int N, int P, int chunk) {
 constexpr size_t kChunkTcBytes =
     sizeof(bf16) * (2 * kTcMaxChunk + kTerms * kTcMaxNP) * (kTcMaxNP + 8) +
     sizeof(float) * (3 * kTcMaxChunk + 32) + 16;
+constexpr size_t kWideBytes =
+    sizeof(bf16) * kTcMaxChunk * ((kWMaxN + 8) + (kWPT + 8)) +
+    sizeof(float) * (2 * kTcMaxChunk + 32 + kWMaxN) + 16;
+static_assert(kTerms * kWMaxN * (kWPT + 8) <= kTcMaxChunk * (kWMaxN + 8),
+              "prev's terms must fit in k's shared memory");
+
+// The kernel that takes these inputs: 0 the float32 kernel, 1 the bf16
+// kernel (N, P <= 64), 2 the bf16 wide kernel (N <= 256, also the
+// normaliser), -1 none.
+int route(int N, int P, int chunk, int dtype, int norm) {
+  if (dtype == 0)
+    return !norm && N <= kMaxNP && P <= kMaxNP && chunk <= kMaxChunk ? 0 : -1;
+  if (chunk > kTcMaxChunk || N > kWMaxN) return -1;
+  return !norm && N <= kTcMaxNP && P <= kTcMaxNP ? 1 : 2;
+}
 
 // Launches with the shared-memory carveout at its largest, so that as many
 // blocks share an SM as its shared memory allows.
@@ -808,35 +1226,46 @@ int launch_one(Kernel kernel, dim3 grid, int threads, size_t smem,
 
 }  // namespace
 
-// The largest N and P, and the largest chunk, the dtype's kernel takes.
-extern "C" int ssd_scan_max_np(int dtype) {
-  return dtype == 1 ? kTcMaxNP : kMaxNP;
+// The kernel these inputs take (see route; -1: none), the dynamic shared
+// memory a block of it takes, and, for the wide kernel, its column tiles.
+extern "C" int ssd_scan_route(int N, int P, int chunk, int dtype, int norm) {
+  return route(N, P, chunk, dtype, norm);
 }
 
-extern "C" int ssd_scan_max_chunk(int dtype) {
-  return dtype == 1 ? kTcMaxChunk : kMaxChunk;
+extern "C" long long ssd_scan_smem_bytes(int N, int P, int chunk, int dtype,
+                                         int norm) {
+  switch (route(N, P, chunk, dtype, norm)) {
+    case 0: return (long long)f32_bytes(N, P, chunk);
+    case 1: return (long long)kChunkTcBytes;
+    case 2: return (long long)kWideBytes;
+    default: return -1;
+  }
 }
 
-// The dynamic shared memory a block of the dtype's kernel takes.
-extern "C" long long ssd_scan_smem_bytes(int N, int P, int chunk, int dtype) {
-  return (long long)(dtype == 1 ? kChunkTcBytes : f32_bytes(N, P, chunk));
-}
+extern "C" int ssd_scan_col_tiles(int P) { return (P + kWPT - 1) / kWPT; }
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and o; a is float32).  Strides are
-// in elements, three per tensor (batch, sequence, head); for bfloat16 the
-// pointers must be 16 B aligned and N, P and the strides multiples of 8
-// (cp.async).  bfloat16 only: ws is a float32 workspace of
-// B * (L / chunk - 1) * H * N * P values and sync holds
-// 1 + B * (L / chunk - 1) * H zeroed int32; float32 takes neither (null).
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// dtype: 0 float32, 1 bfloat16 (q, k, v, o and den; a is float32).
+// Strides are in elements, three per tensor (batch, sequence, head); for
+// bfloat16 the pointers must be 16 B aligned and N, P and the strides
+// multiples of 8 (cp.async).  bfloat16 only: ws is a float32 workspace of
+// B * (L / chunk - 1) * H slots, each of N * P values (and N more with a
+// normaliser), and sync holds 1 + B * (L / chunk - 1) * H * T zeroed int32,
+// T the column tiles of the wide kernel (1 for the other); den (a new
+// contiguous [B, L, H]) asks the wide kernel for the normaliser.  float32
+// takes neither ws nor sync (null) and no normaliser.  Launches on `stream`
+// and returns cudaGetLastError() (0 on success; cudaErrorInvalidValue for
+// inputs no kernel takes).
 extern "C" int ssd_scan_launch(const void* q, const void* k, const void* v,
-                               const float* a, void* o, float* ws, int* sync,
-                               int dtype, int B, int L, int H, int N, int P,
-                               int chunk, const long long* q_strides,
+                               const float* a, void* o, void* den, float* ws,
+                               int* sync, int dtype, int B, int L, int H,
+                               int N, int P, int chunk,
+                               const long long* q_strides,
                                const long long* k_strides,
                                const long long* v_strides,
                                const long long* a_strides, void* stream) {
   if (B == 0 || H == 0 || L == 0) return (int)cudaGetLastError();
+  const int path = route(N, P, chunk, dtype, den != nullptr);
+  if (path < 0) return (int)cudaErrorInvalidValue;
   Args g;
   g.q = q;
   g.k = k;
@@ -845,6 +1274,7 @@ extern "C" int ssd_scan_launch(const void* q, const void* k, const void* v,
   g.o = o;
   g.ws = ws;
   g.sync = sync;
+  g.den = den;
   g.B = B;
   g.L = L;
   g.H = H;
@@ -859,7 +1289,10 @@ extern "C" int ssd_scan_launch(const void* q, const void* k, const void* v,
     g.as[i] = a_strides[i];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
+  if (path == 2)
+    return launch_one(ssd_wide_tc, dim3(B * H * g.nc * ssd_scan_col_tiles(P)),
+                      kTcThreads, kWideBytes, g, s);
+  if (path == 1)
     return launch_one(ssd_chunk_tc, dim3(B * H * g.nc), kTcThreads,
                       kChunkTcBytes, g, s);
   return launch_one(ssd_f32_kernel, dim3(B * H), kF32Threads,

@@ -21,17 +21,24 @@ splitting every float32-held operand into three bf16 terms.
 
 ``ssd_scan`` launches the kernel for CUDA tensors (float32: one block per
 (batch, head) that walks the chunks in order; bf16: one block per (batch,
-head, chunk), each chunk handing its state on to the next; one count per
-call) and takes the plain version only for tensors on the CPU; a CUDA
-tensor never falls back.  The kernels read any batch, sequence and head
-strides (last dimension contiguous), so Mamba-2's q and k, broadcast over
-heads (head stride 0), go in without a copy.  The bf16 kernel takes N and
-P up to 64 and chunks up to 256 rows (every configuration of the
-repository), and its ``cp.async`` loads need 16-byte aligned pointers and
-N, P and strides that are multiples of 8 elements; the wrapper raises
-otherwise.  For bf16 the wrapper allocates the float32 workspace of the
-states entering chunks ``1 .. L / chunk - 1``, ``[B, L / chunk - 1, H, N,
-P]``, and the zeroed int32 ticket counter and ready flags.
+head, chunk), each chunk handing its state on to the next, or, for heads
+wider than 64 (xLSTM's N = P = 256), one block per (batch, head, chunk, 64
+state columns); one count per launch) and takes the plain version only for
+tensors on the CPU; a CUDA tensor never falls back.  The kernels read any
+batch, sequence and head strides (last dimension contiguous), so Mamba-2's
+q and k, broadcast over heads (head stride 0), go in without a copy.  The
+bf16 kernels take N up to 256 and chunks up to 256 rows, and their
+``cp.async`` loads need 16-byte aligned pointers and N, P and strides that
+are multiples of 8 elements; the float32 kernel takes N and P up to 128.
+The wrapper raises otherwise.  For bf16 the wrapper allocates the float32
+workspace of the states entering chunks ``1 .. L / chunk - 1`` and the
+zeroed int32 ticket counter and ready flags.
+
+``norm=True`` also returns the normaliser the reference's mLSTM takes from
+a second call with ``v = ones[..., :1]`` (``[B, L, H]``, v's type): the
+bf16 wide kernel computes it in the same launch from the gated scores and
+a normaliser state handed on beside the state; the float32 kernel and the
+plain version make the second call.
 """
 from __future__ import annotations
 
@@ -44,8 +51,9 @@ from ..scar_eval.kernel import blocked_cumsum
 
 __all__ = ["ssd_scan", "ssd_scan_plain"]
 
-_SMEM_LIMIT = 232448           # dynamic shared memory a block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_LIMITS = {0: "float32 takes N, P <= 128 and chunks <= 4096",
+           1: "bfloat16 takes N <= 256 and chunks <= 256"}
 
 
 def _as_4d(t: torch.Tensor, three: bool) -> torch.Tensor:
@@ -55,9 +63,15 @@ def _as_4d(t: torch.Tensor, three: bool) -> torch.Tensor:
 
 
 def ssd_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   a: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
+                   a: torch.Tensor, *, chunk: int = 128, norm: bool = False):
     """Plain torch version of the kernel: the same chunk loop and carried
-    state, in float32, in either layout."""
+    state, in float32, in either layout.  ``norm=True`` returns ``(o,
+    den)``, den the scan of ``v = ones[..., :1]`` without its last axis."""
+    if norm:
+        ones = torch.ones(v.shape[:-1] + (1,), dtype=v.dtype,
+                          device=v.device)
+        return (ssd_scan_plain(q, k, v, a, chunk=chunk),
+                ssd_scan_plain(q, k, ones, a, chunk=chunk)[..., 0])
     three = v.dim() == 3
     q4, k4, v4, a3 = (_as_4d(t, three) for t in (q, k, v, a))
     L = q4.shape[1]
@@ -112,19 +126,24 @@ def _check(q, k, v, a, chunk: int) -> None:
 
 
 def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             a: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
-    """SSD scan output (v's layout and type): the CUDA kernel on CUDA
-    tensors.
+             a: torch.Tensor, *, chunk: int = 128, norm: bool = False):
+    """SSD scan output (v's layout and type), and with ``norm=True`` the
+    normaliser too: the CUDA kernel on CUDA tensors.
 
     Tensors on the CPU take ``ssd_scan_plain``.  ``ssd_scan.launches``
-    counts calls that launched the kernel (one per call).
+    counts the kernel's launches (one per call; two for a float32 call
+    with ``norm``, which scans ``ones`` in a second launch).
     """
     _check(q, k, v, a, chunk)
     dev = v.device
     if dev.type == "cpu":
-        return ssd_scan_plain(q, k, v, a, chunk=chunk)
+        return ssd_scan_plain(q, k, v, a, chunk=chunk, norm=norm)
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for {dev}")
+    if norm and v.dtype == torch.float32:
+        ones = torch.ones(v.shape[:-1] + (1,), dtype=v.dtype, device=dev)
+        return (ssd_scan(q, k, v, a, chunk=chunk),
+                ssd_scan(q, k, ones, a, chunk=chunk)[..., 0])
     three = v.dim() == 3
     q4, k4, v4, a3 = (_as_4d(t, three) for t in (q, k, v, a))
     B, L, H, N = q4.shape
@@ -132,17 +151,11 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     c = min(chunk, L)
     lib = _lib()
     dt = _DTYPES[v.dtype]
-    limit = lib.ssd_scan_max_np(dt)
-    if N > limit or P > limit:
-        raise ValueError(f"ssd_scan: N {N} or P {P} above {limit} "
-                         f"({v.dtype})")
-    if c > lib.ssd_scan_max_chunk(dt):
-        raise ValueError(f"ssd_scan: chunk {c} above "
-                         f"{lib.ssd_scan_max_chunk(dt)} ({v.dtype})")
-    smem = lib.ssd_scan_smem_bytes(N, P, c, dt)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"ssd_scan: N {N}, P {P}, chunk {c} need {smem} B "
-                         f"of shared memory (limit {_SMEM_LIMIT})")
+    route = lib.ssd_scan_route(N, P, c, dt, int(norm))
+    if route < 0:
+        raise ValueError(f"ssd_scan: no {v.dtype} kernel takes N {N}, P {P}, "
+                         f"chunk {c}{' with the normaliser' if norm else ''}"
+                         f" ({_LIMITS[dt]})")
     for name, t in (("q", q4), ("k", k4), ("v", v4)):
         if t.stride(3) != 1:
             raise ValueError(f"ssd_scan: {name}'s last dimension is not "
@@ -156,30 +169,38 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"multiples of 8 (shape {tuple(t.shape)}, "
                              f"strides {t.stride()})")
     out = torch.empty((B, L, H, P), dtype=v.dtype, device=dev)
+    den = torch.empty((B, L, H), dtype=v.dtype, device=dev) if norm else None
     ws = sync = None
     if v.dtype == torch.bfloat16:
-        # the states entering chunks 1 .. nc - 1; a ticket counter and one
-        # ready flag per state (zeroed)
+        # the states entering chunks 1 .. nc - 1 (with the normaliser state
+        # beside each); a ticket counter and one ready flag per state and
+        # column tile (zeroed)
         nc = L // c
-        ws = torch.empty((B, nc - 1, H, N, P), dtype=torch.float32,
-                         device=dev)
-        sync = torch.zeros((1 + B * (nc - 1) * H,), dtype=torch.int32,
-                           device=dev)
+        tiles = lib.ssd_scan_col_tiles(P) if route == 2 else 1
+        ws = torch.empty((B, nc - 1, H, N * P + (N if norm else 0)),
+                         dtype=torch.float32, device=dev)
+        sync = torch.zeros((1 + B * (nc - 1) * H * tiles,),
+                           dtype=torch.int32, device=dev)
 
     def strides(t):                  # batch, sequence, head (elements)
         return (ctypes.c_longlong * 3)(t.stride(0), t.stride(1), t.stride(2))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssd_scan_launch(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), a3.data_ptr(),
-            out.data_ptr(), None if ws is None else ws.data_ptr(),
-            None if sync is None else sync.data_ptr(), dt, B, L, H, N, P, c,
-            strides(q4), strides(k4), strides(v4), strides(a3), stream)
+            out.data_ptr(), ptr(den), ptr(ws), ptr(sync), dt, B, L, H, N, P,
+            c, strides(q4), strides(k4), strides(v4), strides(a3), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     ssd_scan.launches += 1
-    return out[:, :, 0] if three else out
+    if three:
+        out = out[:, :, 0]
+        den = None if den is None else den[:, :, 0]
+    return (out, den) if norm else out
 
 
 ssd_scan.launches = 0
@@ -195,13 +216,14 @@ def _lib() -> ctypes.CDLL:
         lib = load_library("ssd_scan")
         p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(
             ctypes.c_longlong)
-        lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                        i, i, i, s, s, s, s, p]
+        lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                        i, i, i, i, s, s, s, s, p]
         lib.ssd_scan_launch.restype = i
-        lib.ssd_scan_smem_bytes.argtypes = [i, i, i, i]
+        lib.ssd_scan_smem_bytes.argtypes = [i, i, i, i, i]
         lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
-        for name in ("ssd_scan_max_np", "ssd_scan_max_chunk"):
-            getattr(lib, name).argtypes = [i]
-            getattr(lib, name).restype = i
+        lib.ssd_scan_route.argtypes = [i, i, i, i, i]
+        lib.ssd_scan_route.restype = i
+        lib.ssd_scan_col_tiles.argtypes = [i]
+        lib.ssd_scan_col_tiles.restype = i
         _LIB = lib
     return _LIB

@@ -5,9 +5,11 @@
       --smoke --batch 4 --prompt-len 32 --gen 16 --device cpu
 
 The prefill fills the cache, then the decode step runs once per generated
-token.  On the card (the default device) every prefill runs the
-``flash_attention`` and ``ssd_scan`` kernels; decode steps are plain torch,
-as in the reference.  Weights are random, drawn on the device from a
+token.  Every architecture but the cross-attention VLM is served (the
+attention, MoE, Mamba-2 and xLSTM blocks).  On the card (the default
+device) a prefill's attention runs the ``flash_attention`` kernel and its
+Mamba-2 and mLSTM scans the ``ssd_scan`` kernel; decode steps are plain
+torch, as in the reference.  Weights are random, drawn on the device from a
 generator seeded with ``--seed``; greedy decoding takes ``argmax`` (the
 first index on a tie, as ``jnp.argmax`` does), sampling draws from a second
 generator seeded with ``--seed + 1``.  The reference's ``--mesh`` is not

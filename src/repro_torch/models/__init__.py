@@ -1,6 +1,7 @@
 """The LM stack of the port (counterpart of ``repro.models``): plain
 functions over dictionaries of tensors.  Ported: attention (``ATTN``,
-``SHARED_ATTN``) and Mamba-2 blocks, prefill and decode."""
+``SHARED_ATTN``), MoE, Mamba-2 and xLSTM (``MLSTM``, ``SLSTM``) blocks,
+prefill and decode; cross-attention is not."""
 from .config import (ArchConfig, BlockKind, MLPKind, MoEConfig, SSMConfig,
                      get_arch, list_archs)
 from .steps import make_decode_step, make_forward, make_prefill_step

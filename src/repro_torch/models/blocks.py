@@ -2,10 +2,15 @@
 ``repro.models.blocks``).
 
 Blocks are uniform functions ``apply(params, x, ctx, cache) -> (y, cache)``.
-Ported: ``ATTN``, ``SHARED_ATTN`` (the weight-tied attention block of
-zamba2, whose weights live at the model level) and ``MAMBA2``.  ``MOE``,
-``MLSTM``, ``SLSTM`` and ``CROSS_ATTN`` raise ``NotImplementedError`` when a
-model holding them is built (ROADMAP.md, open item 13).
+Ported: ``ATTN``, ``MOE`` (attention + the MoE layer, with arctic's
+parallel dense residual), ``SHARED_ATTN`` (the weight-tied attention block
+of zamba2, whose weights live at the model level), ``MAMBA2`` and xLSTM's
+``MLSTM`` and ``SLSTM``.  ``CROSS_ATTN`` raises ``NotImplementedError`` when
+a model holding it is built (ROADMAP.md, open item 13).
+
+The sLSTM recurrence is a ``lax.scan`` over positions in the reference,
+with no kernel; here it is a Python loop over positions on the device, a
+few torch ops a step.
 """
 from __future__ import annotations
 
@@ -17,14 +22,14 @@ import torch
 
 from repro_torch.kernels.scar_eval.kernel import blocked_cumsum
 from .config import ArchConfig, BlockKind, MLPKind
-from .layers import (AttnDims, attn_apply, attn_init, dense, dense_init,
-                     gla_chunked, gla_step, mlp_apply, mlp_init, rmsnorm,
-                     rmsnorm_init, silu, softplus)
+from .layers import (AttnDims, MoEDims, attn_apply, attn_init, dense,
+                     dense_init, gla_chunked, gla_step, mlp_apply, mlp_init,
+                     moe_apply, moe_init, rmsnorm, rmsnorm_init, silu,
+                     softplus)
 
 Params = dict
 
-NOT_PORTED = (BlockKind.MOE, BlockKind.MLSTM, BlockKind.SLSTM,
-              BlockKind.CROSS_ATTN)
+NOT_PORTED = (BlockKind.CROSS_ATTN,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,13 +41,14 @@ class BlockCtx:
     cache_index: Optional[int] = None  # first cache position written
     n_q_pad: int = 0
     n_kv_pad: int = 0
+    expert_pad: int = 1
     max_cache_len: int = 0
 
 
 def _not_ported(kind: BlockKind):
     return NotImplementedError(
         f"block kind {kind.value!r} is not ported yet (ROADMAP.md, open "
-        "item 13: MoE, xLSTM and cross-attention blocks)")
+        "item 13: cross-attention blocks)")
 
 
 def _attn_dims(cfg: ArchConfig, ctx: BlockCtx) -> AttnDims:
@@ -50,25 +56,40 @@ def _attn_dims(cfg: ArchConfig, ctx: BlockCtx) -> AttnDims:
                     hd=cfg.hd, bias=cfg.qkv_bias)
 
 
+def _moe_dims(cfg: ArchConfig, ctx: BlockCtx) -> MoEDims:
+    m = cfg.moe
+    return MoEDims(d_model=cfg.d_model, n_experts=ctx.expert_pad,
+                   n_routed=m.n_experts, top_k=m.top_k, d_ff=m.expert_d_ff,
+                   n_shared=m.n_shared_experts,
+                   capacity_factor=m.capacity_factor,
+                   group_size=m.group_size)
+
+
 # ---------------------------------------------------------------------------
-# ATTN (and SHARED_ATTN, which applies the model's shared ATTN weights)
+# ATTN / MOE (and SHARED_ATTN, which applies the model's shared ATTN weights)
 # ---------------------------------------------------------------------------
 
 def attn_block_init(gen: torch.Generator, cfg: ArchConfig, ctx: BlockCtx,
-                    dtype) -> Params:
+                    dtype, kind: BlockKind = BlockKind.ATTN) -> Params:
     dev = gen.device
     p: Params = {
         "ln1": rmsnorm_init(cfg.d_model, dtype, dev),
         "attn": attn_init(gen, _attn_dims(cfg, ctx), dtype),
         "ln2": rmsnorm_init(cfg.d_model, dtype, dev),
     }
-    if cfg.mlp != MLPKind.NONE:
+    if kind == BlockKind.MOE:
+        p["moe"] = moe_init(gen, _moe_dims(cfg, ctx), dtype)
+        if cfg.moe.dense_residual:
+            p["dense_mlp"] = mlp_init(gen, cfg.d_model, cfg.moe.dense_d_ff,
+                                      "swiglu", dtype)
+    elif cfg.mlp != MLPKind.NONE:
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp.value, dtype)
     return p
 
 
 def attn_block_apply(p: Params, x: torch.Tensor, ctx: BlockCtx,
-                     cache: Optional[Params]
+                     cache: Optional[Params],
+                     kind: BlockKind = BlockKind.ATTN
                      ) -> tuple[torch.Tensor, Optional[Params]]:
     cfg = ctx.cfg
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -80,9 +101,14 @@ def attn_block_apply(p: Params, x: torch.Tensor, ctx: BlockCtx,
         cache_index=ctx.cache_index)
     x = x + out
     new_cache = {"self": new_self} if new_self is not None else None
-    if cfg.mlp != MLPKind.NONE:
-        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps),
-                          cfg.mlp.value)
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if kind == BlockKind.MOE:
+        y = moe_apply(p["moe"], h, _moe_dims(cfg, ctx))
+        if cfg.moe.dense_residual:
+            y = y + mlp_apply(p["dense_mlp"], h, "swiglu")
+        x = x + y
+    elif cfg.mlp != MLPKind.NONE:
+        x = x + mlp_apply(p["mlp"], h, cfg.mlp.value)
     return x, new_cache
 
 
@@ -195,15 +221,164 @@ def mamba2_cache(cfg: ArchConfig, batch: int, dtype, device) -> Params:
 
 
 # ---------------------------------------------------------------------------
+# xLSTM: mLSTM (matrix memory) and sLSTM (scalar memory)
+# ---------------------------------------------------------------------------
+
+def _chunk_of(cfg: ArchConfig) -> int:
+    return cfg.ssm.chunk if cfg.ssm else 256
+
+
+def mlstm_init(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
+    d = cfg.d_model
+    return {
+        "ln": rmsnorm_init(d, dtype, gen.device),
+        "wq": dense_init(gen, d, d, dtype),
+        "wk": dense_init(gen, d, d, dtype),
+        "wv": dense_init(gen, d, d, dtype),
+        "wif": dense_init(gen, d, 2 * cfg.n_heads, dtype, bias=True),
+        "wo_gate": dense_init(gen, d, d, dtype),
+        "out": dense_init(gen, d, d, dtype),
+    }
+
+
+def mlstm_apply(p: Params, x: torch.Tensor, ctx: BlockCtx,
+                cache: Optional[Params]
+                ) -> tuple[torch.Tensor, Optional[Params]]:
+    """The matrix-memory cell: gated linear attention with input gate
+    ``exp(min(i, 8))`` folded into k, forget gate ``log sigmoid(f)`` as
+    the log-decay, and the output divided by ``max(|q . n|, 1)``, n the
+    normaliser state (the scan of ``v = 1``).  Prefill takes numerator and
+    normaliser from ``gla_chunked(..., norm=True)`` (one ``ssd_scan``
+    launch on the card); decode steps the state with ``gla_step``."""
+    cfg = ctx.cfg
+    B, L, d = x.shape
+    H = cfg.n_heads
+    P = d // H
+    h = rmsnorm(p["ln"], x, cfg.norm_eps)
+    q = dense(p["wq"], h).reshape(B, L, H, P) / math.sqrt(P)
+    k = dense(p["wk"], h).reshape(B, L, H, P)
+    v = dense(p["wv"], h).reshape(B, L, H, P)
+    gif = dense(p["wif"], h).float()
+    i_gate, f_gate = torch.split(gif, H, dim=-1)                 # [B,L,H]
+    log_f = -softplus(-f_gate)                                   # log sigmoid
+    i_w = torch.exp(torch.clamp_max(i_gate, 8.0))
+    k_in = k * i_w[..., None].to(k.dtype)
+    new_cache: Optional[Params] = None
+    if ctx.mode == "decode" and cache is not None:
+        state2, out = gla_step(cache["state"], q[:, 0], k_in[:, 0], v[:, 0],
+                               log_f[:, 0])
+        nstate2 = cache["norm"] * torch.exp(log_f[:, 0])[..., None] + \
+            k_in[:, 0].float()
+        denom = torch.einsum("bhn,bhn->bh", q[:, 0].float(), nstate2).abs()
+        out = out / torch.clamp_min(denom, 1.0)[..., None].to(out.dtype)
+        y = out[:, None]
+        new_cache = {"state": state2, "norm": nstate2}
+    else:
+        num, den = gla_chunked(q, k_in, v, log_f, _chunk_of(cfg), norm=True)
+        y = num / torch.clamp_min(den.abs(), 1.0)[..., None]
+        if cache is not None:
+            # final states for the decode handoff, with the reference's
+            # association of the prefix sums
+            cum = blocked_cumsum(log_f.movedim(1, 0)).movedim(0, 1)
+            tail = torch.exp(cum[:, -1:, :] - cum)
+            kf = k_in.float() * tail[..., None]
+            state = torch.einsum("blhn,blhp->bhnp", kf, v.float())
+            new_cache = {"state": state, "norm": kf.sum(dim=1)}
+    y = y.reshape(B, L, d) * silu(dense(p["wo_gate"], h))
+    return x + dense(p["out"], y), new_cache
+
+
+def mlstm_cache(cfg: ArchConfig, batch: int, device) -> Params:
+    H = cfg.n_heads
+    P = cfg.d_model // H
+    return {"state": torch.zeros((batch, H, P, P), dtype=torch.float32,
+                                 device=device),
+            "norm": torch.zeros((batch, H, P), dtype=torch.float32,
+                                device=device)}
+
+
+def slstm_init(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
+    d = cfg.d_model
+    H = cfg.n_heads
+    dh = d // H
+    return {
+        "ln": rmsnorm_init(d, dtype, gen.device),
+        "wx": dense_init(gen, d, 4 * d, dtype, bias=True),
+        "r": (torch.randn((H, dh, 4 * dh), generator=gen, device=gen.device)
+              / math.sqrt(dh)).to(dtype),
+        "out": dense_init(gen, d, d, dtype),
+    }
+
+
+def _slstm_cell(carry: tuple, gx: torch.Tensor, r: torch.Tensor
+                ) -> tuple[tuple, torch.Tensor]:
+    """One sLSTM step.  carry: (c, n, h, m), each [B, H, dh]; gx: [B, H,
+    4 dh]; r: [H, dh, 4 dh] in h's type."""
+    c, n, h, m = carry
+    gr = torch.einsum("bhd,hdk->bhk", h, r)
+    zt, it, ft, ot = torch.chunk((gx + gr).float(), 4, dim=-1)
+    log_f = -softplus(-ft)
+    m2 = torch.maximum(log_f + m, it)
+    ip = torch.exp(it - m2)
+    fp = torch.exp(log_f + m - m2)
+    c2 = fp * c + ip * torch.tanh(zt)
+    n2 = fp * n + ip
+    h2 = (torch.sigmoid(ot) * c2 / torch.clamp_min(n2, 1.0)).to(h.dtype)
+    return (c2, n2, h2, m2), h2
+
+
+def slstm_apply(p: Params, x: torch.Tensor, ctx: BlockCtx,
+                cache: Optional[Params]
+                ) -> tuple[torch.Tensor, Optional[Params]]:
+    """The scalar-memory cell with exponential gating and its stabiliser
+    m, one position at a time (the reference's ``lax.scan``)."""
+    cfg = ctx.cfg
+    B, L, d = x.shape
+    H = cfg.n_heads
+    dh = d // H
+    h_in = rmsnorm(p["ln"], x, cfg.norm_eps)
+    gx = dense(p["wx"], h_in).reshape(B, L, H, 4 * dh)
+    if cache is not None and ctx.mode == "decode":
+        carry = (cache["c"], cache["n"], cache["h"], cache["m"])
+    else:
+        zeros = torch.zeros((B, H, dh), dtype=torch.float32,
+                            device=x.device)
+        carry = (zeros, zeros, zeros.to(x.dtype), zeros)
+    r = p["r"].to(carry[2].dtype)
+    ys = []
+    for t in range(L):
+        carry, y = _slstm_cell(carry, gx[:, t], r)
+        ys.append(y)
+    ys = torch.stack(ys, dim=1)
+    new_cache = None
+    if cache is not None:
+        c, n, h, m = carry
+        new_cache = {"c": c, "n": n, "h": h, "m": m}
+    y = dense(p["out"], ys.reshape(B, L, d))
+    return x + y, new_cache
+
+
+def slstm_cache(cfg: ArchConfig, batch: int, dtype, device) -> Params:
+    H = cfg.n_heads
+    dh = cfg.d_model // H
+    z = torch.zeros((batch, H, dh), dtype=torch.float32, device=device)
+    return {"c": z, "n": z.clone(), "h": z.to(dtype), "m": z.clone()}
+
+
+# ---------------------------------------------------------------------------
 # dispatch tables
 # ---------------------------------------------------------------------------
 
 def block_init(gen: torch.Generator, cfg: ArchConfig, ctx: BlockCtx, dtype,
                kind: BlockKind) -> Params:
-    if kind == BlockKind.ATTN:
-        return attn_block_init(gen, cfg, ctx, dtype)
+    if kind in (BlockKind.ATTN, BlockKind.MOE):
+        return attn_block_init(gen, cfg, ctx, dtype, kind)
     if kind == BlockKind.MAMBA2:
         return mamba2_init(gen, cfg, dtype)
+    if kind == BlockKind.MLSTM:
+        return mlstm_init(gen, cfg, dtype)
+    if kind == BlockKind.SLSTM:
+        return slstm_init(gen, cfg, dtype)
     if kind == BlockKind.SHARED_ATTN:
         return {}  # weight-tied; params live at model level
     if kind in NOT_PORTED:
@@ -215,12 +390,16 @@ def block_apply(p: Params, x: torch.Tensor, ctx: BlockCtx,
                 cache: Optional[Params], kind: BlockKind,
                 shared: Optional[Params] = None
                 ) -> tuple[torch.Tensor, Optional[Params]]:
-    if kind == BlockKind.ATTN:
-        return attn_block_apply(p, x, ctx, cache)
+    if kind in (BlockKind.ATTN, BlockKind.MOE):
+        return attn_block_apply(p, x, ctx, cache, kind)
     if kind == BlockKind.SHARED_ATTN:
         return attn_block_apply(shared, x, ctx, cache)
     if kind == BlockKind.MAMBA2:
         return mamba2_apply(p, x, ctx, cache)
+    if kind == BlockKind.MLSTM:
+        return mlstm_apply(p, x, ctx, cache)
+    if kind == BlockKind.SLSTM:
+        return slstm_apply(p, x, ctx, cache)
     if kind in NOT_PORTED:
         raise _not_ported(kind)
     raise KeyError(kind)
@@ -228,10 +407,14 @@ def block_apply(p: Params, x: torch.Tensor, ctx: BlockCtx,
 
 def block_cache(cfg: ArchConfig, ctx: BlockCtx, batch: int, dtype,
                 kind: BlockKind, device) -> Params:
-    if kind in (BlockKind.ATTN, BlockKind.SHARED_ATTN):
+    if kind in (BlockKind.ATTN, BlockKind.MOE, BlockKind.SHARED_ATTN):
         return attn_block_cache(cfg, ctx, batch, dtype, device)
     if kind == BlockKind.MAMBA2:
         return mamba2_cache(cfg, batch, dtype, device)
+    if kind == BlockKind.MLSTM:
+        return mlstm_cache(cfg, batch, device)
+    if kind == BlockKind.SLSTM:
+        return slstm_cache(cfg, batch, dtype, device)
     if kind in NOT_PORTED:
         raise _not_ported(kind)
     raise KeyError(kind)

@@ -17,8 +17,9 @@ import torch
 from .config import ArchConfig
 from .transformer import _dtype
 
-# Mamba-2 parameters the reference keeps in float32 whatever the model's type
-FLOAT32_LEAVES = ("A_log", "D", "dt_bias")
+# Parameters the reference keeps in float32 whatever the model's type:
+# Mamba-2's A_log, D and dt_bias and the MoE router
+FLOAT32_LEAVES = ("A_log", "D", "dt_bias", "router")
 
 
 def _tensor(name: str, a, device, dtype) -> torch.Tensor:

@@ -14,7 +14,8 @@ Two layer functions run the port's CUDA kernels on CUDA tensors:
 
 On CPU tensors both take the plain versions.  ``attn_apply`` updates the
 KV cache in place where the reference returns an updated copy
-(``dynamic_update_slice_in_dim``).  The MoE layer is not ported yet.
+(``dynamic_update_slice_in_dim``).  The MoE layer's expert GEMMs are
+plain einsums, as in the reference, where they sit outside any kernel.
 """
 from __future__ import annotations
 
@@ -241,17 +242,107 @@ def mlp_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# MoE: not ported yet
+# MoE: GShard-style grouped one-hot dispatch
 # ---------------------------------------------------------------------------
 
-def moe_init(*args, **kwargs):
-    raise NotImplementedError("MoE layers are not ported yet "
-                              "(ROADMAP.md, open item 13)")
+@dataclasses.dataclass(frozen=True)
+class MoEDims:
+    d_model: int
+    n_experts: int         # experts held (the reference pads to its model
+                           # axis; the port at tp=1 holds n_routed)
+    n_routed: int          # real (routable) experts
+    top_k: int
+    d_ff: int
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    group_size: int = 512  # dispatch group (controls dispatch-FLOP overhead)
 
 
-def moe_apply(*args, **kwargs):
-    raise NotImplementedError("MoE layers are not ported yet "
-                              "(ROADMAP.md, open item 13)")
+def moe_init(gen: torch.Generator, dims: MoEDims, dtype) -> Params:
+    E, d, f = dims.n_experts, dims.d_model, dims.d_ff
+    dev = gen.device
+    p = {
+        "router": _init_dense(gen, d, dims.n_routed, torch.float32),
+        "wi": (torch.randn((E, d, f), generator=gen, device=dev)
+               / math.sqrt(d)).to(dtype),
+        "wg": (torch.randn((E, d, f), generator=gen, device=dev)
+               / math.sqrt(d)).to(dtype),
+        "wo": (torch.randn((E, f, d), generator=gen, device=dev)
+               / math.sqrt(f)).to(dtype),
+    }
+    if dims.n_shared:
+        p["shared"] = mlp_init(gen, d, dims.n_shared * f, "swiglu", dtype)
+    return p
+
+
+def moe_capacity(dims: MoEDims, g: int) -> int:
+    """Slots per expert in a dispatch group of ``g`` tokens: the
+    reference's ``ceil(g k / n_routed * capacity_factor)``, rounded up to a
+    multiple of 4, at least 4 and at most ``g``."""
+    cap = int(math.ceil(g * dims.top_k / dims.n_routed
+                        * dims.capacity_factor))
+    return max(4, min(cap + (-cap) % 4, g))
+
+
+def router_top_k(logits: torch.Tensor, k: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest float32 router logits of each token and their
+    experts, largest first, the lower expert first on a tie (as
+    ``jax.lax.top_k``; ``torch.topk`` does not promise it): a stable
+    descending sort."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_apply(p: Params, x: torch.Tensor, dims: MoEDims) -> torch.Tensor:
+    """Top-k capacity-based MoE over flattened tokens.
+
+    Tokens go in groups of ``group_size``; each group one-hot dispatches
+    into per-expert capacity buffers (the GShard einsums), the experts run
+    as stacked GEMMs, and results combine back with the routing weights.
+    A (token, choice) past its expert's capacity in the group (counted in
+    token order, choices in rank order) is dropped: the token falls
+    through to the residual for it.  The shared experts see every token.
+    """
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    T = xt.shape[0]
+    g = min(dims.group_size, T)
+    G = T // g
+    if T % g:
+        raise ValueError("token count must divide dispatch group size")
+    E, k = dims.n_experts, dims.top_k
+    cap = moe_capacity(dims, g)
+
+    logits = xt.float() @ p["router"].float()                 # [T, n_routed]
+    weights, sel = router_top_k(logits, k)                    # [T, k]
+    weights = torch.softmax(weights, dim=-1)
+
+    sel_g = sel.reshape(G, g, k)
+    w_g = weights.reshape(G, g, k)
+    x_g = xt.reshape(G, g, d)
+
+    # position of each (token, choice) within its expert's capacity buffer
+    onehot = F.one_hot(sel_g, E).float()                      # [G, g, k, E]
+    pos = torch.cumsum(onehot.reshape(G, g * k, E), dim=1).reshape(
+        G, g, k, E) * onehot - 1.0
+    in_cap = (pos >= 0) & (pos < cap)
+    slot_idx = torch.where(in_cap, pos, torch.full_like(pos, -1.0)).long()
+    # one_hot of -1 is all zeros (jax.nn.one_hot's rule): one extra class
+    slot = F.one_hot(slot_idx + 1, cap + 1)[..., 1:].float()  # [.., E, cap]
+    dispatch = (onehot[..., None] * slot).sum(dim=2)          # [G, g, E, cap]
+    combine = (w_g[..., None, None] * onehot[..., None] * slot).sum(dim=2)
+
+    xs = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), x_g)
+    h = torch.einsum("gecd,edf->gecf", xs, p["wi"].to(x.dtype))
+    hg = torch.einsum("gecd,edf->gecf", xs, p["wg"].to(x.dtype))
+    h = silu(hg) * h
+    ys = torch.einsum("gecf,efd->gecd", h, p["wo"].to(x.dtype))
+    out = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ys)
+    out = out.reshape(B, S, d)
+    if dims.n_shared:
+        out = out + mlp_apply(p["shared"], x, "swiglu")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +350,7 @@ def moe_apply(*args, **kwargs):
 # ---------------------------------------------------------------------------
 
 def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                log_decay: torch.Tensor, chunk: int) -> torch.Tensor:
+                log_decay: torch.Tensor, chunk: int, norm: bool = False):
     """Chunked gated linear attention:  o_t = q_t @ S_t,
     S_t = exp(a_t) * S_{t-1} + k_t^T v_t  with per-(position, head) log-decay.
 
@@ -268,12 +359,15 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors launch the ``ssd_scan`` kernel, CPU tensors run its plain
     version; both carry the state across chunks in order where the
     reference combines chunk states with an associative scan.
+    ``norm=True`` returns ``(o, den)``, den the normaliser the reference's
+    mLSTM takes from a second call with ``v = ones[..., :1]`` ([B, L, H]):
+    on CUDA bf16 the one ``ssd_scan`` launch computes both.
     """
     L = q.shape[1]
     c = min(chunk, L)
     if L % c:
         raise ValueError("seq len must divide chunk size")
-    return ssd_scan(q, k, v, log_decay.float(), chunk=c)
+    return ssd_scan(q, k, v, log_decay.float(), chunk=c, norm=norm)
 
 
 def gla_step(state: torch.Tensor, q: torch.Tensor, k: torch.Tensor,

@@ -59,7 +59,8 @@ def synth_batch(cfg: ArchConfig, batch: int = 2, seq: int = 32,
     return out
 
 
-def numpy_tree(cfg: ArchConfig, seed: int = 0) -> dict:
+def numpy_tree(cfg: ArchConfig, seed: int = 0,
+               tie_router: bool = False) -> dict:
     """Seeded float32 weights in the JAX package's parameter layout.
 
     The tree ``repro.models.init_params`` returns (per pattern position the
@@ -69,6 +70,8 @@ def numpy_tree(cfg: ArchConfig, seed: int = 0) -> dict:
     every term shows.  ``jax.tree.map(jnp.asarray, tree)`` gives the
     reference its parameters; ``models.convert.params_from_numpy`` gives
     the port its own.  Only the block kinds the port has are drawn.
+    ``tie_router`` copies router column 0 into column 1, so experts 0 and 1
+    tie on every token's router logits.
     """
     rng = np.random.default_rng(seed)
     d, hd = cfg.d_model, cfg.hd
@@ -85,13 +88,34 @@ def numpy_tree(cfg: ArchConfig, seed: int = 0) -> dict:
     def norm(n):
         return {"scale": (1.0 + normal((n,), 0.1))}
 
-    def attn_block():
+    def swiglu(d_ff):
+        return {"wi": dense(d, d_ff), "wg": dense(d, d_ff),
+                "wo": dense(d_ff, d)}
+
+    def moe_layer():
+        m = cfg.moe
+        E, f = m.n_experts, m.expert_d_ff
+        p = {"router": normal((d, E), 1.0 / math.sqrt(d)),
+             "wi": normal((E, d, f), 1.0 / math.sqrt(d)),
+             "wg": normal((E, d, f), 1.0 / math.sqrt(d)),
+             "wo": normal((E, f, d), 1.0 / math.sqrt(f))}
+        if tie_router:
+            p["router"][:, 1] = p["router"][:, 0]
+        if m.n_shared_experts:
+            p["shared"] = swiglu(m.n_shared_experts * f)
+        return p
+
+    def attn_block(kind=BlockKind.ATTN):
         p = {"ln1": norm(d), "ln2": norm(d), "attn": {
             "wq": dense(d, cfg.n_heads * hd, cfg.qkv_bias),
             "wk": dense(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
             "wv": dense(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
             "wo": dense(cfg.n_heads * hd, d)}}
-        if cfg.mlp in (MLPKind.SWIGLU, MLPKind.GEGLU):
+        if kind == BlockKind.MOE:
+            p["moe"] = moe_layer()
+            if cfg.moe.dense_residual:
+                p["dense_mlp"] = swiglu(cfg.moe.dense_d_ff)
+        elif cfg.mlp in (MLPKind.SWIGLU, MLPKind.GEGLU):
             p["mlp"] = {"wi": dense(d, cfg.d_ff), "wg": dense(d, cfg.d_ff),
                         "wo": dense(cfg.d_ff, d)}
         elif cfg.mlp != MLPKind.NONE:
@@ -111,16 +135,31 @@ def numpy_tree(cfg: ArchConfig, seed: int = 0) -> dict:
                 "dt_bias": normal((H,), 0.5),
                 "out_proj": dense(d_inner, d)}
 
+    def mlstm_block():
+        return {"ln": norm(d), "wq": dense(d, d), "wk": dense(d, d),
+                "wv": dense(d, d), "wif": dense(d, 2 * cfg.n_heads, True),
+                "wo_gate": dense(d, d), "out": dense(d, d)}
+
+    def slstm_block():
+        dh = d // cfg.n_heads
+        return {"ln": norm(d), "wx": dense(d, 4 * d, True),
+                "r": normal((cfg.n_heads, dh, 4 * dh), 1.0 / math.sqrt(dh)),
+                "out": dense(d, d)}
+
     def stacked(make):
         trees = [make() for _ in range(cfg.n_super_blocks)]
         return _stack(trees)
 
     layers = {}
     for pi, kind in enumerate(cfg.block_pattern):
-        if kind == BlockKind.ATTN:
-            layers[f"p{pi}"] = stacked(attn_block)
+        if kind in (BlockKind.ATTN, BlockKind.MOE):
+            layers[f"p{pi}"] = stacked(lambda: attn_block(kind))
         elif kind == BlockKind.MAMBA2:
             layers[f"p{pi}"] = stacked(mamba_block)
+        elif kind == BlockKind.MLSTM:
+            layers[f"p{pi}"] = stacked(mlstm_block)
+        elif kind == BlockKind.SLSTM:
+            layers[f"p{pi}"] = stacked(slstm_block)
         elif kind == BlockKind.SHARED_ATTN:
             layers[f"p{pi}"] = {}
         else:

@@ -10,7 +10,8 @@ vocab or experts, no sharding.
 
 Caches mirror the layer list (``cache[super_block][position]``).  Prefill
 and decode write the attention KV caches in place and replace each Mamba-2
-block's state and conv window; both return the cache they were given.
+block's state and conv window and each xLSTM block's states; both return
+the cache they were given.
 Positions and cache indices are Python ints, so a decode loop reads nothing
 back from the device.
 """
@@ -30,15 +31,19 @@ Params = dict
 
 @dataclasses.dataclass(frozen=True)
 class ModelDims:
-    """Head and vocab sizes of the stack (exact: the port runs at tp=1)."""
+    """Head, vocab and expert counts of the stack (exact: the port runs at
+    tp=1, where the reference pads nothing: ``expert_pad`` is the expert
+    count of an MoE model, 1 otherwise)."""
     n_q_pad: int
     n_kv_pad: int
     vocab_pad: int
+    expert_pad: int = 1
 
     @staticmethod
     def create(cfg: ArchConfig) -> "ModelDims":
         return ModelDims(n_q_pad=cfg.n_heads, n_kv_pad=cfg.n_kv_heads,
-                         vocab_pad=cfg.vocab)
+                         vocab_pad=cfg.vocab,
+                         expert_pad=cfg.moe.n_experts if cfg.moe else 1)
 
 
 def make_ctx(cfg: ArchConfig, dims: ModelDims, mode: str,
@@ -46,7 +51,8 @@ def make_ctx(cfg: ArchConfig, dims: ModelDims, mode: str,
              max_cache_len: int = 0) -> BlockCtx:
     return BlockCtx(cfg=cfg, mode=mode, positions=positions,
                     cache_index=cache_index, n_q_pad=dims.n_q_pad,
-                    n_kv_pad=dims.n_kv_pad, max_cache_len=max_cache_len)
+                    n_kv_pad=dims.n_kv_pad, expert_pad=dims.expert_pad,
+                    max_cache_len=max_cache_len)
 
 
 def _dtype(dtype) -> torch.dtype:

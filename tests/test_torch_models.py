@@ -7,7 +7,10 @@ over by ``models.convert.params_from_numpy``.  Layer by layer, then the
 whole model: forward logits, prefill into a longer cache (last logits and
 every cache entry), teacher-forced decode, and greedy serving.  A reduced
 ATTN-only config (gemma-7b: GeGLU, tied embeddings, head_dim 16 at 4 heads)
-runs through the same whole-model checks.
+runs through the same whole-model checks, and so do reduced arctic-480b
+(MoE with the dense residual) and xlstm-350m (mLSTM and sLSTM) with the
+reference's own initial weights (their layers:
+``tests/test_torch_models_moe_xlstm.py``).
 
 Tolerances (float32 throughout): single layers 1e-5 (rtol and atol), the
 reference's own summation orders against torch's (matmul blocking); whole
@@ -105,6 +108,16 @@ def zamba():
 @pytest.fixture(scope="module")
 def gemma():
     return Model("gemma-7b")
+
+
+@pytest.fixture(scope="module")
+def arctic():
+    return Model("arctic-480b")
+
+
+@pytest.fixture(scope="module")
+def xlstm():
+    return Model("xlstm-350m")
 
 
 def activations(seed, *shape):
@@ -214,7 +227,7 @@ def test_causal_conv_is_shifted_products(zamba):
 
 # ---------------------------- whole model ----------------------------------
 
-@pytest.mark.parametrize("which", ["zamba", "gemma"])
+@pytest.mark.parametrize("which", ["zamba", "gemma", "arctic", "xlstm"])
 def test_forward_prefill_and_teacher_forced_decode(which, request):
     m = request.getfixturevalue(which)
     toks = m.tokens
@@ -299,8 +312,7 @@ def test_port_init_matches_reference_layout():
         a.numel() for a in jax.tree.leaves(ours)) < 2.0 * cfg.param_count()
 
 
-@pytest.mark.parametrize("arch", ["arctic-480b", "xlstm-350m",
-                                  "llama-3.2-vision-90b"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b"])
 def test_unported_blocks_raise(arch):
     cfg = reduced(TM.get_arch(arch))
     with pytest.raises(NotImplementedError, match="item 13"):

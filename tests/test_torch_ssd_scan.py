@@ -323,13 +323,66 @@ def test_cuda_bf16_rejects_what_the_kernel_does_not_take():
         pytest.skip("needs a CUDA device")
     bf = dict(device="cuda", dtype=torch.bfloat16)
     a = torch.zeros((1, 64, 2), device="cuda")
-    q = torch.zeros((1, 64, 2, 96), **bf)
-    with pytest.raises(ValueError, match="above 64"):
+    q = torch.zeros((1, 64, 2, 264), **bf)
+    with pytest.raises(ValueError, match="kernel takes N 264"):
         ssd_scan(q, q, torch.zeros((1, 64, 2, 16), **bf), a, chunk=64)
     q = torch.zeros((1, 64, 2, 12), **bf)
     with pytest.raises(ValueError, match="cp.async"):
         ssd_scan(q, q, torch.zeros((1, 64, 2, 16), **bf), a, chunk=64)
     big = torch.zeros((1, 512, 2, 16), **bf)
-    with pytest.raises(ValueError, match="chunk 512 above"):
+    with pytest.raises(ValueError, match="chunk 512"):
         ssd_scan(big, big, big, torch.zeros((1, 512, 2), device="cuda"),
                  chunk=512)
+
+
+WIDE_CASES = [
+    # (B, L, H, N, P, chunk, normaliser): the wide bf16 kernel
+    (4, 1024, 4, 256, 256, 256, True),     # the xlstm-350m serve shape
+    (1, 512, 2, 256, 256, 256, False),
+    (2, 96, 4, 16, 16, 16, True),          # reduced xlstm
+    (1, 200, 2, 128, 72, 40, True),        # a narrow last column tile
+    (1, 256, 2, 96, 96, 64, False),        # past the narrow kernel's 64
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE_CASES)
+@pytest.mark.parametrize("slow", [False, True])
+def test_cuda_wide_heads_match_plain(case, slow):
+    """On the card, bf16 heads wider than 64 (one CTA per 64 state
+    columns), with and without the normaliser the same launch computes:
+    output and normaliser within rtol = atol = 2e-2 of the plain version's
+    two calls, one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, L, H, N, P, chunk, norm = case
+    t = to_torch(*inputs(L + N + P, B, L, H, N, P, slow=slow),
+                 dt=torch.bfloat16, device="cuda")
+    before = ssd_scan.launches
+    out = ssd_scan(*t, chunk=chunk, norm=norm)
+    plain = ssd_scan_plain(*t, chunk=chunk, norm=norm)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    for o, p in zip(out, plain) if norm else [(out, plain)]:
+        close(o.cpu(), p.float().cpu().numpy(), BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_wide_zero_decay_is_the_exact_running_sum():
+    """On the card, bf16, a = 0 over 4 chunks of 256 at N = P = 256 with
+    the normaliser: entries in {-1, 0, 1} make every product and sum an
+    integer float32 holds exactly, so each output and each normaliser is
+    the exact causal sum rounded once to bf16, and a state tile or
+    normaliser state lost or taken twice shows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.tensor(rng.integers(-1, 2, (1, 1024, 2, 256))).to(
+        "cuda", torch.bfloat16) for _ in range(3))
+    scores = torch.einsum("bihn,bjhn->bhij", q.double(), k.double()).tril()
+    out, den = ssd_scan(q, k, v, torch.zeros((1, 1024, 2), device="cuda"),
+                        chunk=256, norm=True)
+    assert torch.equal(out, torch.einsum("bhij,bjhp->bihp", scores,
+                                         v.double()).to(torch.bfloat16))
+    assert torch.equal(den, scores.sum(-1).transpose(1, 2).to(
+        torch.bfloat16))
