@@ -125,7 +125,23 @@ package.  Phases, each printed as it runs:
    per prefill (none in decode), a profiled prefill's device idle share,
    and, printed, the step where each row's greedy tokens part from the
    plain versions' run
-8. summary: a JSON line of the portfolio, multimodel and serving numbers,
+13. sync witness: the 16x16 ``dc4`` golden case of phases 4-5 under
+   ``beam`` with ``auto`` and with ``eval_backend="cuda"``, under
+   ``beam_jax``, and under ``beam_jax`` with the ``narrow`` congestion
+   NoC, and one warm ``dc_churn_6x6`` replay with every batch on
+   ``scar_eval`` (phase 9's), each under
+   ``torch.cuda.set_sync_debug_mode("warn")`` with every warning recorded:
+   the syncs the CUDA runtime reports, how many were raised from
+   ``launch/platform.py`` (the sanctioned site of SL002, the port
+   linter's sync rule), ``sync_count()``, and every other reporting site
+   as file:line x count, each site the innermost ``repro_torch`` frame
+   of the warning's Python stack.  A site in ``repro_torch/core/`` or
+   ``kernels/`` must carry a reasoned ``# scarlint: ignore[SL002]``;
+   sites elsewhere are printed.  Plans stay those of phases 4, 5 and 9;
+   the linter's own run over ``src/repro_torch`` (its wall time on this
+   host) opens the phase
+8. summary: a JSON line of the portfolio, multimodel, serving and sync
+   witness numbers,
    then one of per-kernel numbers (``launches_by_path`` includes the
    online, portfolio, realized and served runs; ``shapes`` the new models'
    kernel shapes of phase 2e)
@@ -138,6 +154,7 @@ Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -145,6 +162,8 @@ import pathlib
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -665,6 +684,155 @@ def run_case(case, cfg, dev, *, exact_plans: bool = True):
           f"latency {rec['latency']}, golden edp {case['edp']} latency "
           f"{case['latency']}")
     return out, wall
+
+
+# the sync witness (phase 13): the runs, and the directories of
+# src/repro_torch where the port's linter (SL002) allows no uncounted sync
+SYNC_RUNS = (("16x16 beam auto", PROD_KEY, {"algo": "beam"}),
+             ("16x16 beam cuda", PROD_KEY, {"algo": "beam",
+                                             "eval_backend": "cuda"}),
+             ("16x16 beam_jax", PROD_KEY, {"algo": "beam_jax"}),
+             ("16x16 narrow congestion beam_jax", CONG_KEY,
+              {"algo": "beam_jax"}))
+SYNC_SCOPE = ("core", "kernels")
+SYNC_WARNING = "called a synchronizing CUDA operation"
+PORT_SRC = ROOT / "src" / "repro_torch"
+
+
+def reported_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``.
+
+    Every warning is kept (``simplefilter("always")``: otherwise Python
+    shows one per location).  Returns ``fn()``'s result, one record per
+    reported sync — the warning's own ``file:line``, and the innermost
+    frame of its Python stack inside ``src/repro_torch`` as ``(path
+    relative to the repo, line)`` (None when the stack holds none) — and
+    the texts of the other warnings (the mode's own notice that it is a
+    prototype, once a process).
+    """
+    records, others = [], []
+
+    def keep(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING not in str(message):
+            others.append(str(message))
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if pathlib.Path(f.filename).is_relative_to(PORT_SRC)]
+        inner = frames[-1] if frames else None
+        records.append((f"{filename}:{lineno}",
+                        None if inner is None else (
+                            pathlib.Path(inner.filename).relative_to(
+                                ROOT).as_posix(), inner.lineno)))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        warnings.showwarning = keep
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, records, others
+
+
+def sync_witness_phase(golden, dev, smi: str) -> dict:
+    """Phase 13: the syncs the CUDA runtime reports on the scheduler's
+    paths, held against SL002's static claim (see the docstring)."""
+    from repro_torch.analysis.lint import (BASELINE_FILENAME, Baseline,
+                                           ModuleContext, lint_paths)
+    from repro_torch.core import get_scenario, schedule
+    from repro_torch.core.scheduler import clear_caches
+    from repro_torch.launch import platform
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import make_torch_online_golden as og
+
+    report = lint_paths([PORT_SRC], root=ROOT,
+                        baseline=Baseline.load(ROOT / BASELINE_FILENAME))
+    check(report.ok(strict_baseline=True), "scarlint over src/repro_torch: "
+          + "; ".join(f.format_text() for f in report.active))
+    print(f"card: {smi}")
+    print(f"scarlint over src/repro_torch on this host: "
+          f"{report.files_scanned} files, {len(report.active)} active / "
+          f"{len(report.suppressed)} suppressed findings "
+          f"{report.per_rule()} in {report.runtime_ms:.1f} ms")
+    contexts: dict[str, ModuleContext] = {}
+
+    def reasoned_ignore(path: str, line: int) -> bool:
+        if path not in contexts:
+            contexts[path] = ModuleContext(str(ROOT / path),
+                                           (ROOT / path).read_text(),
+                                           rel_path=path)
+        ctx = contexts[path]
+        if not ctx.is_suppressed("SL002", line):
+            return False
+        i = line
+        while "scarlint: ignore" not in ctx.line_text(i):
+            i -= 1
+        return "--" in ctx.line_text(i)
+
+    def hold(label, fn, expect):
+        clear_caches()
+        platform.reset_sync_count()
+        out, records, others = reported_syncs(fn)
+        syncs = platform.sync_count()
+        expect(out)
+        sites = collections.Counter(
+            f"{inner[0]}:{inner[1]}" if inner else where
+            for where, inner in records)
+        at_platform = sum(1 for _, inner in records if inner
+                          and inner[0].endswith("launch/platform.py"))
+        same = sum(1 for where, inner in records if inner
+                   and where == f"{ROOT / inner[0]}:{inner[1]}")
+        unsuppressed = []
+        for _, inner in records:
+            if inner is None:
+                continue
+            parts = pathlib.PurePosixPath(inner[0]).relative_to(
+                "src/repro_torch").parts
+            if parts[0] in SYNC_SCOPE and not reasoned_ignore(*inner):
+                unsuppressed.append(f"{inner[0]}:{inner[1]}")
+        print(f"{label}: {len(records)} syncs reported by the runtime, "
+              f"{at_platform} raised from launch/platform.py; sync_count() "
+              f"{syncs}; sites (innermost repro_torch frame): "
+              + ", ".join(f"{k} x{n}" for k, n in sorted(sites.items()))
+              + f"; warning location == that frame for {same} of "
+              f"{len(records)}; other warnings: {sorted(set(others))}")
+        check(not unsuppressed, f"{label}: syncs reported in core/ or "
+              f"kernels/ outside launch/platform.py, without a reasoned "
+              f"SL002 suppression: {sorted(set(unsuppressed))}")
+        return {"reported": len(records), "platform": at_platform,
+                "sync_count": syncs, "sites": dict(sorted(sites.items()))}
+
+    out = {}
+    for label, key, change in SYNC_RUNS:
+        case = golden[key]
+
+        def expect(outcome, case=case, label=label):
+            rec = golden_record(outcome)
+            check(all(rec[k] == case[k] for k in ("plans", "latency",
+                                                  "energy", "edp")),
+                  f"{label}: plans or metrics are not the golden record's")
+
+        out[label] = hold(label, lambda: schedule(
+            get_scenario(case["scenario"]), golden_mcm(case),
+            case_config(case, **change), device=dev), expect)
+    with open(og.GOLDEN) as fh:
+        f32 = json.load(fh)["runs"][ONLINE_6X6_F32]["record"]
+
+    def expect_online(sim):
+        from repro_torch.online import qos_report, slo_report
+        diff, ties = og.tie_departures(
+            og.sim_record(sim, qos_report, slo_report), f32)
+        check(diff == ties == ONLINE_6X6_TIES["cuda"],
+              f"dc_churn_6x6 cuda warm: plans depart at epochs {diff}, "
+              f"exact ties {ties} (want {ONLINE_6X6_TIES['cuda']})")
+
+    out["dc_churn_6x6 cuda warm"] = hold(
+        "dc_churn_6x6 cuda warm",
+        lambda: og.port_run(ONLINE_6X6_F32, dev, mode="warm"),
+        expect_online)
+    return out
 
 
 # online serving (phase 9): the records the JAX reference wrote
@@ -2321,9 +2489,14 @@ def main() -> None:
           "prompt 1024, 32 tokens, bf16, greedy")
     served = serve_phase(dev, smi)
 
+    phase("13 sync witness: the 16x16 dc4 case under beam auto, beam cuda, "
+          "beam_jax and narrow congestion beam_jax, and a warm dc_churn_6x6 "
+          "cuda replay, under set_sync_debug_mode('warn')")
+    witness = sync_witness_phase(golden, dev, smi)
+
     phase("8 summary")
     print(json.dumps({"portfolio": portfolio, "multimodel": pod,
-                      "serve": served}))
+                      "serve": served, "sync_witness": witness}))
     print(json.dumps({"kernels": [{
         "name": "scar_eval", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scar_eval.cu",

@@ -26,6 +26,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..launch import platform
 from .chiplet import MCM
 from .maestro import CostDB
 
@@ -519,10 +520,11 @@ def _per_bandwidth(pkg, fdt: torch.dtype, device: torch.device):
     compiled float32 program does: XLA rewrites division by a constant
     that way.  Both operands are device tensors: CUDA divides by a Python
     scalar through its reciprocal, which is not the IEEE quotient the CPU
-    computes.
+    computes.  The constants are filled on the device (each value is
+    exact in ``fdt``), not copied from the host, which would block.
     """
     def const(v):
-        return torch.tensor(v, dtype=fdt, device=device)
+        return torch.full((), float(v), dtype=fdt, device=device)
 
     if fdt == torch.float32:
         inv_dram = const(np.float32(1) / np.float32(pkg.dram_bw))
@@ -632,20 +634,35 @@ def comm_terms(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
       (NoP) or, for the last segment, write back to DRAM.
 
     The per-segment reductions stay host numpy (``segment_reductions``,
-    exactly the reference's); ``s_max`` shrinks the segment axis.
+    exactly the reference's) and go up in one copy per dtype
+    (``launch.platform.device_upload``); ``s_max`` shrinks the segment
+    axis.
     """
+    up = platform.device_upload(_comm_parts(db, cand, s_max), device)
+    return _comm_terms_on(db, mcm, cand, up, n_active, prev_end)
+
+
+def _comm_parts(db: CostDB, cand: BatchedModelCandidates,
+                s_max: Optional[int]) -> dict[str, np.ndarray]:
+    """The host arrays ``comm_from_parts`` and ``congestion_correction``
+    price a batch from: chiplet ids, segment weight sums and last-layer
+    output bytes (``[B, S]``), and the segment counts."""
     S = int(s_max) if s_max is not None else cand.chiplets.shape[1]
     sl = slice(cand.start, cand.end)
     seg_w, seg_last_out = segment_reductions(
         cand.seg_id, cand.n_segs, db.w_bytes[sl], db.out_bytes[sl], s_max=S)
-    cpos = np.maximum(cand.chiplets[:, :S], 0)
+    return {"cpos": np.maximum(cand.chiplets[:, :S], 0).astype(np.int64),
+            "seg_w": seg_w, "seg_last_out": seg_last_out,
+            "n_segs": np.asarray(cand.n_segs, np.int64)}
 
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
+def _comm_terms_on(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
+                   up: dict[str, torch.Tensor], n_active: int,
+                   prev_end: Optional[int]) -> tuple[torch.Tensor, ...]:
+    """``comm_terms`` over the uploaded ``_comm_parts``."""
     prev = int(prev_end) if prev_end is not None else None
-    return comm_from_parts(mcm.pkg, mcm.cols, t(cpos), t(seg_w),
-                           t(seg_last_out), t(cand.n_segs), n_active,
+    return comm_from_parts(mcm.pkg, mcm.cols, up["cpos"], up["seg_w"],
+                           up["seg_last_out"], up["n_segs"], n_active,
                            float(db.in_bytes[cand.start]), prev)
 
 
@@ -676,6 +693,35 @@ def _mesh_route_index(rows: int, cols: int
     return r, c, edge
 
 
+_ROUTE_TABLES: dict[tuple[int, int, torch.device],
+                    dict[str, torch.Tensor]] = {}
+
+
+def route_tables(rows: int, cols: int,
+                 device: torch.device) -> dict[str, torch.Tensor]:
+    """The static route masks and index arrays of a mesh on ``device``,
+    uploaded once (one copy per dtype) and kept.
+
+    ``h_mask`` / ``v_mask`` are ``_span_bottleneck_mask(cols)`` /
+    ``(rows)``; ``r``, ``c``, ``edge`` are ``_mesh_route_index``.  A
+    host-to-device copy blocks the host, so ``route_wait_tables`` reuses
+    these across batches, as ``quantize.pow10_table`` is reused.
+    """
+    key = (rows, cols, torch.device(device))
+    if key not in _ROUTE_TABLES:
+        r, c, edge = _mesh_route_index(rows, cols)
+        _ROUTE_TABLES[key] = platform.device_upload(
+            {"h_mask": _span_bottleneck_mask(cols),
+             "v_mask": _span_bottleneck_mask(rows),
+             "r": r, "c": c, "edge": edge}, key[2])
+    return _ROUTE_TABLES[key]
+
+
+def route_tables_clear() -> None:
+    """Drop the device copies of the route tables (``clear_caches``)."""
+    _ROUTE_TABLES.clear()
+
+
 def route_wait_tables(link_cost, rows: int, cols: int):
     """Bottleneck-wait lookup tables over all XY routes of a mesh.
 
@@ -693,25 +739,22 @@ def route_wait_tables(link_cost, rows: int, cols: int):
     if isinstance(link_cost, np.ndarray):
         wp, wd = route_wait_tables(torch.from_numpy(link_cost), rows, cols)
         return wp.numpy(), wd.numpy()
-    dev = link_cost.device
+    tab = route_tables(rows, cols, link_cost.device)
     zero = link_cost.new_zeros(())
     n_h = rows * (cols - 1)
     if cols > 1:
         h = link_cost[:n_h].reshape(rows, cols - 1)
-        mask = torch.as_tensor(_span_bottleneck_mask(cols), device=dev)
-        hmax = torch.where(mask[None], h[:, None, None, :],
+        hmax = torch.where(tab["h_mask"][None], h[:, None, None, :],
                            zero).amax(-1)            # [rows, cols, cols]
     else:
         hmax = link_cost.new_zeros((rows, 1, 1))
     if rows > 1:
         v = link_cost[n_h:].reshape(rows - 1, cols).T  # [cols, rows-1]
-        mask = torch.as_tensor(_span_bottleneck_mask(rows), device=dev)
-        vmax = torch.where(mask[None], v[:, None, None, :],
+        vmax = torch.where(tab["v_mask"][None], v[:, None, None, :],
                            zero).amax(-1)            # [cols, rows, rows]
     else:
         vmax = link_cost.new_zeros((cols, 1, 1))
-    r, c, edge = (torch.as_tensor(a, device=dev)
-                  for a in _mesh_route_index(rows, cols))
+    r, c, edge = tab["r"], tab["c"], tab["edge"]
     # XY route s->d: horizontal leg on the source row, vertical on the
     # destination column — max of the two leg bottlenecks.
     wait_pair = torch.maximum(hmax[r[:, None], c[:, None], c[None, :]],
@@ -820,26 +863,33 @@ def congestion_terms(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
     Returns ``(ip_corr, op_corr)``, each ``[B, S]`` float64 seconds on
     ``device``, to be added to the corresponding ``comm_terms`` latencies.
     The per-link cost (bytes / bandwidth) is divided on the host, as the
-    reference divides it.
+    reference divides it; the batch goes up in one copy per dtype.
     """
-    S = int(s_max) if s_max is not None else cand.chiplets.shape[1]
-    sl = slice(cand.start, cand.end)
-    seg_w, seg_last_out = segment_reductions(
-        cand.seg_id, cand.n_segs, db.w_bytes[sl], db.out_bytes[sl], s_max=S)
-    cpos = np.maximum(cand.chiplets[:, :S], 0)
+    up = platform.device_upload({**_comm_parts(db, cand, s_max),
+                                 "link_cost": _link_cost(mcm, link_occ)},
+                                device)
+    return _congestion_terms_on(db, mcm, cand, up, prev_end)
+
+
+def _link_cost(mcm: MCM, link_occ: Optional[np.ndarray]) -> np.ndarray:
+    """Float64 per-link waiting time ``link_occ / bandwidth`` (seconds)."""
     if link_occ is None:
         link_occ = np.zeros(n_interposer_links(mcm.rows, mcm.cols))
-    cost = np.asarray(link_occ, dtype=np.float64) / link_bandwidths(mcm)
+    return np.asarray(link_occ, dtype=np.float64) / link_bandwidths(mcm)
 
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
-    wait_pair, wait_dram = route_wait_tables(t(cost), mcm.rows, mcm.cols)
+def _congestion_terms_on(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
+                         up: dict[str, torch.Tensor],
+                         prev_end: Optional[int]) -> tuple[torch.Tensor, ...]:
+    """``congestion_terms`` over the uploaded ``_comm_parts`` and
+    ``link_cost``."""
+    wait_pair, wait_dram = route_wait_tables(up["link_cost"], mcm.rows,
+                                             mcm.cols)
     prev = int(prev_end) if prev_end is not None else None
-    return congestion_correction(mcm.pkg, mcm.noc, mcm.cols, t(cpos),
-                                 t(seg_w), t(seg_last_out), t(cand.n_segs),
-                                 float(db.in_bytes[cand.start]), prev,
-                                 wait_pair, wait_dram)
+    return congestion_correction(mcm.pkg, mcm.noc, mcm.cols, up["cpos"],
+                                 up["seg_w"], up["seg_last_out"],
+                                 up["n_segs"], float(db.in_bytes[cand.start]),
+                                 prev, wait_pair, wait_dram)
 
 
 def eval_model_candidates(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
@@ -858,25 +908,27 @@ def eval_model_candidates(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
     ``core.evaluator``, which the ``auto`` policy picks for small batches.
     Under ``comm_model="congestion"`` pass the co-tenants' byte occupancy
     as ``link_occ`` (``[n_links]``, e.g. from ``plan_link_bytes``).
+    The batch's host arrays go up in one copy per dtype
+    (``launch.platform.device_upload``): two, whatever the comm model.
     """
     check_comm_model(comm_model)
     B, Lw = cand.seg_id.shape
     S = cand.chiplets.shape[1]
     sl = slice(cand.start, cand.end)
+    host = {**_comm_parts(db, cand, None),
+            "class_map": np.asarray(mcm.class_map, dtype=np.int64),
+            "seg_id": np.asarray(cand.seg_id, np.int64),
+            "lat_tab": db.lat[sl], "e_tab": db.energy[sl]}   # [Lw, C]
+    if comm_model == "congestion":
+        host["link_cost"] = _link_cost(mcm, link_occ)
+    up = platform.device_upload(host, device)
 
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
-
-    class_map = t(np.asarray(mcm.class_map, dtype=np.int64))
-    cpos = t(np.maximum(cand.chiplets, 0)).long()
-    seg_id = t(cand.seg_id).long()
-    n_segs = t(cand.n_segs).long()
-    seg_cls = class_map[cpos]                                    # [B, S]
+    cpos, seg_id, n_segs = up["cpos"], up["seg_id"], up["n_segs"]
+    seg_cls = up["class_map"][cpos]                              # [B, S]
     ar_s = torch.arange(S, device=device)
     valid_seg = ar_s[None, :] < n_segs[:, None]                  # [B, S]
 
-    lat_tab = t(db.lat[sl])                                      # [Lw, C]
-    e_tab = t(db.energy[sl])
+    lat_tab, e_tab = up["lat_tab"], up["e_tab"]
     layer_cls = torch.gather(seg_cls, 1, seg_id)                 # [B, Lw]
     lidx = torch.arange(Lw, device=device)[None, :]
     lat_l = lat_tab[lidx, layer_cls]                             # [B, Lw]
@@ -891,11 +943,10 @@ def eval_model_candidates(db: CostDB, mcm: MCM, cand: BatchedModelCandidates,
         seg_comp_lat = seg_comp_lat + lat_l[:, layer, None] * one_hot[:, layer]
         seg_comp_e = seg_comp_e + e_l[:, layer, None] * one_hot[:, layer]
 
-    ip_lat, ip_e, op_lat, op_e = comm_terms(db, mcm, cand, n_active,
-                                            prev_end=prev_end, device=device)
+    ip_lat, ip_e, op_lat, op_e = _comm_terms_on(db, mcm, cand, up,
+                                                n_active, prev_end)
     if comm_model == "congestion":
-        ip_corr, op_corr = congestion_terms(db, mcm, cand, prev_end=prev_end,
-                                            link_occ=link_occ, device=device)
+        ip_corr, op_corr = _congestion_terms_on(db, mcm, cand, up, prev_end)
         ip_lat = ip_lat + ip_corr
         op_lat = op_lat + op_corr
     zero = torch.zeros((), dtype=torch.float64, device=device)

@@ -47,6 +47,8 @@ def pow10_table(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """
     key = (torch.device(device), dtype)
     if key not in _POW10_ON:
+        # scarlint: ignore[SL002] -- once-per-process table upload, cached
+        # per (device, dtype) and dropped only by clear_caches
         _POW10_ON[key] = _POW10.to(device=key[0], dtype=dtype)
     return _POW10_ON[key]
 

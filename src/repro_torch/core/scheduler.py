@@ -213,18 +213,21 @@ def clear_caches() -> None:
 
     The CostDB memo, the frontier-path LRU and the device-resident tables
     kept between calls (the quantiser's powers of ten,
-    ``quantize.pow10_table``).  This is what the online re-scheduler's
+    ``quantize.pow10_table``, and the mesh route tables,
+    ``cost.route_tables``).  This is what the online re-scheduler's
     ``cold`` oracle calls before each epoch so its re-plan really is a
     from-scratch re-schedule.  The registry-backed cache counters
     (``obs.cache_stats()``, the disk layer's too) reset with the caches, so
     hit rates always describe the caches' current lifetime.  The built CUDA
     kernels stay loaded: they are not a planning cache.
     """
+    from .cost import route_tables_clear
     from .paths import path_cache_clear
     from .quantize import pow10_table_clear
     _DB_CACHE.clear()
     path_cache_clear()
     pow10_table_clear()
+    route_tables_clear()
     for c in (_DB_HIT, _DB_MISS, _DB_DISK_HIT, _DB_DISK_MISS,
               _CAND_HIT, _CAND_MISS, _WIN_HIT, _WIN_MISS):
         c.reset()

@@ -45,10 +45,14 @@ def masked_topk(scores: torch.Tensor, valid: torch.Tensor,
     """``(values[k], indices[k])`` of the ``k`` smallest valid entries.
 
     Invalid entries never win; slots past the valid count return
-    ``(+inf, -1)``.  Equal scores resolve to the lower index.
+    ``(+inf, -1)``.  Equal scores resolve to the lower index.  Callers
+    that need the quantised tie-break pass ``quantize_scores_torch``
+    output.
     """
     inf = scores.new_full((), float("inf"))
     s = torch.where(valid, scores, inf)
+    # scarlint: ignore[SL004] -- generic top-k primitive: callers that need
+    # the quantised tie-break pass quantize_scores_torch output (see docstring)
     vals, idx = torch.sort(s, stable=True)
     vals, idx = vals[:k], idx[:k]
     if vals.shape[0] < k:                     # k beyond the input's length
