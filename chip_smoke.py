@@ -11,11 +11,12 @@ full width and holds reduced zamba2's logits against the reference's
 (``tests/fixtures/torch_lm_golden.npz``); then replays the online serving
 layer's traces on the card; then runs the portfolio sweeps, plans and
 realizes three models on a pod, and serves the MoE and xLSTM models at
-full width.  It imports neither JAX nor the reference
+full width; then trains zamba2-2.7b at full width, with the attention and
+SSD backward kernels.  It imports neither JAX nor the reference
 package.  Phases, each printed as it runs:
 
 1. card: ``nvidia-smi`` name, power limit and SM clock, library versions,
-   kernel builds (one ``nvcc`` per source, all at once)
+   kernel builds (one ``nvcc`` per source, all six at once)
 2a. ``scar_eval`` (a whole window's scores, comm terms included, in one
    launch) against ``scar_eval_window_plain``, bit for bit, over a sweep
    of shapes (one and four models a launch) and on every window of the
@@ -140,11 +141,28 @@ package.  Phases, each printed as it runs:
    sites elsewhere are printed.  Plans stay those of phases 4, 5 and 9;
    the linter's own run over ``src/repro_torch`` (its wall time on this
    host) opens the phase
-8. summary: a JSON line of the portfolio, multimodel, serving and sync
-   witness numbers,
+14. training (before the summary): ``flash_attention_bwd`` and
+   ``ssd_scan_bwd`` against ``attention_bwd_plain`` / ``ssd_scan_bwd_plain``
+   over sweeps (zamba2-2.7b's training shapes, float32 at small shapes,
+   GQA at head_dim 128, slow-decay SSD; bf16 elementwise within 2e-2,
+   float32 within 2e-5 of the largest plain gradient), their times at
+   zamba2's shapes beside the bound and, for attention, the backward of
+   ``F.scaled_dot_product_attention``; reduced zamba2 in float32 on the
+   kernels, three AdamW steps against the JAX reference's
+   (``tests/fixtures/torch_train_golden.npz``, the CPU test's limits);
+   zamba2-2.7b at full width (bf16, seeded random weights, batch 4 x 1024,
+   remat ``nothing``, AdamW with float32 moments): a warm-up step, every
+   parameter leaf's gradient nonzero after it, three timed steps (step
+   time, tokens/s, peak memory, 6 N T FLOP a step over that time, launches
+   a step) and one profiled step; then ``python -m
+   repro_torch.launch.train --smoke --device cuda`` crashed at step 12,
+   resumed, and its losses ``==`` a clean run's
+8. summary: a JSON line of the portfolio, multimodel, serving, sync
+   witness and training numbers,
    then one of per-kernel numbers (``launches_by_path`` includes the
-   online, portfolio, realized and served runs; ``shapes`` the new models'
-   kernel shapes of phase 2e)
+   online, portfolio, realized, served and trained runs; ``shapes`` the
+   new models' kernel shapes of phase 2e; the backward kernels' launches
+   are those of the three timed full-width steps)
 10. last line: ``{"ok": true, "device": {...}}``
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -203,7 +221,7 @@ PORTFOLIO_GOLDEN = (ROOT / "tests" / "fixtures"
 # the float32 scan's 128): kernel path against plain path, each routing its
 # own tokens, within 1e-3 of the largest logit (phase 6's float32 check)
 F32_POD_ARCHS = ("minitron-8b", "qwen2-moe-a2.7b")
-PROFILER_TRIES = 2              # sessions before a profiled time is None
+PROFILER_TRIES = 4              # profiler sessions before giving up
 PORTFOLIO_PROCS = 4
 FLASH_S = (1, 64, 1000, 2048)
 FLASH_D = (16, 64, 80, 128)
@@ -293,13 +311,18 @@ def profiled_device_ms(fn, reps: int = 25):
     """Device time (ms) of one ``fn()`` call from ``torch.profiler``: the
     sum over every device event the call makes (all its kernels, and any
     fill it needs), with the parts as ``(name, events per call, ms per
-    call)``; ``(None, [])`` when the profiler records none in
-    ``PROFILER_TRIES`` sessions (it sometimes returns a session without
-    device events)."""
+    call)``.  The profiler sometimes returns a session without device
+    events, or one that lost some (a part counted a fractional number of
+    times a call): such a session is taken again, up to
+    ``PROFILER_TRIES`` sessions.  ``(None, [])`` (not measured) when none
+    recorded every event, rather than an undercount."""
     for _ in range(PROFILER_TRIES):
         ms, parts = _profiled_device_ms(fn, reps)
-        if parts:
+        if parts and all(float(n).is_integer() for _, n, _ in parts):
             return ms, parts
+        if parts:
+            print(f"  (profiler session lost device events: "
+                  f"{show_parts(parts)})")
     return None, []
 
 
@@ -550,12 +573,12 @@ def span_totals(run) -> str:
                      sorted(totals.items(), key=lambda kv: -kv[1]))
 
 
-def device_time_of(run, host_ops: bool = True
+def device_time_of(run, host_ops: bool = True, top: int = 5
                    ) -> tuple[float, float, list, int]:
     """``(wall s, device-busy s, top kernels, device events)`` of one
     ``run()`` under ``torch.profiler``: the sum of the device's own events
-    (kernels, copies, memsets), the five largest by total time, and their
-    number.  The profiler slows the host, so the wall time here is longer
+    (kernels, copies, memsets), the ``top`` largest by total time (all
+    with ``top=None``), and their number.  The profiler slows the host, so the wall time here is longer
     than unprofiled; ``host_ops=False`` records the device alone (a run of
     some 10^5 launches then takes seconds, not minutes, to summarise)."""
     from torch.autograd import DeviceType
@@ -576,7 +599,7 @@ def device_time_of(run, host_ops: bool = True
                          getattr(ev, "self_cuda_time_total", 0.0))
         rows.append((ev.key[:60], ev.count, dev_us / 1e6))
     rows.sort(key=lambda r: -r[2])
-    return wall, sum(r[2] for r in rows), rows[:5], sum(r[1] for r in rows)
+    return wall, sum(r[2] for r in rows), rows[:top], sum(r[1] for r in rows)
 
 
 def golden_mcm(case):
@@ -1713,9 +1736,433 @@ def serve_phase(dev, smi) -> dict:
     return out
 
 
+# training (phase 14): the backward kernels' sweeps, each case (B, S, Hq,
+# Hkv, D, causal, bf16?) and (B, L, H, N, P, chunk, q and k broadcast,
+# slow decay, bf16?); the first of each is zamba2-2.7b's training shape
+# (its shared attention; its Mamba-2 scan), the slow-decay SSD cases are
+# phase 2d's; float32 at small shapes, GQA at head_dim 128
+FLASH_BWD_CASES = ((4, 1024, 32, 32, 80, True, True),
+                   (2, 256, 8, 2, 128, True, True),
+                   (2, 256, 8, 2, 128, True, False),
+                   (2, 100, 4, 4, 64, False, False),
+                   (1, 130, 4, 1, 16, True, True),
+                   (2, 64, 4, 4, 80, True, False))
+SSD_BWD_CASES = ((4, 1024, 80, 64, 64, 256, True, False, True),
+                 (2, 64, 8, 16, 16, 16, True, False, False),
+                 (1, 512, 4, 64, 64, 128, False, False, False),
+                 (2, 256, 4, 32, 48, 64, False, False, True),
+                 (1, 1024, 8, 64, 64, 256, True, True, False),
+                 (4, 1024, 80, 64, 64, 256, True, True, True))
+TRAIN_GOLDEN = ROOT / "tests" / "fixtures" / "torch_train_golden.npz"
+TRAIN_ARCH = "zamba2-2.7b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 4, 1024, 3
+# kernel launches of one full-width zamba2 training step (remat "nothing"):
+# each of the 9 attention and 45 Mamba-2 layers runs its forward kernel in
+# the forward pass and again when the backward recomputes its super-block,
+# then its backward kernel once
+TRAIN_LAUNCHES = {"flash_attention": 18, "flash_attention_bwd": 9,
+                  "ssd_scan": 90, "ssd_scan_bwd": 45}
+# the profiled step's device time by kind, by kernel name
+TRAIN_OP_KINDS = (("LM kernels", ("attn_bwd", "ssd_bwd", "flash_", "ssd_")),
+                  ("GEMMs", ("gemm", "sm90_", "cutlass", "xmma", "nvjet")),
+                  ("elementwise", ("elementwise", "reduce", "index",
+                                   "scatter", "gather")))
+TRAIN_DRIVER_ARGV = ["--arch", TRAIN_ARCH, "--smoke", "--device", "cuda",
+                     "--batch", "2", "--seq", "16", "--steps", "20",
+                     "--ckpt-every", "10", "--log-every", "100"]
+
+
+def lm_kernels() -> dict:
+    """The LM kernels' wrappers by name (their ``launches`` counts)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    return {"flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
+            "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd}
+
+
+def zero_lm_counts() -> None:
+    for fn in lm_kernels().values():
+        fn.launches = 0
+
+
+def lm_counts() -> dict:
+    return {name: fn.launches for name, fn in lm_kernels().items()}
+
+
+def flash_bwd_bound_ms(q, k, causal) -> tuple[float, str]:
+    """``flash_attention_bwd``'s least time: q, k, v, o and dO read and dQ,
+    dK and dV written once; five products of the visible (query, key)
+    pairs (S, dP, dV, dQ, dK), two operations a multiply-add, at the peak
+    rate of the inputs' type."""
+    B, S, Hq, D = q.shape
+    Skv, Hkv = k.shape[1:3]
+    pairs = S * (S + 1) // 2 if causal else S * Skv
+    es = q.element_size()
+    nbytes = es * (4 * B * S * Hq * D + 4 * B * Skv * Hkv * D)
+    flops = 10 * B * Hq * D * pairs
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_bwd_bound_ms(q, k, v, chunk) -> tuple[float, str]:
+    """``ssd_scan_bwd``'s least time: q and k read and their gradients
+    written once at their own widths (once per batch row when broadcast
+    over heads), v and dO read and dv written, a read and da written;
+    per (batch, head) the in-chunk causal pairs times 3 N + 2 P
+    multiply-adds (q k^T, dO v^T, dq, dk, dv) plus 5 N P a position (the
+    forward and backward states and their terms in dq, dk, dv)."""
+    B, L, H, N = q.shape
+    P = v.shape[-1]
+    c = min(chunk, L)
+    es = v.element_size()
+    heads_q = 1 if q.stride(2) == 0 else H
+    heads_k = 1 if k.stride(2) == 0 else H
+    nbytes = (es * (2 * B * L * (heads_q + heads_k) * N + 3 * B * L * H * P)
+              + 8 * B * L * H)
+    flops = B * H * (L * (c + 1) * (3 * N + 2 * P) + 10 * L * N * P)
+    peak = BF16_FLOP_PER_S if v.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hold_grads(got, ref, dtype, what: str) -> float:
+    """Each gradient of a backward kernel against its plain version:
+    bf16 elementwise within 2e-2 (rtol and atol), float32 within 2e-5 of
+    the largest plain entry; the largest error."""
+    hold = kernel_err if dtype == torch.bfloat16 else (
+        lambda o, r, _dt, w: kernel_err_of_max(o, r, w))
+    return max(hold(o, r, dtype, f"{what} d{name}")
+               for o, r, name in zip(got, ref, "qkva"))
+
+
+PROFILE_BWD_ARG = "--profile-backward-kernels"
+
+
+def backward_device_ms_in_child() -> dict:
+    """The profiler's device time of each backward kernel at zamba2-2.7b's
+    training shape, ``{name: (ms, parts)}``, taken in a new process: late
+    in this script's run (after phase 12's profiled xLSTM prefill, some
+    3.6e5 device events) the profiler drops whole calls' events in every
+    session, while a new process records them all."""
+    proc = subprocess.run(
+        [sys.executable, str(pathlib.Path(__file__).resolve()),
+         PROFILE_BWD_ARG], capture_output=True, text=True, timeout=600,
+        cwd=ROOT)
+    check(proc.returncode == 0, f"profiling the backward kernels in a new "
+          f"process failed: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def profile_backward_kernels() -> None:
+    """The child of ``backward_device_ms_in_child``: seeded inputs at the
+    sweeps' first (zamba2) shapes, the profiled device times as JSON."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    B, S, Hq, Hkv, D, causal, _ = FLASH_BWD_CASES[0]
+    q, do = rn(B, S, Hq, D), rn(B, S, Hq, D)
+    k, v = rn(B, S, Hkv, D), rn(B, S, Hkv, D)
+    o = flash_attention(q, k, v, causal=causal)
+    out = {"flash_attention_bwd": profiled_device_ms(
+        lambda: flash_attention_bwd(q, k, v, o, do, causal=causal),
+        reps=10)}
+    B, L, H, N, P, c, _, _, _ = SSD_BWD_CASES[0]
+    q, k = (rn(B, L, 1, N).expand(B, L, H, N) for _ in range(2))
+    v, do = rn(B, L, H, P), rn(B, L, H, P)
+    a = -torch.nn.functional.softplus(rn(B, L, H, dtype=torch.float32))
+    out["ssd_scan_bwd"] = profiled_device_ms(
+        lambda: ssd_scan_bwd(q, k, v, a, do, chunk=c), reps=10)
+    print(json.dumps(out))
+
+
+def backward_kernels_phase(g, dev, smi) -> dict:
+    """Phase 14a-b: both backward kernels against their plain versions over
+    the sweeps, then times at zamba2-2.7b's training shapes."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_plain,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_plain
+    out = {}
+    for B, S, Hq, Hkv, D, causal, bf in FLASH_BWD_CASES:
+        dt = torch.bfloat16 if bf else torch.float32
+        q, do = randn((B, S, Hq, D), g, dt, dev), randn((B, S, Hq, D), g, dt,
+                                                         dev)
+        k, v = randn((B, S, Hkv, D), g, dt, dev), randn((B, S, Hkv, D), g,
+                                                         dt, dev)
+        o = flash_attention(q, k, v, causal=causal)
+        err = hold_grads(flash_attention_bwd(q, k, v, o, do, causal=causal),
+                         attention_bwd_plain(q, k, v, o, do, causal=causal),
+                         dt, f"flash_attention_bwd {(B, S, Hq, Hkv, D)} "
+                         f"causal={causal} {dt}")
+        print(f"flash_attention_bwd B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+              f"causal={causal} {dt}: max |kernel - plain| {err!r}")
+        if (B, S, Hq, D, bf) == (4, 1024, 32, 80, True):
+            out["flash_attention_bwd"] = {"args": (q, k, v, o, do),
+                                          "max_abs_err": err}
+    for B, L, H, N, P, c, bc, slow, bf in SSD_BWD_CASES:
+        dt = torch.bfloat16 if bf else torch.float32
+        hq = 1 if bc else H
+        q = randn((B, L, hq, N), g, dt, dev).expand(B, L, H, N)
+        k = randn((B, L, hq, N), g, dt, dev).expand(B, L, H, N)
+        v, do = randn((B, L, H, P), g, dt, dev), randn((B, L, H, P), g, dt,
+                                                        dev)
+        if slow:
+            a = -0.01 * torch.rand((B, L, H), generator=g, device=dev)
+        else:
+            a = -torch.nn.functional.softplus(
+                torch.randn((B, L, H), generator=g, device=dev))
+        got = ssd_scan_bwd(q, k, v, a, do, chunk=c)
+        ref = ssd_scan_bwd_plain(q, k, v, a, do, chunk=c)
+        # da is float32 on both sides: held to 2e-5 of its largest entry
+        err = max(hold_grads(got[:3], ref[:3], dt, f"ssd_scan_bwd "
+                             f"{(B, L, H, N, P, c)} slow={slow} {dt}"),
+                  kernel_err_of_max(got[3], ref[3], f"ssd_scan_bwd "
+                                    f"{(B, L, H, N, P, c)} da"))
+        print(f"ssd_scan_bwd B={B} L={L} H={H} N={N} P={P} chunk={c} "
+              f"broadcast={bc} slow={slow} {dt}: max |kernel - plain| "
+              f"{err!r}")
+        if (B, L, H, bf, slow) == (4, 1024, 80, True, False):
+            out["ssd_scan_bwd"] = {"args": (q, k, v, a, do, c),
+                                   "max_abs_err": err}
+    # times at zamba2-2.7b's shapes
+    q, k, v, o, do = out["flash_attention_bwd"].pop("args")
+    f_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, do))
+    f_p_ms = cuda_ms(lambda: attention_bwd_plain(q, k, v, o, do), reps=5)
+    dev_ms = backward_device_ms_in_child()
+    f_dev, f_parts = dev_ms["flash_attention_bwd"]
+    f_b, f_by = flash_bwd_bound_ms(q, k, True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lq, lk, lv = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    lout = sdpa(lq, lk, lv, is_causal=True)
+    ldo = do.transpose(1, 2)
+    lib = torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True)
+    lib_err = max((x.transpose(1, 2).float() - y.float()).abs().max().item()
+                  for x, y in zip(lib, attention_bwd_plain(q, k, v, o, do)))
+    f_lib = cuda_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo,
+                                                retain_graph=True))
+    del lib, lout
+    out["flash_attention_bwd"].update(
+        ms=f_ms, plain_ms=f_p_ms, device_ms=f_dev, bound_ms=f_b,
+        bound_by=f_by, library_ms=f_lib)
+    print(f"flash_attention_bwd at zamba2-2.7b's training shape (q, k, v "
+          f"[4, 1024, 32, 80] bf16, causal): per call (CUDA events, median "
+          f"of 25) kernel {f_ms:.6f} ms, plain {f_p_ms:.6f} ms; device time "
+          f"(profiler, a new process) {f_dev!r} ms [{show_parts(f_parts)}]; "
+          f"bound {f_b:.6f} ms ({f_by}); torch.autograd.grad of "
+          f"F.scaled_dot_product_attention {f_lib:.6f} ms (max |sdpa - "
+          f"plain| {lib_err:.4g}); on {smi}")
+    q, k, v, a, do, c = out["ssd_scan_bwd"].pop("args")
+    s_ms = cuda_ms(lambda: ssd_scan_bwd(q, k, v, a, do, chunk=c))
+    s_p_ms = cuda_ms(lambda: ssd_scan_bwd_plain(q, k, v, a, do, chunk=c),
+                     reps=5)
+    s_dev, s_parts = dev_ms["ssd_scan_bwd"]
+    s_b, s_by = ssd_bwd_bound_ms(q, k, v, c)
+    out["ssd_scan_bwd"].update(
+        ms=s_ms, plain_ms=s_p_ms, device_ms=s_dev, bound_ms=s_b,
+        bound_by=s_by, library_ms=None)
+    print(f"ssd_scan_bwd at zamba2-2.7b's training shape (q, k [4, 1024, "
+          f"80, 64] broadcast over heads, v [4, 1024, 80, 64] bf16, chunk "
+          f"256): per call (CUDA events, median of 25) kernel {s_ms:.6f} "
+          f"ms, plain {s_p_ms:.6f} ms; device time (profiler, a new process) "
+          f"{s_dev!r} ms [{show_parts(s_parts)}]; bound {s_b:.6f} ms "
+          f"({s_by}); no "
+          f"library call computes it; on {smi}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def training_phase(dev, smi) -> dict:
+    """Phase 14: training.  (a) the backward kernels were built in phase 1;
+    (b) each held against its plain version, timed; (c) reduced zamba2 in
+    float32 on the kernels against the reference's three training steps
+    (``tests/fixtures/torch_train_golden.npz``); (d) zamba2-2.7b trained
+    at full width; (e) the train driver's crash and resume."""
+    import shutil
+    import tempfile
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.platform import device_fetch
+    from repro_torch.models import ModelDims, get_arch, init_params
+    from repro_torch.models.steps import (batch_to_device, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.models.testing import (TRAIN_TOL, _fixture_config,
+                                            train_fixture_errors,
+                                            train_steps)
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.optim.tree import tree_flatten_with_paths, tree_leaves
+    g = torch.Generator(device=dev).manual_seed(14)
+    t_phase = time.perf_counter()
+    out = {"kernels": backward_kernels_phase(g, dev, smi)}
+
+    # (c) reduced zamba2, float32, kernels forward and backward
+    with np.load(TRAIN_GOLDEN) as f:
+        fix = {k: f[k] for k in f.files}
+    zero_lm_counts()
+    run = train_steps(_fixture_config(fix), fix, dev)
+    counts = lm_counts()
+    check(all(counts.values()), f"the reduced float32 training launched "
+          f"{counts}: every LM kernel must run")
+    errs = train_fixture_errors(fix, run)
+    for key, tol in TRAIN_TOL.items():
+        check(errs[key] <= tol, f"reduced zamba2 float32 training on the "
+              f"card: {key} error {errs[key]} beyond {tol} (the CPU "
+              "test's limit)")
+    out["reduced_f32"] = {"errors": errs, "launches": counts,
+                          "loss": run["loss"].tolist(),
+                          "grad_norm": run["grad_norm"].tolist()}
+    print(f"reduced zamba2 float32 (TF32 off), 3 AdamW steps against the "
+          f"JAX reference's: errors {errs} (limits {TRAIN_TOL}); losses "
+          f"{run['loss'].tolist()} (reference {fix['loss'].tolist()}); "
+          f"launches {counts}")
+
+    # (d) zamba2-2.7b at full width, bf16, seeded random weights
+    cfg = get_arch(TRAIN_ARCH)
+    dims = ModelDims.create(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, dims, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    opt = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=100)
+    state = adamw.init_state(opt, params)
+    step = make_train_step(cfg, dims, opt, remat=True,
+                           remat_policy="nothing", device=dev)
+    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    zero_lm_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, data.batch_at(0))
+    warm_loss, warm_norm = device_fetch(m["loss"], m["grad_norm"])
+    warm_s = time.perf_counter() - t0
+    step_counts = lm_counts()
+    check(step_counts == TRAIN_LAUNCHES, f"one full-width training step "
+          f"launched {step_counts}, want {TRAIN_LAUNCHES}")
+    # the guard against a silent detach: every leaf's gradient after step 1
+    zero_lm_counts()
+    loss1, grads = loss_and_grads(cfg, dims, params, batch_to_device(
+        data.batch_at(1), dev))
+    check(lm_counts() == TRAIN_LAUNCHES, f"loss_and_grads launched "
+          f"{lm_counts()}, want {TRAIN_LAUNCHES}")
+    named = list(tree_flatten_with_paths(grads))
+    nonzero = torch.stack([torch.count_nonzero(t) for _, t in named])
+    finite = torch.stack([torch.isfinite(t).all() for _, t in named])
+    nonzero, finite = device_fetch(nonzero, finite)
+    dead = [p for (p, _), n in zip(named, nonzero) if n == 0]
+    check(not dead, f"parameter leaves with an all-zero gradient after "
+          f"step 1: {dead}")
+    check(bool(finite.all()), "a gradient leaf is not finite")
+    del grads
+    zero_lm_counts()
+    times, losses, norms = [], [float(warm_loss[()])], [float(warm_norm[()])]
+    for s in range(1, 1 + TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, data.batch_at(s))
+        loss, norm = device_fetch(m["loss"], m["grad_norm"])
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss[()]))
+        norms.append(float(norm[()]))
+    timed_counts = lm_counts()
+    check(timed_counts == {k: TRAIN_TIMED * v
+                           for k, v in TRAIN_LAUNCHES.items()},
+          f"{TRAIN_TIMED} training steps launched {timed_counts}")
+    check(bool(np.isfinite(losses).all() and np.isfinite(norms).all()),
+          f"full-width losses {losses}, grad norms {norms}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = float(np.median(times))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens
+    wall, busy, rows, n_ev = device_time_of(
+        lambda: step(params, state, data.batch_at(1 + TRAIN_TIMED)),
+        host_ops=False, top=None)
+    top = rows[:8]
+    by_kind = collections.Counter()
+    for name, _, sec in rows:
+        by_kind[next((kind for kind, keys in TRAIN_OP_KINDS
+                      if any(key in name for key in keys)), "other")] += sec
+    del params, state
+    torch.cuda.empty_cache()
+    out["zamba2_full_width"] = {
+        "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "losses": losses, "grad_norms": norms, "warmup_step_s": warm_s,
+        "step_s": times, "median_step_s": step_s,
+        "tokens_per_s": tokens / step_s, "peak_gib": peak,
+        "model_flops_per_step": flops,
+        "model_flops_per_s": flops / step_s,
+        "model_flops_share_of_bf16_peak": flops / step_s / BF16_FLOP_PER_S,
+        "launches_per_step": step_counts,
+        "launches_timed_steps": timed_counts,
+        "profiled_step_wall_s": wall, "device_busy_s": busy,
+        "device_idle_share": 1 - busy / wall, "device_events": n_ev,
+        "device_s_by_kind": dict(by_kind),
+        "top_device_ops": [(k, c, t) for k, c, t in top]}
+    print(f"zamba2-2.7b training at full width ({n_params} parameters, "
+          f"bf16, batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat 'nothing', AdamW "
+          f"float32 moments): losses {losses}, grad norms {norms}; every "
+          f"one of {len(named)} parameter leaves has a nonzero gradient "
+          f"after step 1; warm-up step {warm_s:.3f} s, steps {times} s, "
+          f"median {step_s:.4f} s = {tokens / step_s:.1f} tokens/s, peak "
+          f"{peak:.3f} GiB, 6 N T = {flops:.4g} FLOP a step = "
+          f"{flops / step_s / 1e12:.2f} TFLOP/s "
+          f"({100 * flops / step_s / BF16_FLOP_PER_S:.2f}% of 989); "
+          f"launches per step {step_counts}; profiled step: wall "
+          f"{wall:.4f} s, device busy {busy:.6f} s (idle "
+          f"{100 * (1 - busy / wall):.2f}%) in {n_ev} device events, by "
+          f"kind (s) {dict(by_kind)}, top:"
+          + "; ".join(f" {k} x{c} {t:.6f} s" for k, c, t in top)
+          + f"; on {smi}")
+
+    # (e) the driver: a crash at step 12, a resume, and a clean run
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_train_", dir=scratch))
+    try:
+        zero_lm_counts()
+        crashed = False
+        try:
+            train.main(TRAIN_DRIVER_ARGV + ["--ckpt-dir", str(tmp / "a"),
+                                            "--fail-at-step", "12"])
+        except RuntimeError as exc:
+            crashed = "simulated failure" in str(exc)
+        check(crashed, "the driver did not stop at step 12")
+        resumed = train.main(TRAIN_DRIVER_ARGV + ["--ckpt-dir",
+                                                  str(tmp / "a")])
+        clean = train.main(TRAIN_DRIVER_ARGV + ["--ckpt-dir", str(tmp / "b")])
+        driver_counts = lm_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(resumed["losses"] == clean["losses"][10:],
+          f"resumed losses {resumed['losses']} != the clean run's "
+          f"{clean['losses'][10:]}")
+    check(all(driver_counts.values()), f"the driver runs launched "
+          f"{driver_counts}")
+    out["driver"] = {"resumed_losses": resumed["losses"],
+                     "final_loss": clean["final_loss"],
+                     "launches": driver_counts}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"train driver (reduced zamba2, bf16, on the card): crashed at "
+          f"step 12, resumed from step 10; its losses == the clean run's "
+          f"steps 10-19 {clean['losses'][10:]}; launches over the three "
+          f"runs {driver_counts}; phase 14 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing to measure")
+    if sys.argv[1:] == [PROFILE_BWD_ARG]:
+        profile_backward_kernels()
+        return
     from repro_torch.kernels import build
     from repro_torch.kernels.scar_eval import (scar_eval,
                                                scar_eval_window_plain)
@@ -1745,7 +2192,7 @@ def main() -> None:
           "numpy lacks bitwise_count (engine.batched_fitness needs >= 2.0)")
     t0 = time.perf_counter()
     build.build(["scar_eval", "scar_search", "flash_attention",
-                 "ssd_scan"])
+                 "ssd_scan", "flash_attention_bwd", "ssd_scan_bwd"])
     print(f"kernel build {time.perf_counter() - t0:.3f} s "
           f"(nvcc: {build.build_seconds})")
     for name, log in build.build_log.items():
@@ -2494,9 +2941,15 @@ def main() -> None:
           "cuda replay, under set_sync_debug_mode('warn')")
     witness = sync_witness_phase(golden, dev, smi)
 
+    phase("14 training: the backward kernels, reduced zamba2 against the "
+          "reference's steps, zamba2-2.7b at full width, the train driver")
+    trained = training_phase(dev, smi)
+
     phase("8 summary")
     print(json.dumps({"portfolio": portfolio, "multimodel": pod,
-                      "serve": served, "sync_witness": witness}))
+                      "serve": served, "sync_witness": witness,
+                      "training": {k: v for k, v in trained.items()
+                                   if k != "kernels"}}))
     print(json.dumps({"kernels": [{
         "name": "scar_eval", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scar_eval.cu",
@@ -2562,7 +3015,25 @@ def main() -> None:
             **{f"serve_{a}": served[a]["launches_per_prefill"]["ssd_scan"]
                for a in NEW_SERVE}},
         "shapes": new_shapes["ssd_scan"],
-    }]}))
+    }, *({
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": trained["zamba2_full_width"]["launches_timed_steps"][
+            name],
+        **trained["kernels"][name],
+        "launches_by_path": {
+            "train_zamba2_step": trained["zamba2_full_width"][
+                "launches_per_step"][name],
+            f"train_zamba2_{TRAIN_TIMED}_steps": trained[
+                "zamba2_full_width"]["launches_timed_steps"][name],
+            "train_reduced_f32": trained["reduced_f32"]["launches"][name],
+            "train_driver_3_runs": trained["driver"]["launches"][name]},
+    } for name, replaces in (
+        ("flash_attention_bwd", "src/repro/models/layers.py:94 (_sdpa, "
+         "differentiated by jax.grad; no TPU kernel)"),
+        ("ssd_scan_bwd", "src/repro/models/layers.py:314 (gla_chunked, "
+         "differentiated by jax.grad; no TPU kernel)")))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,18 +1,20 @@
 """Short first check of the LM kernels on the card: build, compare, time.
 
-Builds ``flash_attention`` and ``ssd_scan`` from ``src/repro_torch/kernels/
-csrc`` (printing ``ptxas``'s register and spill report), compares each with
-its plain torch version on a few shapes in float32 and bf16 (printing the
-max |kernel - plain|), and times one call of each at the zamba2-2.7b serve
-shapes (batch 4, prompt 1024) with CUDA events over five calls.  It is the
-quick call to make after editing a kernel; ``chip_smoke.py`` is the full
-check.  Needs a CUDA device.
+Builds ``flash_attention`` and ``ssd_scan`` and their backward kernels from
+``src/repro_torch/kernels/csrc`` (printing ``ptxas``'s register and spill
+report), compares each with its plain torch version on a few shapes in
+float32 and bf16 (printing the max |kernel - plain|, and for the backward
+kernels that over the largest plain gradient), and times one call of each
+at the zamba2-2.7b shapes (batch 4, sequence 1024) with CUDA events over
+five calls.  It is the quick call to make after editing a kernel;
+``chip_smoke.py`` is the full check.  Needs a CUDA device.
 
-Usage: python scripts/lm_kernel_check.py
+Usage: python scripts/lm_kernel_check.py [--grad-only]
 """
 from __future__ import annotations
 
 import os
+import subprocess
 import sys
 import time
 
@@ -22,8 +24,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import attention_plain, flash_attention
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.flash_attention import (attention_bwd_plain,
+                                                 attention_plain,
+                                                 flash_attention,
+                                                 flash_attention_bwd)
+from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd,
+                                          ssd_scan_bwd_plain, ssd_scan_plain)
 
 # (B, Sq, Skv, Hq, Hkv, D, causal, q_offset, kv_len)
 FLASH = [(1, 64, 64, 2, 1, 16, True, 0, None),
@@ -52,11 +58,88 @@ def events_ms(fn, n: int = 5) -> float:
     return start.elapsed_time(end) / n
 
 
+# backward: (B, S, Hq, Hkv, D, causal) and (B, L, H, N, P, chunk, broadcast)
+FLASH_BWD = [(1, 64, 2, 1, 16, True), (2, 100, 4, 2, 80, True),
+             (2, 130, 4, 4, 64, False), (1, 256, 8, 2, 128, True),
+             (4, 1024, 32, 32, 80, True)]
+SSD_BWD = [(1, 64, 2, 16, 16, 16, False), (2, 96, 3, 16, 16, 16, True),
+           (1, 512, 2, 64, 64, 128, False), (2, 512, 4, 64, 32, 256, True),
+           (4, 1024, 80, 64, 64, 256, True)]
+
+
+def device_parts(fn, n: int = 5) -> str:
+    """Each device kernel's time (ms a call) over ``n`` calls, from
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total",
+                     getattr(ev, "cuda_time_total", 0.0))
+        if us > 0 and ev.count:
+            rows.append(f"{ev.key[:50]} x{ev.count / n:g} {us / n / 1e3:.4f}")
+    return "; ".join(rows)
+
+
+def rel_err(outs, refs) -> list:
+    return [round(((o.float() - r.float()).abs().max()
+                   / r.float().abs().max().clamp_min(1e-30)).item(), 8)
+            for o, r in zip(outs, refs)]
+
+
+def grad_checks(rn) -> None:
+    for dt in (torch.float32, torch.bfloat16):
+        for B, S, Hq, Hkv, D, causal in FLASH_BWD:
+            q, do = rn(B, S, Hq, D, dt=dt), rn(B, S, Hq, D, dt=dt)
+            k, v = rn(B, S, Hkv, D, dt=dt), rn(B, S, Hkv, D, dt=dt)
+            o = flash_attention(q, k, v, causal=causal)
+            got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+            ref = attention_bwd_plain(q, k, v, o, do, causal=causal)
+            torch.cuda.synchronize()
+            print("flash_bwd", dt, B, S, Hq, Hkv, D, causal,
+                  "err/max (dq, dk, dv)", rel_err(got, ref), flush=True)
+        for B, L, H, N, P, c, shared in SSD_BWD:
+            hq = 1 if shared else H
+            q = rn(B, L, hq, N, dt=dt).expand(B, L, H, N)
+            k = rn(B, L, hq, N, dt=dt).expand(B, L, H, N)
+            v, do = rn(B, L, H, P, dt=dt), rn(B, L, H, P, dt=dt)
+            a = -torch.nn.functional.softplus(rn(B, L, H))
+            got = ssd_scan_bwd(q, k, v, a, do, chunk=c)
+            ref = ssd_scan_bwd_plain(q, k, v, a, do, chunk=c)
+            torch.cuda.synchronize()
+            print("ssd_bwd", dt, B, L, H, N, P, c, shared,
+                  "err/max (dq, dk, dv, da)", rel_err(got, ref), flush=True)
+    bf = torch.bfloat16
+    q, k, v, do = (rn(4, 1024, 32, 80, dt=bf) for _ in range(4))
+    o = flash_attention(q, k, v)
+    print("flash_bwd ms", events_ms(
+        lambda: flash_attention_bwd(q, k, v, o, do)))
+    print("flash_bwd parts", device_parts(
+        lambda: flash_attention_bwd(q, k, v, o, do)))
+    q = rn(4, 1024, 1, 64, dt=bf).expand(4, 1024, 80, 64)
+    k = rn(4, 1024, 1, 64, dt=bf).expand(4, 1024, 80, 64)
+    v, do = rn(4, 1024, 80, 64, dt=bf), rn(4, 1024, 80, 64, dt=bf)
+    a = -torch.nn.functional.softplus(rn(4, 1024, 80))
+    print("ssd_bwd ms", events_ms(
+        lambda: ssd_scan_bwd(q, k, v, a, do, chunk=256)))
+    print("ssd_bwd parts", device_parts(
+        lambda: ssd_scan_bwd(q, k, v, a, do, chunk=256)))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("lm_kernel_check: no CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
     t0 = time.perf_counter()
-    build.build(["flash_attention", "ssd_scan"])
+    build.build(["flash_attention", "ssd_scan", "flash_attention_bwd",
+                 "ssd_scan_bwd"])
     print("build", time.perf_counter() - t0, build.build_seconds)
     for name, log in build.build_log.items():
         print(name, log)
@@ -64,6 +147,10 @@ def main() -> None:
 
     def rn(*shape, dt=torch.float32):
         return torch.randn(*shape, generator=g, device="cuda").to(dt)
+
+    grad_checks(rn)
+    if "--grad-only" in sys.argv:
+        return
 
     for dt in (torch.float32, torch.bfloat16):
         for B, Sq, Skv, Hq, Hkv, D, causal, off, kvl in FLASH:

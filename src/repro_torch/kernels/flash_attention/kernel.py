@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from .. import needs_grad
 from ..build import load_library
 
 __all__ = ["NEG_INF", "attention_plain", "flash_attention"]
@@ -103,7 +104,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``q_offset`` and ``kv_len`` are Python ints (no device read).  Tensors
     on the CPU take ``attention_plain``.  ``flash_attention.launches``
-    counts kernel launches.
+    counts kernel launches.  Other tensors that require grad (with grad
+    mode on) raise ``NotImplementedError``: the kernel's output is invisible
+    to autograd, and ``grad.attention`` is the differentiable call.
     """
     Skv = k.shape[1]
     kv_len = Skv if kv_len is None else int(kv_len)
@@ -112,6 +115,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dev.type == "cpu":
         return attention_plain(q, k, v, causal=causal, q_offset=q_offset,
                                kv_len=kv_len, sm_scale=sm_scale)
+    if needs_grad(q, k, v):
+        # the kernel's output has no grad_fn: a gradient would be lost
+        raise NotImplementedError(
+            "flash_attention: the inputs require grad, and the kernel's "
+            "output would carry none; call grad.attention (the backward "
+            "kernel's autograd.Function) instead")
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {dev}")
     q4, k4, v4 = _as_4d(q), _as_4d(k), _as_4d(v)

@@ -46,6 +46,7 @@ import ctypes
 
 import torch
 
+from .. import needs_grad
 from ..build import load_library
 from ..scar_eval.kernel import blocked_cumsum
 
@@ -132,12 +133,21 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Tensors on the CPU take ``ssd_scan_plain``.  ``ssd_scan.launches``
     counts the kernel's launches (one per call; two for a float32 call
-    with ``norm``, which scans ``ones`` in a second launch).
+    with ``norm``, which scans ``ones`` in a second launch).  Other tensors
+    that require grad (with grad mode on) raise ``NotImplementedError``:
+    the kernel's output is invisible to autograd, and ``grad.scan`` is the
+    differentiable call.
     """
     _check(q, k, v, a, chunk)
     dev = v.device
     if dev.type == "cpu":
         return ssd_scan_plain(q, k, v, a, chunk=chunk, norm=norm)
+    if needs_grad(q, k, v, a):
+        # the kernel's output has no grad_fn: a gradient would be lost
+        raise NotImplementedError(
+            "ssd_scan: the inputs require grad, and the kernel's output "
+            "would carry none; call grad.scan (the backward kernel's "
+            "autograd.Function) instead")
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for {dev}")
     if norm and v.dtype == torch.float32:

@@ -7,12 +7,17 @@ carry over from the JAX package as they are (``models.convert``).  Every
 
 Two layer functions run the port's CUDA kernels on CUDA tensors:
 
-* ``sdpa_chunked`` (prefill attention) launches ``flash_attention``; a
-  single query row (decode) stays plain torch, as in the reference, where
-  decode attention is plain XLA ops outside any kernel;
+* ``sdpa_chunked`` (prefill and training attention) launches
+  ``flash_attention``; a single query row (decode) stays plain torch, as in
+  the reference, where decode attention is plain XLA ops outside any
+  kernel;
 * ``gla_chunked`` (the Mamba-2 SSD scan) launches ``ssd_scan``.
 
-On CPU tensors both take the plain versions.  ``attn_apply`` updates the
+On CPU tensors both take the plain versions.  With a gradient required
+both go through the kernels' ``autograd.Function``s, whose backward is a
+kernel too (``flash_attention_bwd``, ``ssd_scan_bwd``; their plain
+versions on the CPU); under ``torch.no_grad`` / ``inference_mode`` they
+launch what serving always launched.  ``attn_apply`` updates the
 KV cache in place where the reference returns an updated copy
 (``dynamic_update_slice_in_dim``).  The MoE layer's expert GEMMs are
 plain einsums, as in the reference, where they sit outside any kernel.
@@ -26,9 +31,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels import needs_grad
+from repro_torch.kernels.flash_attention import attention, flash_attention
 from repro_torch.kernels.flash_attention.kernel import NEG_INF
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import scan, ssd_scan
 
 Params = dict
 
@@ -166,11 +172,16 @@ def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors with more than one query row go to the ``flash_attention``
     kernel in one launch (it tiles the queries itself, so the score memory
     stays on chip); CPU tensors, and the one-row decode step, run
-    ``_sdpa`` chunk by chunk as the reference does.
+    ``_sdpa`` chunk by chunk as the reference does.  With a gradient
+    required, every call goes through ``FlashAttentionFn`` (on the CPU its
+    forward is the plain version and its backward ``attention_bwd_plain``).
     """
     B, Sq, Hq, hd = q.shape
     if Sq > q_chunk and Sq % q_chunk:
         raise ValueError("seq len must be a multiple of q_chunk")
+    if needs_grad(q, k, v):
+        return attention(q, k, v, causal=causal, q_offset=q_offset,
+                         kv_len=kv_len)
     if q.is_cuda and Sq > 1:
         return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                                kv_len=kv_len)
@@ -361,13 +372,19 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     reference combines chunk states with an associative scan.
     ``norm=True`` returns ``(o, den)``, den the normaliser the reference's
     mLSTM takes from a second call with ``v = ones[..., :1]`` ([B, L, H]):
-    on CUDA bf16 the one ``ssd_scan`` launch computes both.
+    on CUDA bf16 the one ``ssd_scan`` launch computes both.  With a
+    gradient required the call goes through ``SSDScanFn`` (the backward
+    kernel), which on the card raises for the normaliser and for heads
+    wider than 64 (``kernels.ssd_scan.grad.scan``).
     """
     L = q.shape[1]
     c = min(chunk, L)
     if L % c:
         raise ValueError("seq len must divide chunk size")
-    return ssd_scan(q, k, v, log_decay.float(), chunk=c, norm=norm)
+    a = log_decay.float()
+    if needs_grad(q, k, v, a):
+        return scan(q, k, v, a, chunk=c, norm=norm)
+    return ssd_scan(q, k, v, a, chunk=c, norm=norm)
 
 
 def gla_step(state: torch.Tensor, q: torch.Tensor, k: torch.Tensor,

@@ -5,7 +5,9 @@ smoke runs (counterpart of ``repro.models.testing``).
 ``numpy_tree`` draw from numpy generators, so a test or a fixture script
 can hand the same tokens and weights to the JAX package and to the port.
 ``teacher_forced`` runs a model the three ways the reference fixture
-(``scripts/make_torch_lm_golden.py``) records.
+(``scripts/make_torch_lm_golden.py``) records; ``train_steps`` and
+``train_fixture_errors`` run and hold three training steps against the
+reference's (``scripts/make_torch_train_golden.py``).
 """
 from __future__ import annotations
 
@@ -199,3 +201,77 @@ def teacher_forced(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
         steps.append(logits)
     return {"forward": full, "prefill_last": last,
             "decode": torch.stack(steps)}
+
+
+# Three AdamW steps (lr 1e-2) of reduced zamba2 against the reference's,
+# float32.  Adam's first steps divide each gradient by its own size, so an
+# entry whose gradient is near zero moves by a step's size on a last-bit
+# difference of that gradient, and the lr = 1e-2 steps carry such moves
+# on: the CPU port leaves the reference's parameters by up to 0.026 in a
+# few hundred of 377 136 entries after three steps, and its grad_norm by
+# 2e-3 relative at step 3.  So the parameters are held by the norm of the
+# difference over the norm of the reference's own update (0.006 on the
+# CPU), the losses and norms relative to themselves.
+TRAIN_TOL = {"loss": 2e-4, "grad_norm": 1e-2, "params": 2e-2}
+
+
+def flat_numpy(tree: dict, prefix: str) -> dict:
+    """``{prefix/path: float32 array}`` over a nested dictionary of arrays
+    (the fixture's key names)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_numpy(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = np.asarray(v, np.float32)
+    return out
+
+
+def train_steps(cfg: ArchConfig, fix: dict, device) -> dict:
+    """The fixture's three training steps run by the port on ``device``
+    (float32, from the fixture's weight seed and batches): ``loss`` and
+    ``grad_norm`` per step, and ``params``, the final parameters in the
+    fixture's flat layout."""
+    from repro_torch.launch.platform import device_fetch
+    from repro_torch.models.convert import numpy_from_params, \
+        params_from_numpy
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw
+    dims = ModelDims.create(cfg)
+    params = params_from_numpy(cfg, numpy_tree(cfg, int(fix["weight_seed"])),
+                               device=device, dtype=torch.float32)
+    opt = AdamWConfig(lr=float(fix["lr"]),
+                      warmup_steps=int(fix["warmup_steps"]))
+    state = adamw.init_state(opt, params)
+    step = make_train_step(cfg, dims, opt, device=device)
+    metrics = []
+    for i in range(len(fix["loss"])):
+        params, state, m = step(params, state, {"tokens": fix["tokens"][i],
+                                                "labels": fix["labels"][i]})
+        metrics.append((m["loss"], m["grad_norm"]))
+    host = device_fetch(*(t for pair in metrics for t in pair))
+    return {"loss": np.asarray(host[0::2], np.float32),
+            "grad_norm": np.asarray(host[1::2], np.float32),
+            "params": flat_numpy(numpy_from_params(cfg, params), "params")}
+
+
+def train_fixture_errors(fix: dict, run: dict) -> dict:
+    """The errors ``TRAIN_TOL`` bounds: the largest relative error of the
+    losses and of the grad norms, and ``|params - fixture|`` over
+    ``|fixture - initial params|`` (L2 over every entry)."""
+    init = flat_numpy(numpy_tree(_fixture_config(fix), int(
+        fix["weight_seed"])), "params")
+    keys = sorted(run["params"])
+    if keys != sorted(k for k in fix if k.startswith("params/")):
+        raise KeyError("the run's parameters are not the fixture's")
+    diff = sum(float(((run["params"][k] - fix[k]) ** 2).sum()) for k in keys)
+    moved = sum(float(((fix[k] - init[k]) ** 2).sum()) for k in keys)
+    return {k: float(np.max(np.abs(run[k] - fix[k]) / np.abs(fix[k])))
+            for k in ("loss", "grad_norm")} | {
+        "params": math.sqrt(diff / moved)}
+
+
+def _fixture_config(fix: dict) -> ArchConfig:
+    from .config import get_arch
+    return dataclasses.replace(reduced(get_arch(str(fix["arch"]))),
+                               dtype="float32")

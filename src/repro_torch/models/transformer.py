@@ -14,13 +14,20 @@ block's state and conv window and each xLSTM block's states; both return
 the cache they were given.
 Positions and cache indices are Python ints, so a decode loop reads nothing
 back from the device.
+
+Training: ``loss_fn`` is the reference's sequence-chunked cross-entropy,
+and ``_run_stack(remat=True)`` recomputes each super-block in the backward
+pass (``torch.utils.checkpoint``, non-reentrant) under one of the
+reference's three policies (``REMAT_POLICIES``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from .blocks import BlockCtx, block_apply, block_cache, block_init
 from .config import ArchConfig, BlockKind
@@ -98,14 +105,17 @@ def init_params(cfg: ArchConfig, dims: ModelDims, *,
 
 
 # ---------------------------------------------------------------------------
-# forward (full sequence: prefill)
+# forward (full sequence: prefill) and the training loss
 # ---------------------------------------------------------------------------
 
 def _embed(cfg: ArchConfig, params: Params, batch: dict) -> torch.Tensor:
     if cfg.frontend_stub and "frames" in batch:
         x = batch["frames"]
     else:
-        x = params["embed"][batch["tokens"]]
+        # a gather; its backward sums repeated tokens in a fixed order on
+        # the card (a sort, not float atomics), so training reruns bit for
+        # bit
+        x = torch.nn.functional.embedding(batch["tokens"], params["embed"])
     return x.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
 
 
@@ -116,12 +126,58 @@ def _logits(cfg: ArchConfig, params: Params, x: torch.Tensor
     return x @ w.to(x.dtype)
 
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _saving(ops: tuple):
+    """A selective-checkpoint context factory that keeps the outputs of
+    ``ops`` and recomputes everything else."""
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in ops
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                             policy)
+
+
+# The reference's jax.checkpoint policies: ``nothing`` saves only each
+# super-block's input; ``dots`` also the outputs of products without batch
+# dimensions (torch dispatches a dense layer's ``x @ w`` as ``mm``);
+# ``checkpoint_dots`` those of every product (``bmm`` too: the attention
+# and SSD einsums of the plain paths).  The CUDA kernels' outputs are
+# recomputed under all three.
+REMAT_POLICIES = {
+    "nothing": None,
+    "dots": _saving(_MATMULS),
+    "checkpoint_dots": _saving(_MATMULS + _BATCHED),
+}
+
+
 def _run_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
-               ctx: BlockCtx, cache: Optional[list]
+               ctx: BlockCtx, cache: Optional[list], remat: bool = False,
+               remat_policy: str = "nothing"
                ) -> tuple[torch.Tensor, Optional[list]]:
     """Every super-block in order; each block's new cache replaces its
-    entry of ``cache`` (attention caches are the same, updated, dicts)."""
+    entry of ``cache`` (attention caches are the same, updated, dicts).
+    ``remat`` (training, no cache) recomputes each super-block in the
+    backward pass under ``REMAT_POLICIES[remat_policy]``."""
     shared = params.get("shared_attn")
+    if remat:
+        if cache is not None:
+            raise ValueError("remat applies to the cache-free training pass")
+        context = REMAT_POLICIES[remat_policy]
+
+        def super_block(x, layer_params):
+            for pi, kind in enumerate(cfg.block_pattern):
+                x, _ = block_apply(layer_params[pi], x, ctx, None, kind,
+                                   shared=shared)
+            return x
+
+        for layer_params in params["layers"]:
+            kw = {"context_fn": context} if context is not None else {}
+            x = ckpt.checkpoint(super_block, x, layer_params,
+                                use_reentrant=False, **kw)
+        return x, None
     for si, layer_params in enumerate(params["layers"]):
         for pi, kind in enumerate(cfg.block_pattern):
             c_in = cache[si][pi] if cache is not None else None
@@ -150,6 +206,49 @@ def forward(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
         ctx = dataclasses.replace(ctx, cache_index=0)
     x, cache = _run_stack(cfg, params, x, ctx, cache)
     return _logits(cfg, params, x), cache
+
+
+def _chunk_loss(xc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Summed cross-entropy of one sequence chunk and its count of valid
+    labels (labels < 0 are masked), with float32 logits."""
+    logits = (xc @ w.to(xc.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lc.clamp_min(0)[..., None])[..., 0]
+    mask = (lc >= 0).float()
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def loss_fn(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
+            remat: bool = True, loss_chunk: int = 512,
+            remat_policy: str = "nothing") -> torch.Tensor:
+    """Cross-entropy with sequence-chunked, recomputed logits (the
+    reference's ``loss_fn``).
+
+    batch: tokens [B, S] (or frames [B, S, d] for frontend stubs) and
+    labels [B, S].  The stack runs with ``remat``; each chunk of
+    ``loss_chunk`` positions forms its float32 logits inside a checkpoint,
+    so the backward recomputes them and at most ``B x loss_chunk x vocab``
+    logits live at a time.  Returns the mean over labels >= 0.
+    """
+    x = _embed(cfg, params, batch)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None, :]
+    ctx = make_ctx(cfg, dims, "full", positions, max_cache_len=S)
+    x, _ = _run_stack(cfg, params, x, ctx, None, remat=remat,
+                      remat_policy=remat_policy)
+    x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    labels = batch["labels"]
+    c = min(loss_chunk, S)
+    if S % c:
+        c = S
+    sums = [ckpt.checkpoint(_chunk_loss, x[:, i:i + c], labels[:, i:i + c],
+                            w, use_reentrant=False)
+            for i in range(0, S, c)]
+    total = torch.stack([t for t, _ in sums]).sum()
+    n = torch.stack([m for _, m in sums]).sum()
+    return total / torch.clamp_min(n, 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,223 @@
+"""The gradient of the port's attention kernel against autograd and the JAX
+reference.
+
+``attention_bwd_plain`` (the backward kernel's plain version, which the
+CPU takes) is held against ``torch.autograd`` through the plain forward
+and against ``jax.vjp`` of the reference's ``_sdpa`` (the function the
+reference trains through; it has no backward kernel), on the same numpy
+inputs and cotangents, causal and not, with GQA groups of 1, 2 and 6 and
+both layouts.  Tolerance: float32 throughout, ``max |port - other| <= 1e-5
+* max |other|`` per gradient: both sides sum the same products in other
+orders (the reads are about 3e-7).
+
+Also: ``FlashAttentionFn`` / ``attention`` (what the model layer calls with
+a gradient required) give those gradients; a mask the backward does not
+cover raises; a kernel call on tensors off the CPU that require grad
+raises instead of returning an output autograd cannot see (the ``meta``
+device stands in for the card here); without a gradient the layer calls
+the forward kernel as serving does.  The ``cuda``-marked cases hold the
+CUDA kernel against the plain version on the card and skip elsewhere
+(``python -m pytest -m cuda tests/test_torch_attention_grad.py``).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import (FlashAttentionFn, attention,
+                                                 attention_bwd_plain,
+                                                 attention_plain,
+                                                 flash_attention,
+                                                 flash_attention_bwd)
+from repro_torch.models import layers as TL
+
+REL = 1e-5
+# (B, S, Hq, Hkv, D)
+SHAPES = [(2, 37, 4, 4, 16), (2, 64, 4, 2, 16), (1, 50, 6, 1, 8),
+          (2, 33, 4, 2, 80)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite's test
+    workers share the cores, and torch's default pool (a thread per core
+    in each worker) oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def inputs(seed, B, S, Hq, Hkv, D):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    do = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
+    return q, k, v, do
+
+
+def close(ours, ref):
+    ours = ours.detach().numpy() if isinstance(ours, torch.Tensor) else ours
+    ref = np.asarray(ref)
+    err = np.abs(ours - ref).max()
+    assert err <= REL * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_backward_matches_autograd_of_plain_forward(shape, causal):
+    q, k, v, do = (torch.tensor(x) for x in inputs(0, *shape))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = attention_plain(*leaves, causal=causal)
+    want = torch.autograd.grad(o, leaves, do)
+    got = attention_bwd_plain(q, k, v, o.detach(), do, causal=causal)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        close(g, w)
+
+
+def jax_sdpa_vjp(q, k, v, do, causal):
+    """The reference ``_sdpa``'s output and ``jax.vjp`` at ``do``.  JAX is
+    imported here: the card's machine, where the ``cuda`` cases run, has
+    none."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import layers as RL
+
+    @jax.jit                 # faster than op-by-op dispatch
+    def value_and_vjp(q, k, v, do):
+        out, vjp = jax.vjp(lambda a, b, c: RL._sdpa(a, b, c, causal),
+                           q, k, v)
+        return out, vjp(do)
+    return value_and_vjp(q, k, v, jnp.asarray(do))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_backward_matches_jax_vjp_of_sdpa(shape, causal):
+    q, k, v, do = inputs(1, *shape)
+    out, want = jax_sdpa_vjp(q, k, v, do, causal)
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    o = attention_plain(tq, tk, tv, causal=causal)
+    close(o, out)
+    for g, w in zip(attention_bwd_plain(tq, tk, tv, o, tdo, causal=causal),
+                    want):
+        close(g, w)
+
+
+def test_tpu_layout_matches_model_layout():
+    """``[BH, S, D]`` (one kv head per query head) gives the model
+    layout's gradients, head by head."""
+    q, k, v, do = (torch.tensor(x) for x in inputs(2, 1, 40, 3, 3, 16))
+    o = attention_plain(q, k, v)
+    got = attention_bwd_plain(*(t[0].transpose(0, 1) for t in (q, k, v, o,
+                                                               do)))
+    want = attention_bwd_plain(q, k, v, o, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w[0].transpose(0, 1), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_function_gives_the_jax_gradients(causal):
+    """``attention`` with a gradient required goes through
+    ``FlashAttentionFn``: its forward is the plain version here, its
+    backward ``attention_bwd_plain``, and the gradients are the
+    reference's."""
+    q, k, v, do = inputs(3, 2, 48, 4, 2, 16)
+    _, want = jax_sdpa_vjp(q, k, v, do, causal)
+    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    o = attention(*leaves, causal=causal)
+    assert type(o.grad_fn).__name__ == "FlashAttentionFnBackward"
+    o.backward(torch.tensor(do))
+    for t, w in zip(leaves, want):
+        close(t.grad, w)
+
+
+def test_model_layer_takes_the_function_only_with_a_gradient():
+    q, k, v, _ = (torch.tensor(x) for x in inputs(4, 1, 32, 4, 4, 16))
+    out = TL.sdpa_chunked(q, k, v, causal=True, q_chunk=16)
+    assert out.grad_fn is None
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = TL.sdpa_chunked(*leaves, causal=True, q_chunk=16)
+    assert type(got.grad_fn).__name__ == "FlashAttentionFnBackward"
+    torch.testing.assert_close(got.detach(), out, rtol=1e-6, atol=1e-6)
+    with torch.no_grad():
+        assert TL.sdpa_chunked(*leaves, causal=True, q_chunk=16).grad_fn \
+            is None
+
+
+@pytest.mark.parametrize("kw", [{"q_offset": 3}, {"kv_len": 20}])
+def test_grad_with_a_cache_mask_raises(kw):
+    q, k, v, _ = (torch.tensor(x, requires_grad=True)
+                  for x in inputs(5, 1, 32, 2, 2, 16))
+    with pytest.raises(NotImplementedError, match="q_offset = 0"):
+        attention(q, k, v, **kw)
+    with torch.no_grad():                    # serving: allowed
+        attention(q, k, v, **kw)
+
+
+def test_kernel_call_off_the_cpu_that_requires_grad_raises():
+    """The forward kernel's output has no ``grad_fn``: with a gradient
+    required, a call off the CPU raises rather than detach silently."""
+    q = torch.empty((1, 32, 2, 16), device="meta", requires_grad=True)
+    k = torch.empty((1, 32, 2, 16), device="meta")
+    with pytest.raises(NotImplementedError, match="grad.attention"):
+        flash_attention(q, k, k)
+    with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention_bwd(q.detach(), k, k, q.detach(), q.detach())
+
+
+def test_function_saves_inputs_and_output():
+    q, k, v, _ = (torch.tensor(x, requires_grad=True)
+                  for x in inputs(6, 1, 16, 2, 1, 8))
+    o = FlashAttentionFn.apply(q, k, v, True, None)
+    saved = o.grad_fn.saved_tensors
+    assert len(saved) == 4 and torch.equal(saved[3], o.detach())
+
+
+def _cuda_case(B, S, Hq, Hkv, D, causal, dtype, seed=0):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel runs only on the card)")
+    q, k, v, do = (torch.tensor(x).to("cuda", dtype)
+                   for x in inputs(seed, B, S, Hq, Hkv, D))
+    o = flash_attention(q, k, v, causal=causal)
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    want = attention_bwd_plain(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("case", [(2, 100, 4, 2, 80, True),
+                                  (2, 130, 4, 4, 64, False),
+                                  (1, 256, 8, 2, 128, True)])
+def test_cuda_kernel_matches_plain(case, bf16):
+    """bf16 elementwise within 2e-2 (rtol and atol, both sides round the
+    float32 sums once); float32 within 2e-5 of the largest gradient."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    got, want = _cuda_case(*case, dtype)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        if bf16:
+            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                       atol=2e-2)
+        else:
+            assert (g - w).abs().max() <= 2e-5 * w.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_function_trains_through_the_kernels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel runs only on the card)")
+    q, k, v, do = (torch.tensor(x).cuda() for x in inputs(7, 1, 64, 4, 2, 16))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = flash_attention_bwd.launches
+    attention(*leaves).backward(do)
+    assert flash_attention_bwd.launches == before + 1
+    want = attention_bwd_plain(q, k, v, attention_plain(q, k, v), do)
+    for t, w in zip(leaves, want):
+        assert (t.grad - w).abs().max() <= 2e-5 * w.abs().max()

@@ -1,0 +1,269 @@
+"""The gradient of the port's SSD scan kernel against autograd and the JAX
+reference.
+
+``ssd_scan_bwd_plain`` (the backward kernel's plain version, which the CPU
+takes) is held against ``torch.autograd`` through the plain forward and
+against ``jax.vjp`` of the reference's ``gla_chunked`` (the function the
+reference trains through; it has no backward kernel), for q, k, v and the
+log-decay a, on the same numpy inputs and cotangents: several chunks, q
+and k broadcast over heads (Mamba-2: their gradients summed over heads by
+the ``expand``), slow decay, the TPU layout.  Tolerance: float32, ``max
+|port - other| <= 2e-5 * max |other|`` per gradient (da gathers the whole
+sequence in a reverse sum, the others sum products in other orders; the
+reads are below 1e-6).
+
+Also: ``SSDScanFn`` / ``scan`` (what the model layer calls with a
+gradient required) give those gradients; on the card (the ``meta`` device
+stands in here) a grad-requiring call the backward kernel does not cover
+(the normaliser, N > 64) raises, as does a direct kernel call; the CPU's
+``norm=True`` takes plain torch.  The ``cuda``-marked cases hold the CUDA
+kernel against the plain version on the card and skip elsewhere
+(``python -m pytest -m cuda tests/test_torch_ssd_grad.py``).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import aligned16
+from repro_torch.kernels.ssd_scan import (SSDScanFn, scan, ssd_scan,
+                                          ssd_scan_bwd, ssd_scan_bwd_plain,
+                                          ssd_scan_plain)
+from repro_torch.models import layers as TL
+
+REL = 2e-5
+# (B, L, H, N, P, chunk, q and k broadcast over heads, slow decay)
+CASES = [(2, 64, 3, 8, 5, 16, False, False),
+         (1, 96, 4, 16, 16, 32, True, False),
+         (2, 48, 2, 16, 8, 48, True, False),
+         (1, 128, 2, 16, 16, 32, True, True),
+         (1, 40, 2, 8, 8, 8, False, True)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite's test
+    workers share the cores, and torch's default pool (a thread per core
+    in each worker) oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def inputs(seed, B, L, H, N, P, broadcast, slow):
+    """q, k ([B, L, 1 or H, N]), v, the cotangent do ([B, L, H, P]) and
+    a <= 0 ([B, L, H]), float32 numpy."""
+    rng = np.random.default_rng(seed)
+    hq = 1 if broadcast else H
+    q = rng.standard_normal((B, L, hq, N)).astype(np.float32)
+    k = rng.standard_normal((B, L, hq, N)).astype(np.float32)
+    v = rng.standard_normal((B, L, H, P)).astype(np.float32)
+    do = rng.standard_normal((B, L, H, P)).astype(np.float32)
+    if slow:
+        a = (-0.01 * rng.random((B, L, H))).astype(np.float32)
+    else:
+        a = -np.logaddexp(rng.standard_normal((B, L, H)), 0).astype(
+            np.float32)
+    return q, k, v, do, a
+
+
+def close(ours, ref):
+    ours = ours.detach().numpy() if isinstance(ours, torch.Tensor) else ours
+    ref = np.asarray(ref)
+    assert ours.shape == ref.shape, (ours.shape, ref.shape)
+    err = np.abs(ours - ref).max()
+    assert err <= REL * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
+def expanded(q, k, H):
+    B, L, _, N = q.shape
+    return q.expand(B, L, H, N), k.expand(B, L, H, N)
+
+
+def jax_grads(q, k, v, do, a, chunk):
+    """``jax.vjp`` of the reference layer (q and k broadcast inside).
+    JAX is imported here: the card's machine, where the ``cuda`` cases
+    run, has none."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import layers as RL
+    H = v.shape[2]
+
+    def f(q, k, v, a):
+        B, L, _, N = q.shape
+        return RL.gla_chunked(jnp.broadcast_to(q, (B, L, H, N)),
+                              jnp.broadcast_to(k, (B, L, H, N)), v, a, chunk)
+
+    @jax.jit                 # a tenth of the time of op-by-op dispatch
+    def value_and_vjp(q, k, v, a, do):
+        out, vjp = jax.vjp(f, q, k, v, a)
+        return out, vjp(do)
+    return value_and_vjp(q, k, v, a, do)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_backward_matches_autograd_of_plain_forward(case):
+    B, L, H, N, P, c, bc, slow = case
+    q, k, v, do, a = (torch.tensor(x) for x in inputs(0, B, L, H, N, P, bc,
+                                                      slow))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, a)]
+    qe, ke = expanded(leaves[0], leaves[1], H)
+    out = ssd_scan_plain(qe, ke, leaves[2], leaves[3], chunk=c)
+    want = torch.autograd.grad(out, leaves, do)
+    qe, ke = expanded(q, k, H)
+    dq, dk, dv, da = ssd_scan_bwd_plain(qe, ke, v, a, do, chunk=c)
+    assert dq.shape == (B, L, H, N) and da.dtype == torch.float32
+    got = (dq.sum(2, keepdim=True) if bc else dq,
+           dk.sum(2, keepdim=True) if bc else dk, dv, da)
+    for g, w in zip(got, want):
+        close(g, w)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_function_matches_jax_vjp_of_gla_chunked(case):
+    """Through ``SSDScanFn`` (``scan`` with a gradient required): the
+    per-head dq and dk summed over heads by autograd's ``expand``
+    backward, da for the log-decay."""
+    B, L, H, N, P, c, bc, slow = case
+    q, k, v, do, a = inputs(1, B, L, H, N, P, bc, slow)
+    out, want = jax_grads(q, k, v, do, a, c)
+    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v, a)]
+    qe, ke = expanded(leaves[0], leaves[1], H)
+    got = scan(qe, ke, leaves[2], leaves[3], chunk=c)
+    assert type(got.grad_fn).__name__ == "SSDScanFnBackward"
+    close(got, out)
+    got.backward(torch.tensor(do))
+    for t, w in zip(leaves, want):
+        close(t.grad, w)
+
+
+def test_tpu_layout_matches_model_layout():
+    q, k, v, do, a = (torch.tensor(x) for x in inputs(2, 1, 64, 3, 8, 4,
+                                                      False, False))
+    want = ssd_scan_bwd_plain(q, k, v, a, do, chunk=16)
+    got = ssd_scan_bwd_plain(*(t[0].transpose(0, 1) for t in (q, k, v, a,
+                                                               do)),
+                             chunk=16)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w[0].transpose(0, 1), rtol=0, atol=0)
+
+
+def test_model_layer_takes_the_function_only_with_a_gradient():
+    q, k, v, _, a = (torch.tensor(x) for x in inputs(3, 1, 32, 2, 8, 8,
+                                                     True, False))
+    qe, ke = expanded(q, k, 2)
+    out = TL.gla_chunked(qe, ke, v, a, 16)
+    assert out.grad_fn is None
+    vg = v.clone().requires_grad_()
+    got = TL.gla_chunked(qe, ke, vg, a, 16)
+    assert type(got.grad_fn).__name__ == "SSDScanFnBackward"
+    torch.testing.assert_close(got.detach(), out, rtol=0, atol=0)
+
+
+def test_cpu_normaliser_takes_plain_autograd():
+    """The backward kernel has no normaliser; on the CPU the plain forward
+    is ordinary torch and autograd differentiates it (mLSTM training on
+    the CPU)."""
+    q, k, v, _, a = (torch.tensor(x) for x in inputs(4, 1, 32, 2, 8, 8,
+                                                     False, False))
+    vg = v.clone().requires_grad_()
+    num, den = scan(q, k, vg, a, chunk=16, norm=True)
+    assert type(num.grad_fn).__name__ != "SSDScanFnBackward"
+    (num.sum() + den.sum()).backward()
+    assert torch.isfinite(vg.grad).all() and vg.grad.abs().sum() > 0
+
+
+def meta(*shape, grad=False):
+    return torch.empty(shape, device="meta", requires_grad=grad)
+
+
+@pytest.mark.parametrize("N, P, norm", [(16, 16, True), (128, 16, False),
+                                        (16, 128, False)])
+def test_uncovered_grad_call_off_the_cpu_raises(N, P, norm):
+    """The card's xLSTM shapes (the normaliser, heads wider than 64) have
+    no backward kernel yet: a grad-requiring call raises, citing the
+    ROADMAP item, instead of detaching."""
+    q, k = meta(1, 32, 2, N, grad=True), meta(1, 32, 2, N)
+    with pytest.raises(NotImplementedError, match="xLSTM training"):
+        scan(q, k, meta(1, 32, 2, P), meta(1, 32, 2), chunk=16, norm=norm)
+
+
+@pytest.mark.parametrize("N, P", [(8, 16), (16, 40)])
+def test_bf16_grad_call_off_the_cpu_with_heads_off_16_raises(N, P):
+    """The bf16 backward runs on the tensor cores only, in steps of 16:
+    other bf16 widths raise (float32 takes them)."""
+    q = meta(1, 32, 2, N, grad=True).bfloat16()
+    k, v = meta(1, 32, 2, N).bfloat16(), meta(1, 32, 2, P).bfloat16()
+    with pytest.raises(NotImplementedError, match="multiples of 16"):
+        scan(q, k, v, meta(1, 32, 2), chunk=16)
+
+
+@pytest.mark.parametrize("view", ["aligned", "offset", "broadcast"])
+def test_aligned16_copies_only_what_16_byte_loads_cannot_read(view):
+    """``aligned16`` (what the bf16 wrappers apply) returns an aligned
+    tensor as it is, and copies one at an odd offset into fresh storage,
+    keeping a broadcast (stride 0) head dimension broadcast."""
+    base = torch.arange(2 * 24 * 16, dtype=torch.bfloat16).reshape(2, 24, 16)
+    t = {"aligned": base[:, 8:],
+         "offset": base.flatten()[1:1 + 2 * 8 * 16].reshape(2, 8, 16),
+         "broadcast": base.flatten()[3:3 + 2 * 8 * 16].reshape(
+             2, 8, 1, 16).expand(2, 8, 5, 16)}[view]
+    got = aligned16(t)
+    assert torch.equal(got, t)
+    assert got.data_ptr() % 16 == 0
+    assert all(s % 8 == 0 for s in got.stride()[:-1])
+    assert (got.data_ptr() == t.data_ptr()) == (view == "aligned")
+    if view == "broadcast":
+        assert got.stride(2) == 0
+
+
+def test_kernel_call_off_the_cpu_that_requires_grad_raises():
+    q, k, v, a = meta(1, 32, 2, 16), meta(1, 32, 2, 16), meta(
+        1, 32, 2, 16, grad=True), meta(1, 32, 2)
+    with pytest.raises(NotImplementedError, match="grad.scan"):
+        ssd_scan(q, k, v, a, chunk=16)
+    with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
+        ssd_scan(q, k, v, a, chunk=16)
+    with pytest.raises(ValueError, match="no kernel"):
+        ssd_scan_bwd(q, k, v.detach(), a, v.detach(), chunk=16)
+
+
+def test_function_saves_its_inputs():
+    q, k, v, _, a = (torch.tensor(x, requires_grad=True)
+                     for x in inputs(5, 1, 16, 2, 4, 4, False, False))
+    out = SSDScanFn.apply(q, k, v, a, 8)
+    assert len(out.grad_fn.saved_tensors) == 4
+
+
+def _cuda_case(case, dtype, seed=0):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel runs only on the card)")
+    B, L, H, N, P, c, bc, slow = case
+    q, k, v, do, a = inputs(seed, B, L, H, N, P, bc, slow)
+    tq, tk = (torch.tensor(x).to("cuda", dtype).expand(B, L, H, N)
+              for x in (q, k))
+    tv, tdo = (torch.tensor(x).to("cuda", dtype) for x in (v, do))
+    ta = torch.tensor(a).cuda()
+    got = ssd_scan_bwd(tq, tk, tv, ta, tdo, chunk=c)
+    want = ssd_scan_bwd_plain(tq, tk, tv, ta, tdo, chunk=c)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("case", [(2, 512, 4, 64, 32, 256, True, False),
+                                  (1, 512, 2, 64, 64, 128, False, True),
+                                  (2, 96, 3, 16, 16, 16, True, False)])
+def test_cuda_kernel_matches_plain(case, bf16):
+    """bf16 dq, dk, dv elementwise within 2e-2 (rtol and atol); float32
+    ones, and da in both, within 2e-5 of the largest entry."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    got, want = _cuda_case(case, dtype)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if bf16 and i < 3:
+            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                       atol=2e-2)
+        else:
+            assert (g - w).abs().max() <= 2e-5 * w.abs().max()
