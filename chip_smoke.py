@@ -8,7 +8,10 @@ search (``algo="beam_jax"``), and holds its plans and float64 metrics
 against the golden file the JAX reference wrote
 (``tests/fixtures/torch_port_golden.json``); then serves zamba2-2.7b at
 full width and holds reduced zamba2's logits against the reference's
-(``tests/fixtures/torch_lm_golden.npz``); then replays the online serving
+(``tests/fixtures/torch_lm_golden.npz``); then serves the cross-attention
+VLM at full width with its depth cut and holds the reduced VLM against the
+reference (``tests/fixtures/torch_vlm_golden.npz``); then replays the
+online serving
 layer's traces on the card; then runs the portfolio sweeps, plans and
 realizes three models on a pod, and serves the MoE and xLSTM models at
 full width; then trains zamba2-2.7b at full width, with the attention and
@@ -86,6 +89,19 @@ package.  Phases, each printed as it runs:
 7. reference parity: reduced zamba2 in float32 on the card (kernels on,
    TF32 off) against the logits the JAX reference wrote
    (``tests/fixtures/torch_lm_golden.npz``)
+15. the cross-attention VLM (run after phase 7): ``serve.main`` on
+   llama-3.2-vision-90b at its published widths with the depth cut to two
+   super-blocks (10 layers, 2 of them cross-attention, over a 4 096-row
+   context; batch 4, prompt 1024, 32 tokens, bf16, gates drawn nonzero):
+   12 ``flash_attention`` launches per prefill (each layer's
+   self-attention, each cross layer's context) and none in decode, each
+   call within 2e-2 of its plain version on its own inputs, the cross
+   caches bit-unchanged by decode, the first greedy tokens those of the
+   plain path but for exact ties and later partings within the first
+   token's logit difference, times of the self and cross calls beside
+   their bounds and SDPA, prefill, decode, peak memory and a profiled
+   prefill's idle share; then the reduced VLM in float32 (float32
+   context) against ``tests/fixtures/torch_vlm_golden.npz``
 9. online serving (``repro_torch.online``, run before the summary), against
    the records the JAX reference wrote
    (``tests/fixtures/torch_online_golden.json``), every run's counts from
@@ -158,10 +174,11 @@ package.  Phases, each printed as it runs:
    repro_torch.launch.train --smoke --device cuda`` crashed at step 12,
    resumed, and its losses ``==`` a clean run's
 8. summary: a JSON line of the portfolio, multimodel, serving, sync
-   witness and training numbers,
+   witness, VLM and training numbers,
    then one of per-kernel numbers (``launches_by_path`` includes the
-   online, portfolio, realized, served and trained runs; ``shapes`` the
-   new models' kernel shapes of phase 2e; the backward kernels' launches
+   online, portfolio, realized, served, VLM and trained runs; ``shapes``
+   the new models' kernel shapes of phase 2e and the VLM's self and cross
+   calls of phase 15; the backward kernels' launches
    are those of the three timed full-width steps)
 10. last line: ``{"ok": true, "device": {...}}``
 
@@ -176,6 +193,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -1334,7 +1352,6 @@ def new_shapes_phase(g, dev, smi) -> dict:
     output; times, bounds and, for attention, SDPA on the same inputs."""
     from repro_torch.kernels.flash_attention import (attention_plain,
                                                      flash_attention)
-    from repro_torch.kernels.flash_attention import kernel as flash_mod
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     from repro_torch.kernels.ssd_scan import kernel as ssd_mod
     bf = torch.bfloat16
@@ -1385,7 +1402,6 @@ def new_shapes_phase(g, dev, smi) -> dict:
     del q, k, v, a, num, den, p_num, p_den
 
     rec["flash_attention"] = {}
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     for arch, (B, S, Hq, Hkv, D) in ATTN_D128.items():
         q = randn((B, S, Hq, D), g, bf, dev)
         k = randn((B, S, Hkv, D), g, bf, dev)
@@ -1394,32 +1410,14 @@ def new_shapes_phase(g, dev, smi) -> dict:
         ref = attention_plain(q, k, v, causal=True)
         torch.cuda.synchronize()
         err = of_max(out, ref, f"flash_attention at {arch}'s shape")
-        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
-        plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=True),
-                           reps=5)
-        dev_ms, parts = profiled_device_ms(
-            lambda: flash_attention(q, k, v, causal=True))
-        b_ms, b_by = flash_bound_ms(q, k, True, 0, S)
-        lq, lk, lv = (t.transpose(1, 2) for t in (q, k, v))
-        gqa = dict(enable_gqa=True) if Hkv != Hq else {}
-        lib = sdpa(lq, lk, lv, is_causal=True, **gqa).transpose(1, 2)
-        lib_err = (lib.float() - out.float()).abs().max().item()
-        lib_ms = cuda_ms(lambda: sdpa(lq, lk, lv, is_causal=True, **gqa))
-        smem = flash_mod._lib().flash_attention_smem_bytes(
-            D, flash_mod._DTYPES[bf])
+        print(f"flash_attention {arch}: max |kernel - plain| {err!r} "
+              "(within 2e-2 of max |plain|)")
         rec["flash_attention"][arch] = {
-            "shape": [B, S, Hq, Hkv, D], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "device_ms": dev_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms}
-        print(f"flash_attention {arch}: q {tuple(q.shape)} k/v "
-              f"{tuple(k.shape)} bf16 causal: max |kernel - plain| {err!r} "
-              f"(within 2e-2 of max |plain|); per call (CUDA events, "
-              f"median): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-              f"F.scaled_dot_product_attention {lib_ms:.6f} ms (max |sdpa - "
-              f"kernel| {lib_err!r}); kernel device time (profiler) "
-              f"{dev_ms!r} ms [{show_parts(parts)}]; bound {b_ms:.6f} ms "
-              f"({b_by}); {smem} B of dynamic shared memory a CTA; on {smi}")
-        del q, k, v, out, ref, lq, lk, lv, lib
+            "max_abs_err": err, **flash_call_record(
+                q, k, v, {"causal": True}, profiled_device_ms(
+                    lambda: flash_attention(q, k, v, causal=True)),
+                smi, f"{arch}'s shape")}
+        del q, k, v, out, ref
     torch.cuda.empty_cache()
     return rec
 
@@ -1514,16 +1512,18 @@ def portfolio_phase() -> dict:
 
 
 def greedy_tokens(cfg, dims, params, batch, gen):
-    """Greedy prefill + ``gen - 1`` decode steps: tokens [B, gen]."""
+    """Greedy prefill + ``gen - 1`` decode steps: tokens [B, gen] and each
+    step's logits [gen, B, vocab] (float32)."""
     from repro_torch.models import decode_step, prefill
     S = batch["tokens"].shape[1]
     logits, cache = prefill(cfg, dims, params, batch, S + gen)
-    toks = [logits.argmax(-1)[:, None]]
+    toks, seen = [logits.argmax(-1)[:, None]], [logits.float()]
     for i in range(gen - 1):
         logits, cache = decode_step(cfg, dims, params, toks[-1], cache,
-                                    S + i)
+                                    S + i, cross_ctx=batch.get("cross_ctx"))
         toks.append(logits.argmax(-1)[:, None])
-    return torch.cat(toks, 1)
+        seen.append(logits.float())
+    return torch.cat(toks, 1), torch.stack(seen)
 
 
 def realized_prefill(pod, pl, reqs, dev) -> dict:
@@ -1706,7 +1706,7 @@ def serve_phase(dev, smi) -> dict:
                 lambda: prefill(cfg, dims, params, batch, 1056),
                 host_ops=False)
             with plain_kernels():
-                plain = greedy_tokens(cfg, dims, params, batch, 32)
+                plain, _ = greedy_tokens(cfg, dims, params, batch, 32)
         del params
         torch.cuda.empty_cache()
         parted = [None if bool((tokens[r] == plain[r]).all())
@@ -1733,6 +1733,304 @@ def serve_phase(dev, smi) -> dict:
               + f"; greedy tokens against the plain versions' run, per row "
               f"the first step where they part (None: all 32 equal): "
               f"{parted}; on {smi}")
+    return out
+
+
+# the VLM (phase 15): llama-3.2-vision-90b at its published widths (d_model
+# 8 192, 64 query heads over 8 kv heads, d_ff 28 672, vocab 128 256, a
+# context of 4 096 rows) with the depth cut to two super-blocks: 8 attention
+# and 2 cross-attention layers, 8.86 B block parameters and 2.10 B of
+# embeddings and head (the 100-layer model's 181 GB of bf16 weights fit no
+# one card).  Served through serve.main, batch 4, prompt 1024, 32 tokens.
+# Every layer runs its causal self-attention and each cross-attention
+# layer then attends over the context: 12 flash_attention launches in the
+# prefill (10 self, 2 cross), none in decode.
+VLM_ARCH = "llama-3.2-vision-90b"
+VLM_SUPER_BLOCKS = 2
+VLM_GOLDEN = ROOT / "tests" / "fixtures" / "torch_vlm_golden.npz"
+
+
+@contextlib.contextmanager
+def cut_vlm_serving(cfg, seen: dict):
+    """``serve.main`` inside serves ``cfg`` whatever ``--arch`` names (the
+    driver has no flag for a cut depth), with each cross block's gate
+    drawn from U[0.5, 1) by the serve generator (``init_params`` leaves it
+    at 0, the reference's initial value, where the branch adds nothing);
+    its prefill records in ``seen`` the parameters, batch, cache, last
+    logits, launches so far and a copy of every ``cache["cross"]``."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.models.config import BlockKind
+    real = serve.get_arch, serve.init_params, serve.make_prefill_step
+    pi = cfg.block_pattern.index(BlockKind.CROSS_ATTN)
+
+    def init(cfg_, dims, generator):
+        params = real[1](cfg_, dims, generator=generator)
+        for layer in params["layers"]:
+            layer[pi]["xgate"] = 0.5 + 0.5 * torch.rand(
+                (), generator=generator, device=generator.device)
+        return params
+
+    def make_prefill(*args, **kwargs):
+        step = real[2](*args, **kwargs)
+
+        def run(params, batch):
+            logits, cache = step(params, batch)
+            seen.update(params=params, batch=batch, cache=cache,
+                        last=logits.float(),
+                        prefill_launches=flash_attention.launches,
+                        cross=[{k: t.clone() for k, t in
+                                layer[pi]["cross"].items()}
+                               for layer in cache])
+            return logits, cache
+        return run
+
+    serve.get_arch = lambda name: cfg
+    serve.init_params, serve.make_prefill_step = init, make_prefill
+    try:
+        yield
+    finally:
+        serve.get_arch, serve.init_params, serve.make_prefill_step = real
+
+
+def bf16_step(x: float) -> float:
+    """The spacing of bf16 values at ``|x|`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def flash_call_record(q, k, v, kw, profiled, smi, what) -> dict:
+    """One ``flash_attention`` call (``kw`` its keywords) timed: kernel
+    (CUDA events; ``profiled`` its profiler device time and parts), plain
+    version, the bound, and ``F.scaled_dot_product_attention``
+    (``enable_gqa``) on the same inputs (the kv rows the mask lets
+    through)."""
+    from repro_torch.kernels.flash_attention import (attention_plain,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import kernel as flash_mod
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    causal = kw["causal"]
+    kv_len = kw.get("kv_len") or k.shape[1]
+    ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
+    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, **kw), reps=5)
+    dev_ms, parts = profiled
+    b_ms, b_by = flash_bound_ms(q, k, causal, kw.get("q_offset", 0), kv_len)
+    smem = flash_mod._lib().flash_attention_smem_bytes(
+        q.shape[-1], flash_mod._DTYPES[q.dtype])
+    lq, lk, lv = (t.transpose(1, 2) for t in (q, k[:, :kv_len],
+                                                 v[:, :kv_len]))
+    lib_ms = cuda_ms(lambda: sdpa(lq, lk, lv, is_causal=causal,
+                                  enable_gqa=True))
+    print(f"flash_attention {what}: q {tuple(q.shape)} k/v "
+          f"{tuple(k.shape)} (kv_len {kv_len}) {q.dtype}, causal {causal}: "
+          f"per call (CUDA events, median): kernel {ms:.6f} ms, plain "
+          f"{plain_ms:.6f} ms, F.scaled_dot_product_attention (enable_gqa) "
+          f"{lib_ms:.6f} ms; kernel device time (profiler) {dev_ms!r} ms "
+          f"[{show_parts(parts)}]; bound {b_ms:.6f} ms ({b_by}); {smem} B "
+          f"of dynamic shared memory a CTA; on {smi}")
+    return {"q": list(q.shape), "kv": list(k.shape), "causal": causal,
+            "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def profile_vlm_attention() -> None:
+    """The child of ``device_ms_in_child(PROFILE_VLM_ARG)``: seeded bf16
+    inputs at the shapes of phase 15's two ``flash_attention`` calls
+    (``self``: the prefill's 1 024 queries over a 1 056-row cache, causal,
+    ``kv_len`` 1 024; ``cross``: over the 4 096-row context), the
+    profiled device times as JSON."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import get_arch
+    cfg = get_arch(VLM_ARCH)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, S, hd = 4, 1024, cfg.hd
+    q = randn((B, S, cfg.n_heads, hd), g, torch.bfloat16, "cuda")
+    out = {}
+    for name, rows, kw in (("self", S + 32, {"causal": True, "kv_len": S}),
+                           ("cross", cfg.cross_ctx_len, {"causal": False})):
+        k, v = (randn((B, rows, cfg.n_kv_heads, hd), g, torch.bfloat16,
+                      "cuda") for _ in range(2))
+        out[name] = profiled_device_ms(
+            lambda: flash_attention(q, k, v, **kw), reps=10)
+    print(json.dumps(out))
+
+
+def vlm_phase(dev, smi) -> dict:
+    """Phase 15: the cross-attention VLM.  (a) ``serve.main`` on
+    llama-3.2-vision-90b at full width, depth cut to ``VLM_SUPER_BLOCKS``
+    (batch 4, prompt 1024, 32 greedy tokens, bf16, gates nonzero): a
+    ``flash_attention`` launch for each layer's self-attention and one more for
+    each cross layer's context in the prefill, none in decode, each call within
+    2e-2 of its plain version on its own inputs, the cross cache bit-unchanged
+    by decode, the greedy tokens against the plain versions' run (the first as
+    phase 6 holds it; a row may part later only where the plain path's logits
+    put the kernel path's token below their maximum by no more than the first
+    token's largest logit difference or one bf16 step), times of the self- and
+    cross-attention calls, prefill and decode times, peak memory and a profiled
+    prefill's idle share.  (b) the reduced VLM in float32 on the card against
+    ``tests/fixtures/torch_vlm_golden.npz``."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import serve
+    from repro_torch.models import ModelDims, get_arch, prefill
+    from repro_torch.models.config import BlockKind
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.testing import (numpy_tree, reduced,
+                                            teacher_forced)
+    t_phase = time.perf_counter()
+    full = get_arch(VLM_ARCH)
+    cfg = dataclasses.replace(
+        full, n_layers=len(full.block_pattern) * VLM_SUPER_BLOCKS)
+    dims = ModelDims.create(cfg)
+    n_cross = cfg.n_super_blocks * cfg.block_pattern.count(
+        BlockKind.CROSS_ATTN)
+    want = cfg.n_layers + n_cross
+    seen, calls = {}, []
+    torch.cuda.empty_cache()
+    flash_attention.launches = 0
+    ssd_scan.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with cut_vlm_serving(cfg, seen), recording_calls(calls):
+        res = serve.main(["--arch", VLM_ARCH, "--batch", "4", "--prompt-len",
+                          "1024", "--gen", "32"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {"flash_attention": flash_attention.launches,
+                "ssd_scan": ssd_scan.launches}
+    check(seen["prefill_launches"] == want and launches == {
+        "flash_attention": want, "ssd_scan": 0},
+        f"the cut VLM's prefill launched {seen['prefill_launches']} "
+        f"flash_attention, the whole serve run {launches}: want {want} in "
+        f"the prefill ({cfg.n_layers} layers' self-attention, {n_cross} "
+        "cross) and none in decode")
+    T = cfg.cross_ctx_len
+    cross_calls = [c for c in calls if c[1][1].shape[1] == T]
+    self_calls = [c for c in calls if c[1][1].shape[1] != T]
+    check(len(cross_calls) == n_cross
+          and not any(c[2]["causal"] for c in cross_calls)
+          and len(self_calls) == cfg.n_layers
+          and all(c[2]["causal"] for c in self_calls),
+          f"the prefill's attention calls: {len(cross_calls)} over the "
+          f"{T}-row context (want {n_cross}, non-causal), "
+          f"{len(self_calls)} causal self-attention calls (want "
+          f"{cfg.n_layers})")
+    by_call = check_calls(calls)
+    print(f"every flash_attention call of the bf16 prefill ({len(calls)} "
+          "layers) against its plain version on its own inputs, "
+          f"elementwise within rtol = atol = 2e-2: {by_call}")
+    profiled = device_ms_in_child(PROFILE_VLM_ARG)
+    rec = {"self": flash_call_record(*self_calls[0][1], self_calls[0][2],
+                                     profiled["self"], smi,
+                                     "VLM self-attention (group 8)"),
+           "cross": flash_call_record(*cross_calls[0][1],
+                                      cross_calls[0][2], profiled["cross"],
+                                      smi, f"VLM cross-attention ({T}-row "
+                                      "context, group 8)")}
+    del calls, cross_calls, self_calls
+    torch.cuda.empty_cache()
+    cache, unchanged = seen.pop("cache"), True
+    pi = cfg.block_pattern.index(BlockKind.CROSS_ATTN)
+    for layer, before in zip(cache, seen.pop("cross")):
+        unchanged &= all(torch.equal(layer[pi]["cross"][k], t)
+                         for k, t in before.items())
+    check(unchanged, "decode changed a cross-attention cache entry")
+    del cache
+    tokens = res["tokens"]
+    check(tuple(tokens.shape) == (4, 32) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab)).all()),
+        f"serve returned tokens {tuple(tokens.shape)}")
+    params, batch = seen.pop("params"), seen.pop("batch")
+    check(torch.equal(seen["last"].argmax(-1), tokens[:, 0]),
+          "the serve run's first tokens are not its prefill's argmax")
+    with torch.inference_mode():
+        wall, busy, top, n = device_time_of(
+            lambda: prefill(cfg, dims, params, batch, 1056), host_ops=False)
+        with plain_kernels():
+            plain, plain_logits = greedy_tokens(cfg, dims, params, batch, 32)
+    del params
+    torch.cuda.empty_cache()
+    first = logit_agreement(seen.pop("last"), plain_logits[0])
+    check(first["top1_or_exact_tie"] == 1.0,
+          "VLM prefill: the kernels and the plain versions pick different "
+          f"first tokens in a row without an exact tie: {first}")
+    parted = []
+    for r in range(tokens.shape[0]):
+        diff = (tokens[r] != plain[r]).nonzero()
+        if not len(diff):
+            parted.append(None)
+            continue
+        t = int(diff[0, 0])
+        lp = plain_logits[t, r]
+        best = lp.max().item()
+        gap = best - lp[tokens[r, t]].item()
+        # the two paths' logits differ by up to first["max_abs"] (the
+        # kernels' last-bit differences carried through the layers), so a
+        # plain gap within that, or within one bf16 step, can go either way
+        limit = max(first["max_abs"], bf16_step(best))
+        parted.append({"step": t, "plain_gap": gap, "limit": limit})
+        check(gap <= limit, f"VLM row {r} parts from the plain path at step "
+              f"{t}, where the plain logits rank its token {gap} below their "
+              f"maximum {best}: more than {limit}, the larger of the first "
+              "token's largest logit difference and one bf16 step")
+    del plain_logits
+    dec_ms = res["decode_s"] / 31 * 1e3
+    print(f"serve {VLM_ARCH}, depth cut to {cfg.n_layers} layers "
+          f"({cfg.param_count() / 1e9:.2f} B parameters; batch 4, prompt "
+          f"1024, context {T}, 32 tokens, bf16): prefill "
+          f"{res['prefill_s'] * 1e3:.3f} ms, decode {dec_ms:.3f} ms a step "
+          f"({4 * 31 / res['decode_s']:.1f} tokens/s), peak {peak:.3f} GiB, "
+          f"launches {launches} (prefill {seen['prefill_launches']}, decode "
+          f"0); cross caches unchanged by 31 decode steps; profiled "
+          f"prefill: wall {wall:.4f} s, device busy {busy:.6f} s (idle "
+          f"{100 * (1 - busy / wall):.2f}%) in {n} device events, top:"
+          + "; ".join(f" {k} x{c} {t:.6f} s" for k, c, t in top)
+          + f"; first tokens against the plain path: {first}; rows parting "
+          f"from the plain path (None: all 32 equal): {parted}; on {smi}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # full float32 products
+    with np.load(VLM_GOLDEN) as f:
+        fix = {k: f[k] for k in f.files}
+    rcfg = dataclasses.replace(reduced(get_arch(str(fix["arch"]))),
+                               dtype="float32")
+    rparams = params_from_numpy(rcfg, numpy_tree(rcfg,
+                                                 int(fix["weight_seed"])),
+                                device=dev, dtype=torch.float32)
+    flash_attention.launches = 0
+    with torch.inference_mode():
+        out = teacher_forced(rcfg, rparams,
+                             torch.tensor(fix["tokens"], device=dev),
+                             int(fix["prompt_len"]), int(fix["max_len"]),
+                             torch.tensor(fix["cross_ctx"], device=dev))
+    torch.cuda.synchronize()
+    reduced_launches = flash_attention.launches
+    r_want = 2 * (rcfg.n_layers + rcfg.n_super_blocks
+                  * rcfg.block_pattern.count(BlockKind.CROSS_ATTN))
+    check(reduced_launches == r_want,
+          f"the reduced VLM launched {reduced_launches} flash_attention, "
+          f"want {r_want} (each layer's self-attention and each cross "
+          "layer's context, in forward and in prefill; none in decode)")
+    errs = {}
+    for key in ("forward", "prefill_last", "decode"):
+        ref = fix[key]
+        errs[key] = float(np.abs(out[key].cpu().numpy() - ref).max())
+        check(errs[key] <= LM_MODEL_REL * np.abs(ref).max(),
+              f"reduced VLM {key} logits: max |port - reference| "
+              f"{errs[key]} > {LM_MODEL_REL} * {np.abs(ref).max()}")
+    print(f"{rcfg.name} float32 (TF32 off), float32 context, against the "
+          f"JAX reference's logits: max |port - reference| {errs} (limit "
+          f"{LM_MODEL_REL} * max |reference| = "
+          f"{LM_MODEL_REL * np.abs(fix['forward']).max()}); flash_attention "
+          f"launches {reduced_launches}")
+    out = {"layers": cfg.n_layers, "params_b": cfg.param_count() / 1e9,
+           "prefill_s": res["prefill_s"], "decode_ms_per_step": dec_ms,
+           "peak_gib": peak, "launches": launches,
+           "prefill_launches": seen["prefill_launches"],
+           "calls_vs_plain": by_call, "profiled_prefill_wall_s": wall,
+           "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
+           "first_tokens": first, "parted_from_plain": parted,
+           "reduced_f32_errors": errs,
+           "reduced_f32_launches": reduced_launches, "kernels": rec,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"phase 15 took {out['phase_s']:.1f} s")
     return out
 
 
@@ -1841,26 +2139,28 @@ def hold_grads(got, ref, dtype, what: str) -> float:
 
 
 PROFILE_BWD_ARG = "--profile-backward-kernels"
+PROFILE_VLM_ARG = "--profile-vlm-attention"
 
 
-def backward_device_ms_in_child() -> dict:
-    """The profiler's device time of each backward kernel at zamba2-2.7b's
-    training shape, ``{name: (ms, parts)}``, taken in a new process: late
-    in this script's run (after phase 12's profiled xLSTM prefill, some
-    3.6e5 device events) the profiler drops whole calls' events in every
-    session, while a new process records them all."""
+def device_ms_in_child(arg: str) -> dict:
+    """The profiler's device times ``{name: (ms, parts)}`` that
+    ``python3 chip_smoke.py arg`` takes in a new process: in this script's
+    process, after its earlier profiles (phase 6's prefill and decode
+    step, phase 12's 3.6e5-event xLSTM prefill), the profiler drops whole
+    calls' events in every session, while a new process records them
+    all."""
     proc = subprocess.run(
-        [sys.executable, str(pathlib.Path(__file__).resolve()),
-         PROFILE_BWD_ARG], capture_output=True, text=True, timeout=600,
-        cwd=ROOT)
-    check(proc.returncode == 0, f"profiling the backward kernels in a new "
-          f"process failed: {proc.stderr[-3000:]}")
+        [sys.executable, str(pathlib.Path(__file__).resolve()), arg],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    check(proc.returncode == 0, f"profiling in a new process ({arg}) "
+          f"failed: {proc.stderr[-3000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def profile_backward_kernels() -> None:
-    """The child of ``backward_device_ms_in_child``: seeded inputs at the
-    sweeps' first (zamba2) shapes, the profiled device times as JSON."""
+    """The child of ``device_ms_in_child(PROFILE_BWD_ARG)``: seeded inputs
+    at the sweeps' first (zamba2) shapes, the profiled device times as
+    JSON."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd
@@ -1937,7 +2237,7 @@ def backward_kernels_phase(g, dev, smi) -> dict:
     q, k, v, o, do = out["flash_attention_bwd"].pop("args")
     f_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, do))
     f_p_ms = cuda_ms(lambda: attention_bwd_plain(q, k, v, o, do), reps=5)
-    dev_ms = backward_device_ms_in_child()
+    dev_ms = device_ms_in_child(PROFILE_BWD_ARG)
     f_dev, f_parts = dev_ms["flash_attention_bwd"]
     f_b, f_by = flash_bwd_bound_ms(q, k, True)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2162,6 +2462,9 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device; nothing to measure")
     if sys.argv[1:] == [PROFILE_BWD_ARG]:
         profile_backward_kernels()
+        return
+    if sys.argv[1:] == [PROFILE_VLM_ARG]:
+        profile_vlm_attention()
         return
     from repro_torch.kernels import build
     from repro_torch.kernels.scar_eval import (scar_eval,
@@ -2920,6 +3223,11 @@ def main() -> None:
           f"); launches flash_attention {flash_attention.launches}, ssd_scan "
           f"{ssd_scan.launches} (forward and prefill; decode is plain)")
 
+    phase("15 VLM: llama-3.2-vision-90b at full width, depth cut to "
+          f"{VLM_SUPER_BLOCKS} super-blocks, batch 4, prompt 1024, 32 tokens, "
+          "bf16, greedy; the reduced VLM in float32 against the reference")
+    vlm = vlm_phase(dev, smi)
+
     phase("9 online: dc_churn_6x6, dc_churn_8x8_slo, xr8_cadence, the "
           "fleet")
     online = online_phase(dev)
@@ -2948,6 +3256,8 @@ def main() -> None:
     phase("8 summary")
     print(json.dumps({"portfolio": portfolio, "multimodel": pod,
                       "serve": served, "sync_witness": witness,
+                      "vlm": {k: v for k, v in vlm.items()
+                              if k != "kernels"},
                       "training": {k: v for k, v in trained.items()
                                    if k != "kernels"}}))
     print(json.dumps({"kernels": [{
@@ -2998,8 +3308,13 @@ def main() -> None:
             **{f"realize_{a}": pod[a]["launches"]["flash_attention"]
                for a in POD_ARCHS},
             **{f"serve_{a}": served[a]["launches_per_prefill"][
-                "flash_attention"] for a in NEW_SERVE}},
-        "shapes": new_shapes["flash_attention"],
+                "flash_attention"] for a in NEW_SERVE},
+            f"serve_{VLM_ARCH}_{VLM_SUPER_BLOCKS}_super_blocks":
+                vlm["launches"]["flash_attention"],
+            "vlm_reduced_f32": vlm["reduced_f32_launches"]},
+        "shapes": {**new_shapes["flash_attention"],
+                   **{f"{VLM_ARCH} {k}": r
+                      for k, r in vlm["kernels"].items()}},
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",

@@ -36,7 +36,8 @@ import torch
 
 from .. import aligned16, needs_grad
 from ..build import load_library
-from .kernel import _DTYPES, NEG_INF, _as_4d, _check, flash_attention
+from .kernel import (_DTYPES, NEG_INF, _as_4d, _check, flash_attention,
+                     mixed)
 
 __all__ = ["FlashAttentionFn", "attention", "attention_bwd_plain",
            "flash_attention_bwd"]
@@ -165,7 +166,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (the backward kernel on the card, its plain version on the CPU), which
     covers the training mask only: any ``q_offset`` or a ``kv_len`` short
     of the keys raises ``NotImplementedError``.  Without one it is
-    ``flash_attention`` itself, launch for launch.
+    ``flash_attention`` itself, launch for launch.  Mixed float32 / bf16
+    inputs go through the Function upcast to float32, the output cast to
+    v's type.
     """
     if not needs_grad(q, k, v):
         return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
@@ -175,6 +178,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "flash_attention's backward covers q_offset = 0 and kv_len = "
             f"Skv only (got q_offset {q_offset}, kv_len {kv_len}, Skv "
             f"{k.shape[1]}); a KV cache is not trained through")
+    if mixed(q, k, v):         # the casts' backward rounds each gradient
+        return FlashAttentionFn.apply(q.float(), k.float(), v.float(),
+                                      causal, sm_scale).to(v.dtype)
     return FlashAttentionFn.apply(q, k, v, causal, sm_scale)
 
 

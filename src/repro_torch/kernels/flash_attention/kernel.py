@@ -10,12 +10,12 @@ agrees only when ``Sq == Skv``.
 
 Layouts: ``[BH, S, D]`` (the TPU kernel's; query head ``b`` reads kv head
 ``b // group``) or ``[B, S, H, D]`` (the model's; query head ``h`` reads kv
-head ``h // group``).  bf16 or float32 in, the same type out.  bf16 runs
-on the tensor cores (``wgmma``, TMA loads) with float32 sums, softmax and
-accumulator; it splits the probabilities into two bf16 terms for the
-product with v, so they keep about 16 bits where ``_sdpa`` casts them to
-``v``'s type.  float32 runs on the CUDA cores in float32 throughout.  The
-plain version computes in float32.
+head ``h // group``).  bf16 or float32 in, the same type out (mixed types:
+below).  bf16 runs on the tensor cores (``wgmma``, TMA loads) with float32
+sums, softmax and accumulator; it splits the probabilities into two bf16
+terms for the product with v, so they keep about 16 bits where ``_sdpa``
+casts them to ``v``'s type.  float32 runs on the CUDA cores in float32
+throughout.  The plain version computes in float32.
 
 ``flash_attention`` launches the kernel for CUDA tensors and takes the
 plain version only for tensors on the CPU; a CUDA tensor never falls back.
@@ -23,6 +23,14 @@ The kernel reads any batch, head and sequence strides (last dimension
 contiguous), so the model's activations and its KV cache go in as views;
 for bf16 (TMA) the pointers must be 16-byte aligned and head_dim and the
 strides multiples of 8 elements, else the wrapper raises.
+
+Mixed types (``mixed``): float32 queries over bf16 keys and values, or the
+other way round, are what a float32 model's cross-attention over a bf16
+context gives (the reference's ``_sdpa`` forms float32 scores and returns
+v's type).  Both functions upcast the bf16 side (exact), run in float32,
+the kernel on its float32 path, and return v's type.  The probabilities
+stay float32 for the product with v where ``_sdpa`` casts them to v's
+type, as on the bf16 path.
 """
 from __future__ import annotations
 
@@ -35,7 +43,7 @@ import torch
 from .. import needs_grad
 from ..build import load_library
 
-__all__ = ["NEG_INF", "attention_plain", "flash_attention"]
+__all__ = ["NEG_INF", "attention_plain", "flash_attention", "mixed"]
 
 NEG_INF = -1e30                # finite: exp(-inf - -inf) would be NaN
 _SMEM_LIMIT = 232448           # dynamic shared memory a block may use
@@ -48,11 +56,18 @@ def _as_4d(t: torch.Tensor) -> torch.Tensor:
     return t.unsqueeze(0).transpose(1, 2) if t.dim() == 3 else t
 
 
+def mixed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether q is float32 over bf16 k and v, or bf16 over float32."""
+    return (k.dtype == v.dtype != q.dtype
+            and {q.dtype, k.dtype} == {torch.float32, torch.bfloat16})
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
                     kv_len: Optional[int] = None,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Plain torch version of the kernel, in float32, in either layout."""
+    """Plain torch version of the kernel, in float32, in either layout;
+    the output in v's type."""
     three = q.dim() == 3
     q4, k4, v4 = _as_4d(q), _as_4d(k), _as_4d(v)
     Sq, Hq, D = q4.shape[1:]
@@ -69,7 +84,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q_pos = torch.arange(Sq, device=q.device) + q_offset
         mask = mask & (kv_pos[None, :] <= q_pos[:, None])
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    out = (torch.softmax(s, dim=-1) @ vf).transpose(1, 2).to(q.dtype)
+    out = (torch.softmax(s, dim=-1) @ vf).transpose(1, 2).to(v.dtype)
     return out[0].transpose(0, 1) if three else out
 
 
@@ -103,11 +118,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention ``[.., Sq, .., D]`` out: the CUDA kernel on CUDA tensors.
 
     ``q_offset`` and ``kv_len`` are Python ints (no device read).  Tensors
-    on the CPU take ``attention_plain``.  ``flash_attention.launches``
-    counts kernel launches.  Other tensors that require grad (with grad
-    mode on) raise ``NotImplementedError``: the kernel's output is invisible
-    to autograd, and ``grad.attention`` is the differentiable call.
+    on the CPU take ``attention_plain``.  Mixed float32 / bf16 inputs
+    (``mixed``) take the float32 path on the upcast inputs and return v's
+    type.  ``flash_attention.launches`` counts kernel launches.  Other
+    tensors that require grad (with grad mode on) raise
+    ``NotImplementedError``: the kernel's output is invisible to autograd,
+    and ``grad.attention`` is the differentiable call.
     """
+    if mixed(q, k, v):
+        return flash_attention(q.float(), k.float(), v.float(),
+                               causal=causal, q_offset=q_offset,
+                               kv_len=kv_len, sm_scale=sm_scale).to(v.dtype)
     Skv = k.shape[1]
     kv_len = Skv if kv_len is None else int(kv_len)
     _check(q, k, v, kv_len, q_offset)

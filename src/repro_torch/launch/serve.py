@@ -5,11 +5,13 @@
       --smoke --batch 4 --prompt-len 32 --gen 16 --device cpu
 
 The prefill fills the cache, then the decode step runs once per generated
-token.  Every architecture but the cross-attention VLM is served (the
-attention, MoE, Mamba-2 and xLSTM blocks).  On the card (the default
-device) a prefill's attention runs the ``flash_attention`` kernel and its
-Mamba-2 and mLSTM scans the ``ssd_scan`` kernel; decode steps are plain
-torch, as in the reference.  Weights are random, drawn on the device from a
+token.  Every decoder architecture is served (the attention, MoE,
+cross-attention, Mamba-2 and xLSTM blocks; a VLM's context is
+``synth_batch``'s seeded ``cross_ctx``, handed to every decode step as the
+reference does).  On the card (the default device) a prefill's attention,
+self and cross, runs the ``flash_attention`` kernel and its Mamba-2 and
+mLSTM scans the ``ssd_scan`` kernel; decode steps are plain torch, as in
+the reference.  Weights are random, drawn on the device from a
 generator seeded with ``--seed``; greedy decoding takes ``argmax`` (the
 first index on a tie, as ``jnp.argmax`` does), sampling draws from a second
 generator seeded with ``--seed + 1``.  The reference's ``--mesh`` is not
@@ -61,6 +63,7 @@ def main(argv=None) -> dict:
         batch = synth_batch(cfg, batch=args.batch, seq=args.prompt_len,
                             seed=args.seed, device=device)
         batch.pop("labels", None)
+        cross = batch.get("cross_ctx")
         prefill = make_prefill_step(cfg, dims, max_cache_len=max_len)
         decode = make_decode_step(cfg, dims)
         _sync(device)
@@ -73,7 +76,7 @@ def main(argv=None) -> dict:
         sampler = torch.Generator(device=device).manual_seed(args.seed + 1)
         for i in range(args.gen - 1):
             logits, cache = decode(params, tokens[-1], cache,
-                                   args.prompt_len + i)
+                                   args.prompt_len + i, cross)
             if args.temperature > 0:
                 probs = torch.softmax(logits.float() / args.temperature,
                                       dim=-1)

@@ -2,11 +2,12 @@
 ``repro.models.blocks``).
 
 Blocks are uniform functions ``apply(params, x, ctx, cache) -> (y, cache)``.
-Ported: ``ATTN``, ``MOE`` (attention + the MoE layer, with arctic's
-parallel dense residual), ``SHARED_ATTN`` (the weight-tied attention block
-of zamba2, whose weights live at the model level), ``MAMBA2`` and xLSTM's
-``MLSTM`` and ``SLSTM``.  ``CROSS_ATTN`` raises ``NotImplementedError`` when
-a model holding it is built (ROADMAP.md, open item 13).
+Every block kind of the reference: ``ATTN``, ``MOE`` (attention + the MoE
+layer, with arctic's parallel dense residual), ``CROSS_ATTN`` (attention,
+then a tanh-gated attention over the VLM's context ``ctx.cross_ctx``, then
+the MLP), ``SHARED_ATTN`` (the weight-tied attention block of zamba2,
+whose weights live at the model level), ``MAMBA2`` and xLSTM's ``MLSTM``
+and ``SLSTM``.
 
 The sLSTM recurrence is a ``lax.scan`` over positions in the reference,
 with no kernel; here it is a Python loop over positions on the device, a
@@ -29,7 +30,7 @@ from .layers import (AttnDims, MoEDims, attn_apply, attn_init, dense,
 
 Params = dict
 
-NOT_PORTED = (BlockKind.CROSS_ATTN,)
+NOT_PORTED = ()          # every block kind of the reference is ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,16 +40,11 @@ class BlockCtx:
     mode: str                         # "full" (prefill) | "decode"
     positions: torch.Tensor           # [B, S] or [1, S]
     cache_index: Optional[int] = None  # first cache position written
+    cross_ctx: Optional[torch.Tensor] = None   # [B, Tctx, d] (VLM)
     n_q_pad: int = 0
     n_kv_pad: int = 0
     expert_pad: int = 1
     max_cache_len: int = 0
-
-
-def _not_ported(kind: BlockKind):
-    return NotImplementedError(
-        f"block kind {kind.value!r} is not ported yet (ROADMAP.md, open "
-        "item 13: cross-attention blocks)")
 
 
 def _attn_dims(cfg: ArchConfig, ctx: BlockCtx) -> AttnDims:
@@ -66,7 +62,8 @@ def _moe_dims(cfg: ArchConfig, ctx: BlockCtx) -> MoEDims:
 
 
 # ---------------------------------------------------------------------------
-# ATTN / MOE (and SHARED_ATTN, which applies the model's shared ATTN weights)
+# ATTN / MOE / CROSS_ATTN (and SHARED_ATTN, which applies the model's shared
+# ATTN weights)
 # ---------------------------------------------------------------------------
 
 def attn_block_init(gen: torch.Generator, cfg: ArchConfig, ctx: BlockCtx,
@@ -84,6 +81,12 @@ def attn_block_init(gen: torch.Generator, cfg: ArchConfig, ctx: BlockCtx,
                                       "swiglu", dtype)
     elif cfg.mlp != MLPKind.NONE:
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp.value, dtype)
+    if kind == BlockKind.CROSS_ATTN:
+        p["ln_x"] = rmsnorm_init(cfg.d_model, dtype, dev)
+        p["xattn"] = attn_init(gen, _attn_dims(cfg, ctx), dtype)
+        # float32 whatever the model's type; tanh(0) = 0: at init the cross
+        # branch adds nothing, as in the reference
+        p["xgate"] = torch.zeros((), dtype=torch.float32, device=dev)
     return p
 
 
@@ -101,6 +104,8 @@ def attn_block_apply(p: Params, x: torch.Tensor, ctx: BlockCtx,
         cache_index=ctx.cache_index)
     x = x + out
     new_cache = {"self": new_self} if new_self is not None else None
+    if kind == BlockKind.CROSS_ATTN:
+        x = _cross_attn(p, x, ctx, cache, new_cache)
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind == BlockKind.MOE:
         y = moe_apply(p["moe"], h, _moe_dims(cfg, ctx))
@@ -112,11 +117,64 @@ def attn_block_apply(p: Params, x: torch.Tensor, ctx: BlockCtx,
     return x, new_cache
 
 
+def _cross_attn(p: Params, x: torch.Tensor, ctx: BlockCtx,
+                cache: Optional[Params], new_cache: Optional[Params]
+                ) -> torch.Tensor:
+    """The cross block's gated attention over the context: ``x +
+    tanh(xgate) * attn(ln_x(x), K, V)``, non-causal, no RoPE.  K and V are
+    the context projected by ``xattn``'s ``wk`` / ``wv`` (prefill), or, in
+    decode, ``cache["cross"]`` as prefill left it.  A call that returns a
+    cache (``new_cache``) stores the projections there as they come, in
+    their own type: a bf16 context gives a bf16 cross cache in a float32
+    model, as the reference's does.
+
+    Raises ``TypeError`` where the branch's output would promote the
+    residual stream (a bf16 model given a float32 context): the
+    reference's ``lax.scan`` over super-blocks refuses a carry whose type
+    changes, and a Python loop would carry on in float32 instead."""
+    cfg = ctx.cfg
+    dims = _attn_dims(cfg, ctx)
+    h = rmsnorm(p["ln_x"], x, cfg.norm_eps)
+    if ctx.mode == "decode" and cache is not None and "cross" in cache:
+        ck, cv = cache["cross"]["k"], cache["cross"]["v"]
+    else:
+        if ctx.cross_ctx is None:
+            raise ValueError(f"{cfg.name}: a cross-attention block needs "
+                             "the batch's cross_ctx [B, Tctx, d_model]")
+        B, T, _ = ctx.cross_ctx.shape
+        ck = dense(p["xattn"]["wk"], ctx.cross_ctx).reshape(B, T, dims.n_kv,
+                                                            dims.hd)
+        cv = dense(p["xattn"]["wv"], ctx.cross_ctx).reshape(B, T, dims.n_kv,
+                                                            dims.hd)
+    xout, _ = attn_apply(p["xattn"], h, dims, causal=False, theta=0.0,
+                         positions=ctx.positions, q_chunk=cfg.attn_q_chunk,
+                         kv=(ck, cv))
+    promoted = torch.promote_types(x.dtype, xout.dtype)
+    if promoted != x.dtype:
+        raise TypeError(
+            f"{cfg.name}: the cross-attention branch is {xout.dtype} (the "
+            f"context's type) and would turn the {x.dtype} residual stream "
+            f"into {promoted}; the reference's scan refuses this carry too")
+    if new_cache is not None:
+        new_cache["cross"] = {"k": ck, "v": cv}
+    # the gate times the branch in x's type: torch would round a 0-dim
+    # float32 gate times a bf16 branch to bf16, JAX promotes to float32
+    return x + torch.tanh(p["xgate"]).to(x.dtype) * xout.to(x.dtype)
+
+
 def attn_block_cache(cfg: ArchConfig, ctx: BlockCtx, batch: int, dtype,
-                     device) -> Params:
-    shape = (batch, ctx.max_cache_len, ctx.n_kv_pad, cfg.hd)
-    return {"self": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                     "v": torch.zeros(shape, dtype=dtype, device=device)}}
+                     device, kind: BlockKind) -> Params:
+    """Zeroed caches: ``self`` of ``max_cache_len`` positions, and for a
+    cross block ``cross`` of the context's length (prefill replaces it
+    with the projections themselves)."""
+    def zeros(length):
+        shape = (batch, length, ctx.n_kv_pad, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    c = {"self": zeros(ctx.max_cache_len)}
+    if kind == BlockKind.CROSS_ATTN:
+        c["cross"] = zeros(cfg.cross_ctx_len)
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -371,7 +429,7 @@ def slstm_cache(cfg: ArchConfig, batch: int, dtype, device) -> Params:
 
 def block_init(gen: torch.Generator, cfg: ArchConfig, ctx: BlockCtx, dtype,
                kind: BlockKind) -> Params:
-    if kind in (BlockKind.ATTN, BlockKind.MOE):
+    if kind in (BlockKind.ATTN, BlockKind.MOE, BlockKind.CROSS_ATTN):
         return attn_block_init(gen, cfg, ctx, dtype, kind)
     if kind == BlockKind.MAMBA2:
         return mamba2_init(gen, cfg, dtype)
@@ -381,8 +439,6 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, ctx: BlockCtx, dtype,
         return slstm_init(gen, cfg, dtype)
     if kind == BlockKind.SHARED_ATTN:
         return {}  # weight-tied; params live at model level
-    if kind in NOT_PORTED:
-        raise _not_ported(kind)
     raise KeyError(kind)
 
 
@@ -390,7 +446,7 @@ def block_apply(p: Params, x: torch.Tensor, ctx: BlockCtx,
                 cache: Optional[Params], kind: BlockKind,
                 shared: Optional[Params] = None
                 ) -> tuple[torch.Tensor, Optional[Params]]:
-    if kind in (BlockKind.ATTN, BlockKind.MOE):
+    if kind in (BlockKind.ATTN, BlockKind.MOE, BlockKind.CROSS_ATTN):
         return attn_block_apply(p, x, ctx, cache, kind)
     if kind == BlockKind.SHARED_ATTN:
         return attn_block_apply(shared, x, ctx, cache)
@@ -400,21 +456,18 @@ def block_apply(p: Params, x: torch.Tensor, ctx: BlockCtx,
         return mlstm_apply(p, x, ctx, cache)
     if kind == BlockKind.SLSTM:
         return slstm_apply(p, x, ctx, cache)
-    if kind in NOT_PORTED:
-        raise _not_ported(kind)
     raise KeyError(kind)
 
 
 def block_cache(cfg: ArchConfig, ctx: BlockCtx, batch: int, dtype,
                 kind: BlockKind, device) -> Params:
-    if kind in (BlockKind.ATTN, BlockKind.MOE, BlockKind.SHARED_ATTN):
-        return attn_block_cache(cfg, ctx, batch, dtype, device)
+    if kind in (BlockKind.ATTN, BlockKind.MOE, BlockKind.CROSS_ATTN,
+                BlockKind.SHARED_ATTN):
+        return attn_block_cache(cfg, ctx, batch, dtype, device, kind)
     if kind == BlockKind.MAMBA2:
         return mamba2_cache(cfg, batch, dtype, device)
     if kind == BlockKind.MLSTM:
         return mlstm_cache(cfg, batch, device)
     if kind == BlockKind.SLSTM:
         return slstm_cache(cfg, batch, dtype, device)
-    if kind in NOT_PORTED:
-        raise _not_ported(kind)
     raise KeyError(kind)

@@ -24,8 +24,8 @@ from .config import ArchConfig
 from .transformer import _dtype
 
 # Parameters the reference keeps in float32 whatever the model's type:
-# Mamba-2's A_log, D and dt_bias and the MoE router
-FLOAT32_LEAVES = ("A_log", "D", "dt_bias", "router")
+# Mamba-2's A_log, D and dt_bias, the MoE router and the cross block's gate
+FLOAT32_LEAVES = ("A_log", "D", "dt_bias", "router", "xgate")
 
 
 def _tensor(name: str, a, device, dtype) -> torch.Tensor:

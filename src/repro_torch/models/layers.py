@@ -193,12 +193,17 @@ def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attn_apply(p: Params, x: torch.Tensor, dims: AttnDims, *, causal: bool,
                theta: float, positions: torch.Tensor, q_chunk: int = 0,
+               kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
                cache: Optional[Params] = None,
                cache_index: Optional[int] = None
                ) -> tuple[torch.Tensor, Optional[Params]]:
-    """Self-attention with an optional KV cache.
+    """Self- or cross-attention with an optional KV cache.
 
-    * prefill/train: ``cache=None`` -> self-attention over x.
+    * prefill/train: ``kv=None, cache=None`` -> self-attention over x.
+    * cross-attention: ``kv=(k_ctx, v_ctx)``, the context's keys and values
+      already projected (``[B, T, n_kv, hd]``): x attends over all of them
+      (``causal`` is not read), with RoPE on q only if ``theta > 0``; no
+      cache.
     * with ``cache={'k','v'}`` and ``cache_index`` (a Python int): the new
       keys and values are written into the cache in place at
       ``cache_index``, and x attends over the cache up to
@@ -207,6 +212,10 @@ def attn_apply(p: Params, x: torch.Tensor, dims: AttnDims, *, causal: bool,
     """
     B, S, _ = x.shape
     q = dense(p["wq"], x).reshape(B, S, dims.n_q, dims.hd)
+    if kv is not None:
+        q = rope(q, positions, theta) if theta > 0 else q
+        out = sdpa_chunked(q, *kv, causal=False, q_chunk=q_chunk or S)
+        return dense(p["wo"], out.reshape(B, S, dims.n_q * dims.hd)), None
     k = dense(p["wk"], x).reshape(B, S, dims.n_kv, dims.hd)
     v = dense(p["wv"], x).reshape(B, S, dims.n_kv, dims.hd)
     if theta > 0:

@@ -129,8 +129,9 @@ def make_decode_step(cfg: ArchConfig, dims: ModelDims):
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
 
-    def serve_step(params, tokens, cache, index: int):
-        return decode_step(cfg, dims, params, tokens, cache, index)
+    def serve_step(params, tokens, cache, index: int, cross_ctx=None):
+        return decode_step(cfg, dims, params, tokens, cache, index,
+                           cross_ctx=cross_ctx)
 
     return serve_step
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -46,7 +47,9 @@ def reduced(cfg: ArchConfig, n_super: int = 2) -> ArchConfig:
 def synth_batch(cfg: ArchConfig, batch: int = 2, seq: int = 32,
                 seed: int = 0, device=None) -> dict:
     """Seeded ``tokens`` and ``labels`` (int64 ``[batch, seq]``) on
-    ``device``; ``frames`` ([batch, seq, d], bf16) for frontend stubs."""
+    ``device``; ``frames`` ([batch, seq, d], bf16) for frontend stubs;
+    ``cross_ctx`` ([batch, cross_ctx_len, d], bf16, as the reference's
+    ``synth_batch`` makes it) for a VLM."""
     rng = np.random.default_rng(seed)
     out: dict = {}
     if cfg.frontend_stub:
@@ -58,6 +61,10 @@ def synth_batch(cfg: ArchConfig, batch: int = 2, seq: int = 32,
             rng.integers(0, cfg.vocab, (batch, seq)), device=device)
     out["labels"] = torch.tensor(rng.integers(0, cfg.vocab, (batch, seq)),
                                  device=device)
+    if cfg.cross_ctx_len:
+        out["cross_ctx"] = torch.tensor(
+            rng.standard_normal((batch, cfg.cross_ctx_len, cfg.d_model),
+                                np.float32), device=device).to(torch.bfloat16)
     return out
 
 
@@ -71,9 +78,11 @@ def numpy_tree(cfg: ArchConfig, seed: int = 0,
     ``D`` and ``dt_bias`` spread around the reference's constants so that
     every term shows.  ``jax.tree.map(jnp.asarray, tree)`` gives the
     reference its parameters; ``models.convert.params_from_numpy`` gives
-    the port its own.  Only the block kinds the port has are drawn.
-    ``tie_router`` copies router column 0 into column 1, so experts 0 and 1
-    tie on every token's router logits.
+    the port its own.  A cross block's gate ``xgate`` is drawn from U[0.5, 1)
+    (tanh 0.46 to 0.76): the reference initialises it to 0, where the cross
+    branch adds nothing and a parity test would check none of it.
+    ``tie_router`` copies router column 0 into column 1, so experts 0 and 1 tie
+    on every token's router logits.
     """
     rng = np.random.default_rng(seed)
     d, hd = cfg.d_model, cfg.hd
@@ -107,12 +116,14 @@ def numpy_tree(cfg: ArchConfig, seed: int = 0,
             p["shared"] = swiglu(m.n_shared_experts * f)
         return p
 
+    def attn():
+        return {"wq": dense(d, cfg.n_heads * hd, cfg.qkv_bias),
+                "wk": dense(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+                "wv": dense(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+                "wo": dense(cfg.n_heads * hd, d)}
+
     def attn_block(kind=BlockKind.ATTN):
-        p = {"ln1": norm(d), "ln2": norm(d), "attn": {
-            "wq": dense(d, cfg.n_heads * hd, cfg.qkv_bias),
-            "wk": dense(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-            "wv": dense(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-            "wo": dense(cfg.n_heads * hd, d)}}
+        p = {"ln1": norm(d), "ln2": norm(d), "attn": attn()}
         if kind == BlockKind.MOE:
             p["moe"] = moe_layer()
             if cfg.moe.dense_residual:
@@ -122,6 +133,10 @@ def numpy_tree(cfg: ArchConfig, seed: int = 0,
                         "wo": dense(cfg.d_ff, d)}
         elif cfg.mlp != MLPKind.NONE:
             p["mlp"] = {"wi": dense(d, cfg.d_ff), "wo": dense(cfg.d_ff, d)}
+        if kind == BlockKind.CROSS_ATTN:
+            p["ln_x"] = norm(d)
+            p["xattn"] = attn()
+            p["xgate"] = np.asarray(rng.uniform(0.5, 1.0), np.float32)
         return p
 
     def mamba_block():
@@ -154,7 +169,7 @@ def numpy_tree(cfg: ArchConfig, seed: int = 0,
 
     layers = {}
     for pi, kind in enumerate(cfg.block_pattern):
-        if kind in (BlockKind.ATTN, BlockKind.MOE):
+        if kind in (BlockKind.ATTN, BlockKind.MOE, BlockKind.CROSS_ATTN):
             layers[f"p{pi}"] = stacked(lambda: attn_block(kind))
         elif kind == BlockKind.MAMBA2:
             layers[f"p{pi}"] = stacked(mamba_block)
@@ -165,8 +180,7 @@ def numpy_tree(cfg: ArchConfig, seed: int = 0,
         elif kind == BlockKind.SHARED_ATTN:
             layers[f"p{pi}"] = {}
         else:
-            raise NotImplementedError(f"block kind {kind.value!r} is not "
-                                      "ported yet (ROADMAP.md, item 13)")
+            raise KeyError(kind)
     tree = {"embed": normal((cfg.vocab, d), 0.02), "layers": layers,
             "final_ln": norm(d)}
     if BlockKind.SHARED_ATTN in cfg.block_pattern:
@@ -184,20 +198,24 @@ def _stack(trees: list) -> dict:
 
 
 def teacher_forced(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-                   prompt_len: int, max_len: int) -> dict:
-    """Logits of one model on ``tokens`` [B, S], three ways: the full
-    forward (``forward``, [B, S, vocab]), a prefill of the first
-    ``prompt_len`` tokens into a cache of ``max_len`` positions
-    (``prefill_last``, [B, vocab]) and teacher-forced decode steps over
-    the rest (``decode``, [S - prompt_len, B, vocab])."""
+                   prompt_len: int, max_len: int,
+                   cross_ctx: Optional[torch.Tensor] = None) -> dict:
+    """Logits of one model on ``tokens`` [B, S] (and a VLM's
+    ``cross_ctx``), three ways: the full forward (``forward``, [B, S,
+    vocab]), a prefill of the first ``prompt_len`` tokens into a cache of
+    ``max_len`` positions (``prefill_last``, [B, vocab]) and
+    teacher-forced decode steps over the rest (``decode``, [S -
+    prompt_len, B, vocab])."""
     dims = ModelDims.create(cfg)
-    full, _ = forward(cfg, dims, params, {"tokens": tokens})
+    full, _ = forward(cfg, dims, params, {"tokens": tokens,
+                                          "cross_ctx": cross_ctx})
     last, cache = prefill(cfg, dims, params,
-                          {"tokens": tokens[:, :prompt_len]}, max_len)
+                          {"tokens": tokens[:, :prompt_len],
+                           "cross_ctx": cross_ctx}, max_len)
     steps = []
     for i in range(prompt_len, tokens.shape[1]):
         logits, cache = decode_step(cfg, dims, params, tokens[:, i:i + 1],
-                                    cache, i)
+                                    cache, i, cross_ctx=cross_ctx)
         steps.append(logits)
     return {"forward": full, "prefill_last": last,
             "decode": torch.stack(steps)}

@@ -10,8 +10,9 @@ vocab or experts, no sharding.
 
 Caches mirror the layer list (``cache[super_block][position]``).  Prefill
 and decode write the attention KV caches in place and replace each Mamba-2
-block's state and conv window and each xLSTM block's states; both return
-the cache they were given.
+block's state and conv window and each xLSTM block's states; prefill puts
+each cross block's projected context keys and values in its ``cross``
+entry, which decode reads.  Both return the cache they were given.
 Positions and cache indices are Python ints, so a decode loop reads nothing
 back from the device.
 
@@ -55,9 +56,11 @@ class ModelDims:
 
 def make_ctx(cfg: ArchConfig, dims: ModelDims, mode: str,
              positions: torch.Tensor, cache_index: Optional[int] = None,
+             cross_ctx: Optional[torch.Tensor] = None,
              max_cache_len: int = 0) -> BlockCtx:
     return BlockCtx(cfg=cfg, mode=mode, positions=positions,
-                    cache_index=cache_index, n_q_pad=dims.n_q_pad,
+                    cache_index=cache_index, cross_ctx=cross_ctx,
+                    n_q_pad=dims.n_q_pad,
                     n_kv_pad=dims.n_kv_pad, expert_pad=dims.expert_pad,
                     max_cache_len=max_cache_len)
 
@@ -108,7 +111,10 @@ def init_params(cfg: ArchConfig, dims: ModelDims, *,
 # forward (full sequence: prefill) and the training loss
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ArchConfig, params: Params, batch: dict) -> torch.Tensor:
+def _embed(cfg: ArchConfig, params: Params, batch: dict
+           ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The stack's input in the model's type, and the batch's
+    ``cross_ctx`` (the VLM's context, in its own type) or None."""
     if cfg.frontend_stub and "frames" in batch:
         x = batch["frames"]
     else:
@@ -116,7 +122,8 @@ def _embed(cfg: ArchConfig, params: Params, batch: dict) -> torch.Tensor:
         # the card (a sort, not float atomics), so training reruns bit for
         # bit
         x = torch.nn.functional.embedding(batch["tokens"], params["embed"])
-    return x.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+    return (x.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32),
+            batch.get("cross_ctx"))
 
 
 def _logits(cfg: ArchConfig, params: Params, x: torch.Tensor
@@ -191,12 +198,13 @@ def _run_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
 def forward(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
             return_cache: bool = False, max_cache_len: int = 0
             ) -> tuple[torch.Tensor, Optional[list]]:
-    """Full-sequence forward.  batch: tokens [B, S] (or frames [B, S, d]).
-    Returns (logits [B, S, vocab], the filled cache or None)."""
-    x = _embed(cfg, params, batch)
+    """Full-sequence forward.  batch: tokens [B, S] (or frames [B, S, d]),
+    and cross_ctx [B, Tctx, d] for a VLM.  Returns (logits [B, S, vocab],
+    the filled cache or None)."""
+    x, cross = _embed(cfg, params, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :]
-    ctx = make_ctx(cfg, dims, "full", positions,
+    ctx = make_ctx(cfg, dims, "full", positions, cross_ctx=cross,
                    max_cache_len=max_cache_len or S)
     cache = None
     if return_cache:
@@ -225,16 +233,17 @@ def loss_fn(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
     """Cross-entropy with sequence-chunked, recomputed logits (the
     reference's ``loss_fn``).
 
-    batch: tokens [B, S] (or frames [B, S, d] for frontend stubs) and
-    labels [B, S].  The stack runs with ``remat``; each chunk of
-    ``loss_chunk`` positions forms its float32 logits inside a checkpoint,
-    so the backward recomputes them and at most ``B x loss_chunk x vocab``
-    logits live at a time.  Returns the mean over labels >= 0.
+    batch: tokens [B, S] (or frames [B, S, d] for frontend stubs), labels [B,
+    S], and cross_ctx [B, Tctx, d] for a VLM.  The stack runs with ``remat``;
+    each chunk of ``loss_chunk`` positions forms its float32 logits inside a
+    checkpoint, so the backward recomputes them and at most ``B x loss_chunk x
+    vocab`` logits live at a time.  Returns the mean over labels >= 0.
     """
-    x = _embed(cfg, params, batch)
+    x, cross = _embed(cfg, params, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :]
-    ctx = make_ctx(cfg, dims, "full", positions, max_cache_len=S)
+    ctx = make_ctx(cfg, dims, "full", positions, cross_ctx=cross,
+                   max_cache_len=S)
     x, _ = _run_stack(cfg, params, x, ctx, None, remat=remat,
                       remat_policy=remat_policy)
     x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
@@ -274,13 +283,18 @@ def prefill(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
 
 
 def decode_step(cfg: ArchConfig, dims: ModelDims, params: Params,
-                tokens: torch.Tensor, cache: list, index: int
+                tokens: torch.Tensor, cache: list, index: int,
+                cross_ctx: Optional[torch.Tensor] = None
                 ) -> tuple[torch.Tensor, list]:
     """One autoregressive step.  tokens: [B, 1]; index: the position (a
-    Python int)."""
-    x = _embed(cfg, params, {"tokens": tokens})
+    Python int).  A VLM's cross blocks read the context's keys and values
+    from the cache prefill filled; ``cross_ctx`` is read only by a cache
+    without them, as in the reference."""
+    x, cross = _embed(cfg, params, {"tokens": tokens,
+                                    "cross_ctx": cross_ctx})
     positions = torch.full((x.shape[0], 1), index, dtype=torch.long,
                            device=x.device)
-    ctx = make_ctx(cfg, dims, "decode", positions, cache_index=index)
+    ctx = make_ctx(cfg, dims, "decode", positions, cache_index=index,
+                   cross_ctx=cross)
     x, cache = _run_stack(cfg, params, x, ctx, cache)
     return _logits(cfg, params, x)[:, 0], cache

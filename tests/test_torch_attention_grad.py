@@ -5,10 +5,10 @@ reference.
 CPU takes) is held against ``torch.autograd`` through the plain forward
 and against ``jax.vjp`` of the reference's ``_sdpa`` (the function the
 reference trains through; it has no backward kernel), on the same numpy
-inputs and cotangents, causal and not, with GQA groups of 1, 2 and 6 and
-both layouts.  Tolerance: float32 throughout, ``max |port - other| <= 1e-5
-* max |other|`` per gradient: both sides sum the same products in other
-orders (the reads are about 3e-7).
+inputs and cotangents, causal and not, with GQA groups of 1, 2 and 6 and both
+layouts, and non-causal with Sq != Skv (the VLM's cross-attention).  Tolerance:
+float32 throughout, ``max |port - other| <= 1e-5 * max |other|`` per gradient:
+both sides sum the same products in other orders (the reads are about 3e-7).
 
 Also: ``FlashAttentionFn`` / ``attention`` (what the model layer calls with
 a gradient required) give those gradients; a mask the backward does not
@@ -47,11 +47,14 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def inputs(seed, B, S, Hq, Hkv, D):
+def inputs(seed, B, S, Hq, Hkv, D, Skv=None):
+    """q and the cotangent ``[B, S, Hq, D]``, k and v ``[B, Skv, Hkv, D]``
+    (``Skv`` defaults to S)."""
+    Skv = S if Skv is None else Skv
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
-    k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
-    v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    k = rng.standard_normal((B, Skv, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, Skv, Hkv, D)).astype(np.float32)
     do = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
     return q, k, v, do
 
@@ -104,6 +107,46 @@ def test_plain_backward_matches_jax_vjp_of_sdpa(shape, causal):
     for g, w in zip(attention_bwd_plain(tq, tk, tv, o, tdo, causal=causal),
                     want):
         close(g, w)
+
+
+# (B, Sq, Skv, Hq, Hkv, D): the reduced VLM's cross-attention (a context
+# of 16 rows under 64 queries), and the other way round
+CROSS_SHAPES = [(2, 64, 16, 4, 1, 16), (1, 16, 64, 4, 2, 16)]
+
+
+@pytest.mark.parametrize("shape", CROSS_SHAPES)
+def test_plain_backward_at_sq_ne_skv_matches_jax_vjp_of_sdpa(shape):
+    """Non-causal, Sq != Skv: the cross-attention's gradients."""
+    B, Sq, Skv, Hq, Hkv, D = shape
+    q, k, v, do = inputs(8, B, Sq, Hq, Hkv, D, Skv=Skv)
+    out, want = jax_sdpa_vjp(q, k, v, do, False)
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    o = attention_plain(tq, tk, tv, causal=False)
+    close(o, out)
+    got = attention_bwd_plain(tq, tk, tv, o, tdo, causal=False)
+    for g, w, t in zip(got, want, (tq, tk, tv)):
+        assert g.shape == t.shape
+        close(g, w)
+
+
+def test_mixed_types_train_through_the_float32_function():
+    """float32 q over bf16 k and v (a float32 VLM's cross-attention over a
+    bf16 context): ``attention`` runs the Function on the upcast inputs,
+    returns bf16, and hands each input its gradient in its own type."""
+    q, k, v, do = inputs(9, 2, 64, 4, 1, 16, Skv=16)
+    leaves = [torch.tensor(q, requires_grad=True),
+              torch.tensor(k).bfloat16().requires_grad_(),
+              torch.tensor(v).bfloat16().requires_grad_()]
+    o = attention(*leaves, causal=False)
+    assert o.dtype == torch.bfloat16
+    o.backward(torch.tensor(do).bfloat16())
+    up = [t.detach().float().requires_grad_() for t in leaves]
+    want_o = FlashAttentionFn.apply(*up, False, None)
+    want_o.bfloat16().backward(torch.tensor(do).bfloat16())
+    assert torch.equal(o.detach(), want_o.detach().bfloat16())
+    for t, u in zip(leaves, up):
+        assert t.grad.dtype == t.dtype
+        assert torch.equal(t.grad, u.grad.to(t.dtype))
 
 
 def test_tpu_layout_matches_model_layout():
@@ -178,16 +221,28 @@ def test_function_saves_inputs_and_output():
     assert len(saved) == 4 and torch.equal(saved[3], o.detach())
 
 
-def _cuda_case(B, S, Hq, Hkv, D, causal, dtype, seed=0):
+def _cuda_case(B, S, Hq, Hkv, D, causal, dtype, seed=0, Skv=None):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel runs only on the card)")
     q, k, v, do = (torch.tensor(x).to("cuda", dtype)
-                   for x in inputs(seed, B, S, Hq, Hkv, D))
+                   for x in inputs(seed, B, S, Hq, Hkv, D, Skv=Skv))
     o = flash_attention(q, k, v, causal=causal)
     got = flash_attention_bwd(q, k, v, o, do, causal=causal)
     want = attention_bwd_plain(q, k, v, o, do, causal=causal)
     torch.cuda.synchronize()
     return got, want
+
+
+def _hold(got, want, dtype):
+    """bf16 elementwise within 2e-2 (rtol and atol, both sides round the
+    float32 sums once); float32 within 2e-5 of the largest gradient."""
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                       atol=2e-2)
+        else:
+            assert (g - w).abs().max() <= 2e-5 * w.abs().max()
 
 
 @pytest.mark.cuda
@@ -196,17 +251,20 @@ def _cuda_case(B, S, Hq, Hkv, D, causal, dtype, seed=0):
                                   (2, 130, 4, 4, 64, False),
                                   (1, 256, 8, 2, 128, True)])
 def test_cuda_kernel_matches_plain(case, bf16):
-    """bf16 elementwise within 2e-2 (rtol and atol, both sides round the
-    float32 sums once); float32 within 2e-5 of the largest gradient."""
     dtype = torch.bfloat16 if bf16 else torch.float32
-    got, want = _cuda_case(*case, dtype)
-    for g, w in zip(got, want):
-        assert g.dtype == dtype
-        if bf16:
-            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
-                                       atol=2e-2)
-        else:
-            assert (g - w).abs().max() <= 2e-5 * w.abs().max()
+    _hold(*_cuda_case(*case, dtype), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape", CROSS_SHAPES[:1]
+                         + [(1, 1024, 4096, 64, 8, 128)])
+def test_cuda_kernel_matches_plain_at_sq_ne_skv(shape, bf16):
+    """Non-causal, Sq != Skv, at the reduced VLM's cross shape and at the
+    full width's (64 query heads over 8 kv heads, a 4 096-row context)."""
+    B, Sq, Skv, Hq, Hkv, D = shape
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    _hold(*_cuda_case(B, Sq, Hq, Hkv, D, False, dtype, Skv=Skv), dtype)
 
 
 @pytest.mark.cuda

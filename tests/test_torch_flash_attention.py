@@ -11,6 +11,10 @@ the Pallas kernel's top-left one and the model layer's
 ``kv_pos <= q_pos + q_offset`` agree.  The model layer's mask with
 ``q_offset`` and ``kv_len`` (the serve path's prefill into a longer cache)
 is held against the reference's ``layers._sdpa`` and ``sdpa_chunked``.
+Mixed types (float32 queries over a bf16 context's keys and values, a
+float32 VLM's cross-attention) take the float32 path and return v's type;
+against ``_sdpa``, which rounds the probabilities to bf16 as well, within
+the bf16 tolerance.
 
 On the CPU the wrapper runs the plain version.  The CUDA kernel runs only
 on a GPU: the ``cuda``-marked tests skip elsewhere
@@ -138,6 +142,32 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
 
 
+def test_mixed_types_take_the_float32_path():
+    """float32 q over bf16 k and v (and bf16 q over float32 k and v): the
+    bf16 side upcast, the float32 path, v's type out; the reference's
+    ``_sdpa`` on the same mixed inputs within the bf16 tolerance."""
+    import jax.numpy as jnp
+
+    from repro.models import layers as RL
+    q, k, v = draws(11, (2, 64, 4, 16), (2, 16, 1, 16), (2, 16, 1, 16))
+    tq, tk, tv = torch.tensor(q), torch.tensor(k).bfloat16(), \
+        torch.tensor(v).bfloat16()
+    out = flash_attention(tq, tk, tv, causal=False)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, attention_plain(tq, tk.float(), tv.float(),
+                                            causal=False).bfloat16())
+    ref = RL._sdpa(jnp.asarray(q), jnp.asarray(k, jnp.bfloat16),
+                   jnp.asarray(v, jnp.bfloat16), causal=False)
+    assert ref.dtype == jnp.bfloat16
+    close(out, ref, BF16_TOL)
+    back = flash_attention(tq.bfloat16(), tk.float(), tv.float(),
+                           causal=False)
+    assert back.dtype == torch.float32
+    assert torch.equal(back, attention_plain(tq.bfloat16().float(),
+                                             tk.float(), tv.float(),
+                                             causal=False))
+
+
 # ------------------------------ on the card --------------------------------
 
 CUDA_CASES = [
@@ -190,3 +220,32 @@ def test_cuda_bf16_rejects_what_tma_cannot_load():
     wide = torch.zeros((1, 8, 2, 36), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="TMA"):
         flash_attention(wide[..., 4:], wide[..., 4:], wide[..., 4:])
+
+
+# the VLM's cross-attention: (B, Sq, Skv, Hq, Hkv, D), non-causal, at the
+# reduced config's shape and at the full width's (llama-3.2-vision-90b:
+# 64 query heads over 8 kv heads, a context of 4 096 rows)
+CROSS_CASES = [(2, 64, 16, 4, 1, 16), (1, 1024, 4096, 64, 8, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CROSS_CASES)
+def test_cuda_mixed_types_take_the_float32_kernel(case):
+    """On the card: float32 queries over bf16 keys and values (a float32
+    model's cross-attention over a bf16 context) launch the float32 kernel
+    once, return bf16, and meet the plain version within the bf16
+    tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, Sq, Skv, Hq, Hkv, D = case
+    q, k, v = draws(Sq + Skv, (B, Sq, Hq, D), (B, Skv, Hkv, D),
+                    (B, Skv, Hkv, D))
+    q = torch.tensor(q).cuda()
+    k, v = (torch.tensor(a).to("cuda", torch.bfloat16) for a in (k, v))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=False)
+    plain = attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == plain.dtype == torch.bfloat16
+    close(out.cpu(), plain.float().cpu().numpy(), BF16_TOL)

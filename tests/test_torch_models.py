@@ -312,14 +312,6 @@ def test_port_init_matches_reference_layout():
         a.numel() for a in jax.tree.leaves(ours)) < 2.0 * cfg.param_count()
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b"])
-def test_unported_blocks_raise(arch):
-    cfg = reduced(TM.get_arch(arch))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TM.init_params(cfg, TM.ModelDims.create(cfg),
-                       generator=torch.Generator().manual_seed(0))
-
-
 def test_configs_are_the_reference_configs():
     from repro.configs import ASSIGNED
     from repro_torch.configs import ASSIGNED as PORT_ASSIGNED

@@ -3,13 +3,21 @@
 Reduced configs (``models.testing.reduced``) in float32 with the same numpy
 weights (``numpy_tree``) and batches on both sides:
 
-* ``loss_fn`` and its gradient for reduced zamba2 (Mamba-2 and the shared
-  attention: both kernels' Functions), gemma-7b (attention, GeGLU, tied
-  embeddings) and hubert-xlarge (frames, not causal) against
+* ``loss_fn`` and its gradient for every reduced config against
   ``jax.value_and_grad`` of the reference's ``loss_fn``, with masked
-  labels and two loss chunks.  Tolerances: the loss to 1e-6 relative; each
-  gradient leaf to ``5e-5 * max |reference gradient|`` (the whole-model
-  rule of ``tests/test_torch_models.py``; zamba2 reads 8.5e-6);
+  labels and two loss chunks: zamba2 (Mamba-2 and the shared attention:
+  both kernels' Functions), gemma-7b (attention, GeGLU, tied embeddings),
+  hubert-xlarge (frames, not causal), qwen2-moe-a2.7b (routed and shared
+  experts), arctic-480b (the dense residual), xlstm-350m (mLSTM with its
+  normaliser, sLSTM), minitron-8b (GQA) and llama-3.2-vision-90b (the
+  cross blocks, ``xgate`` nonzero, over a float32 context: training takes
+  attention through ``FlashAttentionFn``, whose forward keeps the
+  probabilities float32 where the reference's ``_sdpa`` rounds them to a
+  bf16 context's type, so a bf16 context would depart from the reference
+  by bf16 rounding, not float32's).  Tolerances: the loss to 1e-6
+  relative; each gradient leaf to ``5e-5 * max |reference gradient|`` (the
+  whole-model rule of ``tests/test_torch_models.py``; zamba2 reads
+  8.5e-6);
 * the four remat settings give the same gradients, bit for bit (the same
   operations recomputed);
 * ``make_train_step`` from parameters and AdamW state carried over from
@@ -100,6 +108,10 @@ class Pair:
         labels = rng.integers(0, self.cfg.vocab, (B, S)).astype(np.int32)
         labels[0, :3] = -1                               # masked
         out["labels"] = labels
+        if self.cfg.cross_ctx_len:
+            out["cross_ctx"] = rng.standard_normal(
+                (B, self.cfg.cross_ctx_len, self.cfg.d_model)).astype(
+                    np.float32)
         return out
 
 
@@ -112,7 +124,9 @@ def ref_value_and_grad(pair, batch, **kw):
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "gemma-7b",
-                                  "hubert-xlarge"])
+                                  "hubert-xlarge", "qwen2-moe-a2.7b",
+                                  "arctic-480b", "xlstm-350m", "minitron-8b",
+                                  "llama-3.2-vision-90b"])
 def test_loss_and_grads_match_reference(arch):
     pair = Pair(arch)
     batch = pair.batch()
