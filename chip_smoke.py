@@ -161,9 +161,13 @@ package.  Phases, each printed as it runs:
    ``ssd_scan_bwd`` against ``attention_bwd_plain`` / ``ssd_scan_bwd_plain``
    over sweeps (zamba2-2.7b's training shapes, float32 at small shapes,
    GQA at head_dim 128, slow-decay SSD; bf16 elementwise within 2e-2,
-   float32 within 2e-5 of the largest plain gradient), their times at
-   zamba2's shapes beside the bound and, for attention, the backward of
-   ``F.scaled_dot_product_attention``; reduced zamba2 in float32 on the
+   float32 within 2e-5 of the largest plain gradient; the bf16 attention
+   backward fed the forward kernel's row log-sum-exp), each call repeated
+   and held to the same bits, the share of bf16 outputs bit-equal to the
+   plain version's; their times at zamba2's shapes beside the bound, each
+   kernel of a call's device time, and, for attention, the backward of
+   ``F.scaled_dot_product_attention`` (per call and its device time);
+   reduced zamba2 in float32 on the
    kernels, three AdamW steps against the JAX reference's
    (``tests/fixtures/torch_train_golden.npz``, the CPU test's limits);
    zamba2-2.7b at full width (bf16, seeded random weights, batch 4 x 1024,
@@ -2162,7 +2166,8 @@ def profile_backward_kernels() -> None:
     at the sweeps' first (zamba2) shapes, the profiled device times as
     JSON."""
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
+                                                     flash_attention_bwd,
+                                                     lse_buffer)
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -2171,10 +2176,18 @@ def profile_backward_kernels() -> None:
     B, S, Hq, Hkv, D, causal, _ = FLASH_BWD_CASES[0]
     q, do = rn(B, S, Hq, D), rn(B, S, Hq, D)
     k, v = rn(B, S, Hkv, D), rn(B, S, Hkv, D)
-    o = flash_attention(q, k, v, causal=causal)
+    lse = lse_buffer(q)
+    o = flash_attention(q, k, v, causal=causal, lse=lse)
     out = {"flash_attention_bwd": profiled_device_ms(
-        lambda: flash_attention_bwd(q, k, v, o, do, causal=causal),
+        lambda: flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse),
         reps=10)}
+    lq, lk, lv = (t.transpose(1, 2).requires_grad_() for t in (q, k, v))
+    lout = torch.nn.functional.scaled_dot_product_attention(
+        lq, lk, lv, is_causal=causal)
+    out["sdpa_backward"] = profiled_device_ms(
+        lambda: torch.autograd.grad(lout, (lq, lk, lv), do.transpose(1, 2),
+                                    retain_graph=True), reps=10)
+    del lout
     B, L, H, N, P, c, _, _, _ = SSD_BWD_CASES[0]
     q, k = (rn(B, L, 1, N).expand(B, L, H, N) for _ in range(2))
     v, do = rn(B, L, H, P), rn(B, L, H, P)
@@ -2189,8 +2202,19 @@ def backward_kernels_phase(g, dev, smi) -> dict:
     the sweeps, then times at zamba2-2.7b's training shapes."""
     from repro_torch.kernels.flash_attention import (attention_bwd_plain,
                                                      flash_attention,
-                                                     flash_attention_bwd)
+                                                     flash_attention_bwd,
+                                                     lse_buffer)
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_plain
+
+    def repeat_bits(fn, got, what):
+        """A second call's outputs, held to the first's bits."""
+        again = fn()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"{what}: a second call on the same inputs gave other bits")
+
+    def equal_share(got, ref) -> float:
+        return float(sum((x == y).sum().item() for x, y in zip(got, ref))
+                     / sum(x.numel() for x in got))
     out = {}
     for B, S, Hq, Hkv, D, causal, bf in FLASH_BWD_CASES:
         dt = torch.bfloat16 if bf else torch.float32
@@ -2198,16 +2222,26 @@ def backward_kernels_phase(g, dev, smi) -> dict:
                                                          dev)
         k, v = randn((B, S, Hkv, D), g, dt, dev), randn((B, S, Hkv, D), g,
                                                          dt, dev)
-        o = flash_attention(q, k, v, causal=causal)
-        err = hold_grads(flash_attention_bwd(q, k, v, o, do, causal=causal),
-                         attention_bwd_plain(q, k, v, o, do, causal=causal),
-                         dt, f"flash_attention_bwd {(B, S, Hq, Hkv, D)} "
-                         f"causal={causal} {dt}")
+        lse = lse_buffer(q)
+        o = flash_attention(q, k, v, causal=causal, lse=lse)
+        what = f"flash_attention_bwd {(B, S, Hq, Hkv, D)} causal={causal} {dt}"
+
+        def call():
+            return flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                       lse=lse)
+        got = call()
+        ref = attention_bwd_plain(q, k, v, o, do, causal=causal)
+        err = hold_grads(got, ref, dt, what)
+        repeat_bits(call, got, what)
+        share = equal_share(got, ref)
         print(f"flash_attention_bwd B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
-              f"causal={causal} {dt}: max |kernel - plain| {err!r}")
+              f"causal={causal} {dt}: max |kernel - plain| {err!r}, "
+              f"{100 * share:.2f}% of outputs bit-equal to the plain "
+              "version's, a second call the same bits")
         if (B, S, Hq, D, bf) == (4, 1024, 32, 80, True):
-            out["flash_attention_bwd"] = {"args": (q, k, v, o, do),
-                                          "max_abs_err": err}
+            out["flash_attention_bwd"] = {"args": (q, k, v, o, do, lse),
+                                          "max_abs_err": err,
+                                          "bit_equal_share": share}
     for B, L, H, N, P, c, bc, slow, bf in SSD_BWD_CASES:
         dt = torch.bfloat16 if bf else torch.float32
         hq = 1 if bc else H
@@ -2220,22 +2254,28 @@ def backward_kernels_phase(g, dev, smi) -> dict:
         else:
             a = -torch.nn.functional.softplus(
                 torch.randn((B, L, H), generator=g, device=dev))
-        got = ssd_scan_bwd(q, k, v, a, do, chunk=c)
+        what = f"ssd_scan_bwd {(B, L, H, N, P, c)} slow={slow} {dt}"
+
+        def call():
+            return ssd_scan_bwd(q, k, v, a, do, chunk=c)
+        got = call()
         ref = ssd_scan_bwd_plain(q, k, v, a, do, chunk=c)
         # da is float32 on both sides: held to 2e-5 of its largest entry
-        err = max(hold_grads(got[:3], ref[:3], dt, f"ssd_scan_bwd "
-                             f"{(B, L, H, N, P, c)} slow={slow} {dt}"),
-                  kernel_err_of_max(got[3], ref[3], f"ssd_scan_bwd "
-                                    f"{(B, L, H, N, P, c)} da"))
+        err = max(hold_grads(got[:3], ref[:3], dt, what),
+                  kernel_err_of_max(got[3], ref[3], f"{what} da"))
+        repeat_bits(call, got, what)
+        share = equal_share(got[:3], ref[:3])
         print(f"ssd_scan_bwd B={B} L={L} H={H} N={N} P={P} chunk={c} "
               f"broadcast={bc} slow={slow} {dt}: max |kernel - plain| "
-              f"{err!r}")
+              f"{err!r}, {100 * share:.2f}% of dq, dk, dv bit-equal to the "
+              "plain version's, a second call the same bits")
         if (B, L, H, bf, slow) == (4, 1024, 80, True, False):
             out["ssd_scan_bwd"] = {"args": (q, k, v, a, do, c),
-                                   "max_abs_err": err}
+                                   "max_abs_err": err,
+                                   "bit_equal_share": share}
     # times at zamba2-2.7b's shapes
-    q, k, v, o, do = out["flash_attention_bwd"].pop("args")
-    f_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, do))
+    q, k, v, o, do, lse = out["flash_attention_bwd"].pop("args")
+    f_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse=lse))
     f_p_ms = cuda_ms(lambda: attention_bwd_plain(q, k, v, o, do), reps=5)
     dev_ms = device_ms_in_child(PROFILE_BWD_ARG)
     f_dev, f_parts = dev_ms["flash_attention_bwd"]
@@ -2251,16 +2291,20 @@ def backward_kernels_phase(g, dev, smi) -> dict:
     f_lib = cuda_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo,
                                                 retain_graph=True))
     del lib, lout
+    l_dev, l_parts = dev_ms["sdpa_backward"]
     out["flash_attention_bwd"].update(
         ms=f_ms, plain_ms=f_p_ms, device_ms=f_dev, bound_ms=f_b,
-        bound_by=f_by, library_ms=f_lib)
+        bound_by=f_by, library_ms=f_lib, library_device_ms=l_dev,
+        parts=f_parts)
     print(f"flash_attention_bwd at zamba2-2.7b's training shape (q, k, v "
-          f"[4, 1024, 32, 80] bf16, causal): per call (CUDA events, median "
-          f"of 25) kernel {f_ms:.6f} ms, plain {f_p_ms:.6f} ms; device time "
-          f"(profiler, a new process) {f_dev!r} ms [{show_parts(f_parts)}]; "
-          f"bound {f_b:.6f} ms ({f_by}); torch.autograd.grad of "
-          f"F.scaled_dot_product_attention {f_lib:.6f} ms (max |sdpa - "
-          f"plain| {lib_err:.4g}); on {smi}")
+          f"[4, 1024, 32, 80] bf16, causal, the forward's lse): per call "
+          f"(CUDA events, median of 25) kernel {f_ms:.6f} ms, plain "
+          f"{f_p_ms:.6f} ms; device time (profiler, a new process) "
+          f"{f_dev!r} ms [{show_parts(f_parts)}]; bound {f_b:.6f} ms "
+          f"({f_by}); torch.autograd.grad of F.scaled_dot_product_attention "
+          f"{f_lib:.6f} ms a call, device time {l_dev!r} ms "
+          f"[{show_parts(l_parts)}] (max |sdpa - plain| {lib_err:.4g}); on "
+          f"{smi}")
     q, k, v, a, do, c = out["ssd_scan_bwd"].pop("args")
     s_ms = cuda_ms(lambda: ssd_scan_bwd(q, k, v, a, do, chunk=c))
     s_p_ms = cuda_ms(lambda: ssd_scan_bwd_plain(q, k, v, a, do, chunk=c),
@@ -2269,7 +2313,7 @@ def backward_kernels_phase(g, dev, smi) -> dict:
     s_b, s_by = ssd_bwd_bound_ms(q, k, v, c)
     out["ssd_scan_bwd"].update(
         ms=s_ms, plain_ms=s_p_ms, device_ms=s_dev, bound_ms=s_b,
-        bound_by=s_by, library_ms=None)
+        bound_by=s_by, library_ms=None, parts=s_parts)
     print(f"ssd_scan_bwd at zamba2-2.7b's training shape (q, k [4, 1024, "
           f"80, 64] broadcast over heads, v [4, 1024, 80, 64] bf16, chunk "
           f"256): per call (CUDA events, median of 25) kernel {s_ms:.6f} "

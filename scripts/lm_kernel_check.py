@@ -4,7 +4,9 @@ Builds ``flash_attention`` and ``ssd_scan`` and their backward kernels from
 ``src/repro_torch/kernels/csrc`` (printing ``ptxas``'s register and spill
 report), compares each with its plain torch version on a few shapes in
 float32 and bf16 (printing the max |kernel - plain|, and for the backward
-kernels that over the largest plain gradient), and times one call of each
+kernels that over the largest plain gradient, whether every gradient is
+within the tolerance ``chip_smoke.py`` holds it to, and whether a second
+call gives the same bits), and times one call of each
 at the zamba2-2.7b shapes (batch 4, sequence 1024) with CUDA events over
 five calls.  It is the quick call to make after editing a kernel;
 ``chip_smoke.py`` is the full check.  Needs a CUDA device.
@@ -27,7 +29,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (attention_bwd_plain,
                                                  attention_plain,
                                                  flash_attention,
-                                                 flash_attention_bwd)
+                                                 flash_attention_bwd,
+                                                 lse_buffer)
 from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd,
                                           ssd_scan_bwd_plain, ssd_scan_plain)
 
@@ -58,13 +61,22 @@ def events_ms(fn, n: int = 5) -> float:
     return start.elapsed_time(end) / n
 
 
-# backward: (B, S, Hq, Hkv, D, causal) and (B, L, H, N, P, chunk, broadcast)
-FLASH_BWD = [(1, 64, 2, 1, 16, True), (2, 100, 4, 2, 80, True),
-             (2, 130, 4, 4, 64, False), (1, 256, 8, 2, 128, True),
-             (4, 1024, 32, 32, 80, True)]
-SSD_BWD = [(1, 64, 2, 16, 16, 16, False), (2, 96, 3, 16, 16, 16, True),
-           (1, 512, 2, 64, 64, 128, False), (2, 512, 4, 64, 32, 256, True),
-           (4, 1024, 80, 64, 64, 256, True)]
+# backward: (B, S, Hq, Hkv, D, causal, Skv) and (B, L, H, N, P, chunk,
+# broadcast, slow decay)
+FLASH_BWD = [(1, 64, 2, 1, 16, True, 64), (2, 100, 4, 2, 80, True, 100),
+             (2, 130, 4, 4, 64, False, 130), (1, 256, 8, 2, 128, True, 256),
+             (1, 130, 4, 1, 16, True, 130), (2, 64, 4, 4, 32, True, 64),
+             (2, 100, 4, 2, 64, False, 300), (1, 1024, 64, 8, 128, False, 4096),
+             (4, 1024, 32, 32, 80, True, 1024)]
+SSD_BWD = [(1, 64, 2, 16, 16, 16, False, False),
+           (2, 96, 3, 16, 16, 16, True, False),
+           (1, 512, 2, 64, 64, 128, False, False),
+           (2, 512, 4, 64, 32, 256, True, False),
+           (2, 256, 4, 32, 48, 64, False, False),
+           (1, 1024, 8, 64, 64, 256, True, True),
+           (2, 200, 3, 32, 16, 100, False, True),
+           (4, 1024, 80, 64, 64, 256, True, False),
+           (4, 1024, 80, 64, 64, 256, True, True)]
 
 
 def device_parts(fn, n: int = 5) -> str:
@@ -92,35 +104,73 @@ def rel_err(outs, refs) -> list:
             for o, r in zip(outs, refs)]
 
 
+def within(outs, refs, dt) -> bool:
+    """bf16 gradients elementwise within 2e-2 (rtol and atol), float32
+    ones (and da) within 2e-5 of the largest plain entry."""
+    ok = True
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        o, r = o.float(), r.float()
+        if dt == torch.bfloat16 and i < 3:
+            ok &= bool(((o - r).abs() <= 2e-2 + 2e-2 * r.abs()).all())
+        else:
+            ok &= bool((o - r).abs().max() <= 2e-5 * r.abs().max())
+    return ok
+
+
 def grad_checks(rn) -> None:
     for dt in (torch.float32, torch.bfloat16):
-        for B, S, Hq, Hkv, D, causal in FLASH_BWD:
+        for B, S, Hq, Hkv, D, causal, Skv in FLASH_BWD:
             q, do = rn(B, S, Hq, D, dt=dt), rn(B, S, Hq, D, dt=dt)
-            k, v = rn(B, S, Hkv, D, dt=dt), rn(B, S, Hkv, D, dt=dt)
-            o = flash_attention(q, k, v, causal=causal)
-            got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+            k, v = rn(B, Skv, Hkv, D, dt=dt), rn(B, Skv, Hkv, D, dt=dt)
+            lse = lse_buffer(q)
+            o = flash_attention(q, k, v, causal=causal, lse=lse)
+            got = flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
+            again = flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                        lse=lse)
             ref = attention_bwd_plain(q, k, v, o, do, causal=causal)
+            plain_lse = torch.empty_like(lse)
+            attention_plain(q, k, v, causal=causal, lse=plain_lse)
             torch.cuda.synchronize()
-            print("flash_bwd", dt, B, S, Hq, Hkv, D, causal,
-                  "err/max (dq, dk, dv)", rel_err(got, ref), flush=True)
-        for B, L, H, N, P, c, shared in SSD_BWD:
+            lse_err = (lse[..., :S] - plain_lse[..., :S]).abs().max().item()
+            print("flash_bwd", dt, B, S, Skv, Hq, Hkv, D, causal,
+                  "err/max (dq, dk, dv)", rel_err(got, ref), "within",
+                  within(got, ref, dt), "same bits",
+                  all(torch.equal(x, y) for x, y in zip(got, again)),
+                  "lse err", lse_err, flush=True)
+        for B, L, H, N, P, c, shared, slow in SSD_BWD:
             hq = 1 if shared else H
             q = rn(B, L, hq, N, dt=dt).expand(B, L, H, N)
             k = rn(B, L, hq, N, dt=dt).expand(B, L, H, N)
             v, do = rn(B, L, H, P, dt=dt), rn(B, L, H, P, dt=dt)
-            a = -torch.nn.functional.softplus(rn(B, L, H))
+            if slow:
+                a = -0.01 * torch.rand(B, L, H, device="cuda")
+            else:
+                a = -torch.nn.functional.softplus(rn(B, L, H))
             got = ssd_scan_bwd(q, k, v, a, do, chunk=c)
+            again = ssd_scan_bwd(q, k, v, a, do, chunk=c)
             ref = ssd_scan_bwd_plain(q, k, v, a, do, chunk=c)
             torch.cuda.synchronize()
-            print("ssd_bwd", dt, B, L, H, N, P, c, shared,
-                  "err/max (dq, dk, dv, da)", rel_err(got, ref), flush=True)
+            print("ssd_bwd", dt, B, L, H, N, P, c, shared, slow,
+                  "err/max (dq, dk, dv, da)", rel_err(got, ref), "within",
+                  within(got, ref, dt), "same bits",
+                  all(torch.equal(x, y) for x, y in zip(got, again)),
+                  flush=True)
     bf = torch.bfloat16
     q, k, v, do = (rn(4, 1024, 32, 80, dt=bf) for _ in range(4))
-    o = flash_attention(q, k, v)
+    lse = lse_buffer(q)
+    o = flash_attention(q, k, v, lse=lse)
     print("flash_bwd ms", events_ms(
-        lambda: flash_attention_bwd(q, k, v, o, do)))
+        lambda: flash_attention_bwd(q, k, v, o, do, lse=lse)))
     print("flash_bwd parts", device_parts(
-        lambda: flash_attention_bwd(q, k, v, o, do)))
+        lambda: flash_attention_bwd(q, k, v, o, do, lse=lse)))
+    lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lo = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv,
+                                                          is_causal=True)
+    ldo = do.transpose(1, 2)
+    print("sdpa backward ms", events_ms(
+        lambda: torch.autograd.grad(lo, (lq, lk, lv), ldo,
+                                    retain_graph=True)))
     q = rn(4, 1024, 1, 64, dt=bf).expand(4, 1024, 80, 64)
     k = rn(4, 1024, 1, 64, dt=bf).expand(4, 1024, 80, 64)
     v, do = rn(4, 1024, 80, 64, dt=bf), rn(4, 1024, 80, 64, dt=bf)

@@ -3,8 +3,10 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface and loaded with ``ctypes``: no PyTorch
 headers, so a build takes seconds.  Libraries go to ``build/repro_torch/``
-at the repository root, named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  Builds
+at the repository root, named by a hash of the source, the local headers
+it includes (``#include "x.cuh"``, followed through headers) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.  Builds
 happen at first use; ``build()`` compiles several sources at once, one
 ``nvcc`` process each.  A missing ``nvcc`` or a failed build raises.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -43,11 +46,31 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
-def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(src: Path) -> list[Path]:
+    """``src`` and the local headers it includes, each once, in the order
+    first met (an include is looked up beside the file that names it)."""
+    seen, todo = [], [src.resolve()]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.append(f)
+        for m in _LOCAL_INCLUDE.finditer(f.read_bytes()):
+            inc = (f.parent / m.group(1).decode()).resolve()
+            if inc.is_file():
+                todo.append(inc)
+    return seen
+
+
+def _library_path(name: str, csrc: Path = CSRC) -> Path:
+    h = hashlib.sha256()
+    for f in _sources(csrc / f"{name}.cu"):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    h.update(repr(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: list[str]) -> None:

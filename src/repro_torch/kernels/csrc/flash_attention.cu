@@ -77,7 +77,15 @@
 //   cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint so the
 //   library links no libcuda, and passed as __grid_constant__ parameters.
 //   TMA needs 16 B aligned base addresses and strides; the wrapper checks
-//   both and raises otherwise.
+//   both and raises otherwise.  These pieces (maps, mbarriers, wgmma
+//   descriptors and wrappers) live in hopper.cuh, which the backward
+//   kernels share.
+// * The row log-sum-exp: given an lse pointer (the training forward's;
+//   serving passes null), the epilogue also stores each row's
+//   m scale + log l, which the bf16 backward kernel reads instead of
+//   recomputing it; both kernels do, the float32 one from its running
+//   max and sum.  Without the pointer the kernel computes what it did
+//   before, bit for bit.
 //
 // float32: the CUDA cores (flash_f32_kernel), since neither bf16 nor TF32
 // products meet float32's 2e-5: one block of 128 threads per (query head,
@@ -85,10 +93,7 @@
 // float32, a 4 x 4 score micro-tile per thread, the online softmax by
 // warps, the accumulator in registers.  The parity path (reduced zamba2 in
 // float32) uses it; the bf16 serve path does not.
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -104,6 +109,8 @@ struct Args {
   long long qs[3], ks[3], vs[3], os[3];   // batch, head, sequence strides
   int causal, q_offset, kv_end;           // kv_end = min(Skv, kv_len)
   float scale;
+  float* lse;                             // [B, Hq, >= Sq] or null
+  long long ls[2];                        // its batch and head strides
 };
 
 // ------------------------- float32: CUDA cores -----------------------------
@@ -243,6 +250,8 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Args a) {
   __syncthreads();
 
   const int r = q0 + ro;
+  if (r < a.Sq && a.lse && co == 0)
+    a.lse[b * a.ls[0] + h * a.ls[1] + r] = sm[ro] + logf(sl[ro]);
   if (r < a.Sq) {
     const float denom = fmaxf(sl[ro], 1e-30f);
     float* orow = O + r * a.os[2];
@@ -277,9 +286,7 @@ constexpr int kBM = 128;                 // query rows per CTA
 constexpr int kBN = 128;                 // kv rows per tile
 constexpr int kStages = 3;               // K/V ring depth
 constexpr int kTcThreads = 384;          // producer + two consumer groups
-constexpr int kBox = 64;                 // columns per TMA box (128 B)
 constexpr int kBoxBytes = kBM * 128;     // one box of 128 rows (kBM == kBN)
-constexpr int kErrNoTensorMap = 10000;   // returned when TMA maps fail
 
 // Shapes of one instantiation: DP is the head dim rounded up to an
 // instruction width (16, 32, 64, 80 or 128), the n of O += P V.
@@ -292,269 +299,14 @@ struct Tc {
   static constexpr int kSmem = 1024 + (1 + 2 * kStages) * kTile + 8 * kBars;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// Waits until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra LAB_WAIT;\n}\n"
-      :: "r"(bar), "r"(parity) : "memory");
-}
-
-// One TMA box (4-d coordinates: column, row, head, batch) into shared
-// memory; completes its bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128B swizzle: start address, leading
-// and stride byte offsets.
-__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo,
-                                           uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// Keeps the compiler from moving accesses of accumulator registers across
-// an asynchronous wgmma's issue or wait.
-template <int R>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int R>
-__device__ __forceinline__ void fence_u32(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// (x0, x1) as bf16 pairs hi and lo = bf16(x - hi): hi + lo keeps about 16
-// bits of each.
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h),
-                                           x1 - __high2float(h));
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = *reinterpret_cast<uint32_t*>(&l);
-}
-
-// wgmma instructions: ss = both operands from shared memory (S = Q K^T),
-// rs = A from registers and B transposed (O += P V).  Accumulator fragment
-// of a thread (lane l of warp w in the warpgroup, g = l / 4, t = l % 4):
-// d[4j + e] is row 16w + g + 8 (e / 2), column 8j + 2t + e % 2.
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  // D[64 x 16] += A[64 x 16] B[16 x 16]: A in registers (four
-  // bf16 pairs a thread), B in shared memory, MN-major.
-  static __device__ __forceinline__ void rs(float* d,
-                                            const uint32_t* a,
-                                            uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  // D[64 x 32] += A[64 x 16] B[16 x 32]: A in registers (four
-  // bf16 pairs a thread), B in shared memory, MN-major.
-  static __device__ __forceinline__ void rs(float* d,
-                                            const uint32_t* a,
-                                            uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7"
-        ", %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  // D[64 x 64] += A[64 x 16] B[16 x 64]: A in registers (four
-  // bf16 pairs a thread), B in shared memory, MN-major.
-  static __device__ __forceinline__ void rs(float* d,
-                                            const uint32_t* a,
-                                            uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7"
-        ", %8, %9, %10, %11, %12, %13, %14, %15"
-        ", %16, %17, %18, %19, %20, %21, %22, %23"
-        ", %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<80> {
-  // D[64 x 80] += A[64 x 16] B[16 x 80]: A in registers (four
-  // bf16 pairs a thread), B in shared memory, MN-major.
-  static __device__ __forceinline__ void rs(float* d,
-                                            const uint32_t* a,
-                                            uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7"
-        ", %8, %9, %10, %11, %12, %13, %14, %15"
-        ", %16, %17, %18, %19, %20, %21, %22, %23"
-        ", %24, %25, %26, %27, %28, %29, %30, %31"
-        ", %32, %33, %34, %35, %36, %37, %38, %39"
-        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  // D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A and B in shared
-  // memory, both K-major; scale_d = 0 overwrites D.
-  static __device__ __forceinline__ void ss(float* d, uint64_t da,
-                                            uint64_t db,
-                                            int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7"
-        ", %8, %9, %10, %11, %12, %13, %14, %15"
-        ", %16, %17, %18, %19, %20, %21, %22, %23"
-        ", %24, %25, %26, %27, %28, %29, %30, %31"
-        ", %32, %33, %34, %35, %36, %37, %38, %39"
-        ", %40, %41, %42, %43, %44, %45, %46, %47"
-        ", %48, %49, %50, %51, %52, %53, %54, %55"
-        ", %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-  // D[64 x 128] += A[64 x 16] B[16 x 128]: A in registers (four
-  // bf16 pairs a thread), B in shared memory, MN-major.
-  static __device__ __forceinline__ void rs(float* d,
-                                            const uint32_t* a,
-                                            uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7"
-        ", %8, %9, %10, %11, %12, %13, %14, %15"
-        ", %16, %17, %18, %19, %20, %21, %22, %23"
-        ", %24, %25, %26, %27, %28, %29, %30, %31"
-        ", %32, %33, %34, %35, %36, %37, %38, %39"
-        ", %40, %41, %42, %43, %44, %45, %46, %47"
-        ", %48, %49, %50, %51, %52, %53, %54, %55"
-        ", %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(1));
-  }
-};
-
 struct TcArgs {
   void* o;
   long long os[3];                       // batch, head, sequence strides
   int Hq, Hkv, Sq, D;
   int causal, q_offset, kv_end;
   float scale_log2;                      // scale * log2(e)
+  float* lse;                            // [B, Hq, >= Sq] or null
+  long long ls[2];                       // its batch and head strides
 };
 
 // S = Q K^T for one kv tile, issued and committed (not waited for):
@@ -566,7 +318,7 @@ __device__ __forceinline__ void issue_scores(float* sc, uint32_t q_addr,
 #pragma unroll
   for (int kk = 0; kk < Tc<DP>::kSteps; ++kk) {
     const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    Wgmma<kBN>::ss(sc, desc128(q_addr + off, 16, 1024),
+    Wgmma<kBN>::ss<0>(sc, desc128(q_addr + off, 16, 1024),
                    desc128(k_addr + off, 16, 1024), kk > 0);
   }
   wg_commit();
@@ -589,12 +341,6 @@ __device__ __forceinline__ void issue_pv(float* o, const uint32_t* ph,
     Wgmma<DP>::rs(o, pl + 4 * kk, dv);
   }
   wg_commit();
-}
-
-__device__ __forceinline__ float ex2(float x) {     // 2^x, MUFU.EX2
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Online softmax over a thread's two rows (a: g, b: g + 8), each shared by
@@ -801,8 +547,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(bar_empty + 8 * s);
     }
 
-    const float inv_a = 1.f / fmaxf(sm.row_sum(sm.l_a), 1e-30f);
-    const float inv_b = 1.f / fmaxf(sm.row_sum(sm.l_b), 1e-30f);
+    const float l_a = sm.row_sum(sm.l_a), l_b = sm.row_sum(sm.l_b);
+    const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+    const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+    if (a.lse && t4 == 0) {      // lse = m scale + log l, in natural units
+      float* L = a.lse + b * a.ls[0] + h * a.ls[1];
+      constexpr float kLn2 = 0.6931471805599453f;
+      if (row_a < a.Sq)
+        L[row_a] = (sm.m_a * a.scale_log2 + __log2f(l_a)) * kLn2;
+      if (row_b < a.Sq)
+        L[row_b] = (sm.m_b * a.scale_log2 + __log2f(l_b)) * kLn2;
+    }
     __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.o) + b * a.os[0] +
                        h * a.os[1];
 #pragma unroll
@@ -819,44 +574,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-d map (column, row, head, batch) of a bf16 [B, S, H, D] view with
-// element strides st (batch, head, sequence): boxes of 64 columns x 128
-// rows, 128B swizzle, zero fill out of bounds.
-bool tensor_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int D,
-                int rows, int heads, int batch, const long long* st) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)heads, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
-                                 (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {kBox, kBM, 1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<void*>(ptr), dims, strides, box, estr,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DP>
@@ -881,9 +598,9 @@ int launch_tc(const Args& a, cudaStream_t stream) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return kErrNoTensorMap;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(enc, &tq, a.q, a.D, a.Sq, a.Hq, a.B, a.qs) ||
-      !tensor_map(enc, &tk, a.k, a.D, a.kv_end, a.Hkv, a.B, a.ks) ||
-      !tensor_map(enc, &tv, a.v, a.D, a.kv_end, a.Hkv, a.B, a.vs))
+  if (!tensor_map(enc, &tq, a.q, a.D, a.Sq, a.Hq, a.B, a.qs, kBM) ||
+      !tensor_map(enc, &tk, a.k, a.D, a.kv_end, a.Hkv, a.B, a.ks, kBN) ||
+      !tensor_map(enc, &tv, a.v, a.D, a.kv_end, a.Hkv, a.B, a.vs, kBN))
     return kErrNoTensorMap;
   TcArgs t;
   t.o = a.o;
@@ -895,7 +612,10 @@ int launch_tc(const Args& a, cudaStream_t stream) {
   t.causal = a.causal;
   t.q_offset = a.q_offset;
   t.kv_end = a.kv_end;
-  t.scale_log2 = a.scale * 1.4426950408889634f;
+  t.scale_log2 = a.scale * kLog2e;
+  t.lse = a.lse;
+  t.ls[0] = a.ls[0];
+  t.ls[1] = a.ls[1];
   switch (tc_dp(a.D)) {
     case 16: return launch_tc_dp<16>(a, t, tq, tk, tv, stream);
     case 32: return launch_tc_dp<32>(a, t, tq, tk, tv, stream);
@@ -926,15 +646,18 @@ extern "C" long long flash_attention_smem_bytes(int D, int dtype) {
 
 // dtype: 0 float32, 1 bfloat16.  Strides are in elements, three per tensor
 // (batch, head, sequence); for bfloat16 they and the pointers must be
-// 16 B aligned and D a multiple of 8 (TMA).  Launches on `stream` and
-// returns cudaGetLastError() (0 on success), or 10000 when the TMA maps
-// cannot be made.
+// 16 B aligned and D a multiple of 8 (TMA).  lse, when not null, receives
+// each query row's log-sum-exp of the scaled, masked scores (float32, rows
+// contiguous, batch and head strides lse_b and lse_h).  Launches on
+// `stream` and returns cudaGetLastError() (0 on success), or 10000 when the
+// TMA maps cannot be made.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Hq, int Hkv, int Sq, int Skv, int D, const long long* q_strides,
     const long long* k_strides, const long long* v_strides,
     const long long* o_strides, int causal, int q_offset, int kv_end,
-    float scale, void* stream) {
+    float scale, float* lse, long long lse_b, long long lse_h,
+    void* stream) {
   if (B == 0 || Hq == 0 || Sq == 0) return (int)cudaGetLastError();
   Args a;
   a.q = q;
@@ -957,6 +680,9 @@ extern "C" int flash_attention_launch(
   a.q_offset = q_offset;
   a.kv_end = kv_end;
   a.scale = scale;
+  a.lse = lse;
+  a.ls[0] = lse_b;
+  a.ls[1] = lse_h;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1 ? launch_tc(a, s) : launch_f32(a, s);
 }

@@ -6,8 +6,9 @@
 // flash_attention.cu with q_offset = 0 and kv_len = Skv (causal: query row
 // i sees kv rows j <= i; or no mask).  Per query head, in float32:
 //
-//   P     = exp(q k^T * scale - lse)        lse: the row's log-sum-exp,
-//                                           recomputed here (pass 1)
+//   P     = exp(q k^T * scale - lse)        lse: the row's log-sum-exp
+//                                           (bf16: the forward kernel's;
+//                                           float32: a first pass here)
 //   delta = rowsum(dO * O)
 //   dS    = P * (dO V^T - delta)
 //   dQ    = dS K * scale,  dK = dS^T Q * scale,  dV = P^T dO
@@ -23,46 +24,57 @@
 //
 // Two kernels, one after the other on the stream, in two forms.
 //
-// bf16 (the training path; strides and pointers that allow 16 B loads,
-// else the call is refused): Hopper's tensor cores through mma.sync
-// (m16n8k16, bf16 in, float32 sums), one CTA of four warps per 64 rows,
-// each warp owning 16 of them; tiles of 64 rows x D bf16 in shared memory
-// (D padded to 16, 32, 64, 80 or 128; rows padded by 16 B so ldmatrix is
-// conflict-free), loaded 16 B at a time.
-//  * attn_bwd_dq_tc, per (batch, query head, 64 query rows): delta from dO
-//    and O; pass 1 over the visible kv tiles forms S = Q K^T in registers
-//    and takes each row's max and sum (a quad of threads shares a row),
-//    writing lse and delta for the second kernel; pass 2 forms S and
-//    dP = dO V^T again, dS = P (dP - delta) in registers, and dQ += dS K.
-//  * attn_bwd_dkv_tc, per (batch, kv head, 64 kv rows): K and V stay in
-//    shared memory; for each query head of the group and each query tile
-//    that can see the block (causal: from the block's first row on),
-//    S^T = K Q^T and dP^T = V dO^T, P^T and dS^T in registers, then
-//    dV += P^T dO and dK += dS^T Q.
-//  Q K^T, dO V^T and their transposes multiply bf16 inputs: exact
-//  products.  P and dS are float32: each is split into two bf16 terms,
-//  hi = bf16(x) and lo = bf16(x - hi) (about 16 bits), and multiplied
-//  twice, where rounding them once would leave the plain version's
-//  float32 P by 2^-9 relative.
+// bf16 (the training path; strides and pointers that allow TMA, else the
+// call is refused): Hopper's tensor cores through wgmma (bf16 in, float32
+// sums) on tiles that TMA brings through a ring of shared-memory stages
+// (full / empty mbarriers; a producer warpgroup whose one thread issues
+// the loads, two consumer warpgroups of 64 rows each), with the shared
+// pieces of the forward (hopper.cuh: tensor maps, descriptors, the wgmma
+// wrappers; a head dim over 64 as two 128B-swizzled boxes, zero filled).
+// Both kernels are persistent (a CTA an SM walking its items), so an
+// item's stores overlap the next item's loads.  Seven products of the
+// (query, key) tiles where the first design made eleven:
+//  * attn_bwd_dq_wgmma, per (batch, query head, 128 query rows): Q and dO
+//    once, K and V in 64-row tiles through the ring; S = Q K^T and
+//    dP = dO V^T from shared memory, P = 2^(S c - lse log2 e) with the
+//    row log-sum-exp the forward kernel wrote beside its output (no
+//    statistics pass), dS = P (dP - delta) in registers, and dQ += dS K
+//    with dS as the register A operand.  delta = rowsum(dO O) is the
+//    item's prologue, stored for the second kernel.
+//  * attn_bwd_dkv_wgmma, per (batch, kv head, 128 kv rows): K and V once;
+//    for each query head of the group and each 64-row query tile that can
+//    see the block (causal: from the block's first row on), Q, dO and the
+//    tile's lse and delta through the ring; S^T = K Q^T and dP^T = V dO^T,
+//    P^T and dS^T in registers with kv rows, and dV += P^T dO,
+//    dK += dS^T Q with P^T and dS^T as register A operands (dO and Q read
+//    MN-major): no shared-memory round trip.
+//  Each kernel issues the next tile's score products with this tile's
+//  gradient products (one wgmma group, one wait).  P and dS are rounded
+//  to bf16 once, as SDPA's backward and the reference's bf16 `_sdpa`
+//  gradient do: the hi / lo split of the first design is gone, and every
+//  bf16 case of chip_smoke.py's sweep and of the `cuda` tests (zamba2's
+//  shape, GQA at D = 128, Sq != Skv at the VLM's cross shape) stays
+//  within 2e-2 of the plain version.  No atomics: every output element is
+//  written once by one thread, the same bits on every run.
 //
 // float32 (the parity path): the CUDA cores, one block of 256 threads per
-// 64 rows as above, tiles of 64 x D float32 (rows padded by one float),
-// each thread a 4 x 4 micro-tile of a 64 x 64 score tile or D / 4 output
-// columns of one row (attn_bwd_dq, attn_bwd_dkv).
+// 64 rows, tiles of 64 x D float32 (rows padded by one float), each thread
+// a 4 x 4 micro-tile of a 64 x 64 score tile or D / 4 output columns of one
+// row (attn_bwd_dq, which takes the rows' lse in a first pass, and
+// attn_bwd_dkv).
 //
 // Bound on an H100 at the training shape (zamba2-2.7b's shared attention:
 // B = 4, S = 1024, 32 heads, D = 80, causal, bf16): five S x S x D
 // products over the causal half, 4 * 5 * B * H * D * S^2 / 2 = 5.4e10
 // FLOP (55 us at 989 TFLOP/s bf16), and q, k, v, o, dO read and dQ, dK,
 // dV written once, 168 MB (50 us at 3.35 TB/s): bound by operations.
-// These kernels do eleven such products (S twice more, P and dS twice
-// each) with mma.sync and synchronous tile loads, one CTA waiting on its
-// loads: wgmma and TMA with a load pipeline, as in the forward, are the
-// later step (PERF.md has the times).  Shared memory a CTA: 35 KB (bf16,
-// D = 80), 100 / 116 KB (float32, D = 80).
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// What holds the kernels from it now is not the products but what
+// surrounds them: with the products taken out
+// (scripts/bwd_kernel_ablation.py; PERF.md has the numbers), a kernel
+// keeps most of its time in its loads, barriers and per-element work, at
+// two consumer warpgroups an SM (shared memory, 195 KB a CTA at D = 80
+// with its zero-filled second box, allows one CTA an SM).
+#include "hopper.cuh"
 
 namespace {
 
@@ -400,428 +412,571 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// ------------------------- bf16: tensor cores ------------------------------
+// ------------------------- bf16: Hopper tensor cores -----------------------
 
 typedef __nv_bfloat16 bf16;
-constexpr int kTcThreads = 128;      // four warps, 16 tile rows each
+constexpr int kTcThreads = 384;        // producer + two consumer warpgroups
+constexpr int kStages = 4;             // ring depth of both kernels
+constexpr int kWide = 128;             // rows a CTA owns (kv rows, q rows)
+constexpr int kNarrow = 64;            // rows of a tile through the ring
+constexpr int kWideBox = kWide * 128;  // bytes of one 64-column box
+constexpr int kNarrowBox = kNarrow * 128;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// Shapes of one instantiation: DP is the head dim rounded up to an
+// instruction width (16, 32, 64, 80 or 128), the n of the gradient
+// products.
+template <int DP>
+struct Bw {
+  static constexpr int kBoxes = (DP + kBox - 1) / kBox;
+  static constexpr int kSteps = DP / 16;      // k-steps of the score tiles
+  static constexpr int kWideTile = kBoxes * kWideBox;
+  static constexpr int kNarrowTile = kBoxes * kNarrowBox;
+  // two wide tiles, two narrow tiles a stage, a stage's 64 lse and 64
+  // delta values (dK / dV), the mbarriers (the ring's, the wide tiles')
+  static constexpr int kSmem = 1024 + 2 * kWideTile +
+                               2 * kStages * kNarrowTile + kStages * 512 +
+                               8 * (2 + 2 * kStages);
+  // the next tile's S and dP in flight with this one's products where the
+  // registers allow (dK / dV: 176 a thread at DP = 80, 224 at 128)
+  static constexpr bool kOverlap = DP <= 80;
+};
 
-// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8.  Without .trans a lane receives (row l / 4, columns 2 (l % 4) and
-// 2 (l % 4) + 1) of each; with .trans (rows 2 (l % 4), 2 (l % 4) + 1,
-// column l / 4).
-__device__ __forceinline__ void ldsm4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm4_t(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
+struct TcArgs {
+  const bf16* o;
+  const bf16* dO;
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  const float* lse;                  // [B, Hq, ld], the forward's
+  float* delta;                      // [B, Hq, ld], written by the dQ kernel
+  int ld;                            // Sq rounded up to 64
+  long long os[3], dos[3], dqs[3], dks[3], dvs[3];
+  int B, Hq, Hkv, Sq, Skv, D, causal;
+  float scale, scale_log2;           // scale, scale * log2(e)
+};
 
-// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, float32 sums.  Fragments of
-// lane l (g = l / 4, t = l % 4): a = (g, 2t..), (g + 8, 2t..), (g, 2t + 8..),
-// (g + 8, 2t + 8..); b = (2t.., g), (2t + 8.., g); c = (g, 2t), (g, 2t + 1),
-// (g + 8, 2t), (g + 8, 2t + 1).
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of the 16 x 16 block at (r0, c0) of a row-major bf16
-// matrix in shared memory (row pitch ld elements).
-__device__ __forceinline__ void ld_a(uint32_t* a, const bf16* s, int ld,
-                                     int r0, int c0) {
-  const int l = threadIdx.x % 32;
-  ldsm4(a, s + (r0 + l % 16) * ld + c0 + (l / 16) * 8);
-}
-
-// B fragments of n-tiles n0 and n0 + 8 over k = k0 .. k0 + 15, from a
-// matrix held as rows of n (X[n][k]): b[0], b[1] for n0, b[2], b[3] for
-// n0 + 8.
-__device__ __forceinline__ void ld_b_nk(uint32_t* b, const bf16* s, int ld,
-                                        int n0, int k0) {
-  const int l = threadIdx.x % 32;
-  ldsm4(b, s + (n0 + l % 8 + (l / 16) * 8) * ld + k0 + ((l / 8) % 2) * 8);
-}
-
-// The same from a matrix held as rows of k (X[k][n]).
-__device__ __forceinline__ void ld_b_kn(uint32_t* b, const bf16* s, int ld,
-                                        int k0, int n0) {
-  const int l = threadIdx.x % 32;
-  ldsm4_t(b, s + (k0 + l % 8 + ((l / 8) % 2) * 8) * ld + n0 + (l / 16) * 8);
-}
-
-__device__ __forceinline__ uint32_t pack(float x0, float x1) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// The A fragments (hi, lo) of the k-step kk of a 16 x 64 float32 operand
-// held as C fragments c[8][4] (columns 8 j + ..): two bf16 terms, hi =
-// bf16(x) and lo = bf16(x - hi), which keep about 16 bits of x.
-__device__ __forceinline__ void split_a(const float (*c)[4], int kk,
-                                        uint32_t* hi, uint32_t* lo) {
-  const float* x[4] = {c[2 * kk], c[2 * kk] + 2, c[2 * kk + 1],
-                       c[2 * kk + 1] + 2};
+// acc[32] = X Y^T, 64 x 64 over DP: X a 64-row slice of a tile whose boxes
+// are x_box bytes apart, Y a 64-row tile (boxes y_box apart), both K-major.
+template <int DP>
+__device__ __forceinline__ void issue_scores(float* acc, uint32_t x, int x_box,
+                                             uint32_t y, int y_box) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x[i][0], x[i][1]);
-    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
-    lo[i] = pack(x[i][0] - __low2float(h), x[i][1] - __high2float(h));
+  for (int kk = 0; kk < Bw<DP>::kSteps; ++kk) {
+    const uint32_t in_box = (kk % 4) * 32;
+    Wgmma<64>::ss<0>(acc, desc128(x + (kk / 4) * x_box + in_box, 16, 1024),
+                     desc128(y + (kk / 4) * y_box + in_box, 16, 1024),
+                     kk > 0);
   }
 }
 
-// n rows (sequence stride rs, elements) of D bf16 values into a 64-row
-// tile of pitch ld, 16 B at a time; zeros past n rows and past D columns
-// up to DP.
+// acc[DP / 2] += F Y over the 64 rows of Y (four k-steps): F the register
+// A fragments of a 64 x 64 tile, Y read MN-major (boxes y_box apart).
 template <int DP>
-__device__ void load_tile_tc(bf16* dst, const bf16* src, long long rs, int n,
-                             int D) {
-  constexpr int ld = DP + 8, per_row = DP / 8;
-  for (int e = threadIdx.x; e < kB * per_row; e += kTcThreads) {
-    const int r = e / per_row, c = (e % per_row) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < n && c < D) v = *reinterpret_cast<const uint4*>(src + r * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
+__device__ __forceinline__ void issue_grad(float* acc, const uint32_t* f,
+                                           uint32_t y, int y_box) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    Wgmma<DP>::rs(acc, f + 4 * kk, desc128(y + kk * 2048, y_box, 1024));
+}
+
+// The gradient rows of a warpgroup's thread (rows ra, ra + 8 of the
+// accumulator), times `mul`, as bf16 pairs; rows >= n and columns >= D are
+// not written.
+template <int DP>
+__device__ __forceinline__ void store_rows(bf16* out, long long rs,
+                                           const float* acc, int ra, int n,
+                                           int D, float mul) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = 8 * j + 2 * t4;              // D is a multiple of 8
+    if (col >= D) continue;
+    if (ra < n)
+      *reinterpret_cast<__nv_bfloat162*>(out + ra * rs + col) =
+          __floats2bfloat162_rn(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    if (ra + 8 < n)
+      *reinterpret_cast<__nv_bfloat162*>(out + (ra + 8) * rs + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
   }
 }
 
+// bf16 dQ: a persistent grid, one CTA of 384 threads an SM, walking the
+// (batch, query head, 128 query rows) items, the last rows (the most
+// causal work) first.  Warpgroup 0 is the producer: one thread loads each
+// item's Q and dO once (released when the item's products are done, so
+// the next item's load overlaps this one's stores) and its K and V tiles
+// of 64 kv rows through a kStages ring that runs on from item to item.
+// Warpgroups 1 and 2 own 64 query rows each.  Per kv tile: S = Q K^T and
+// dP = dO V^T (wgmma, both operands from shared memory), P = 2^(S c -
+// lse log2 e) with the forward's lse, dS = P (dP - delta) in registers,
+// rounded to bf16 once as the register A operand of dQ += dS K (K read
+// MN-major); the next tile's S and dP are issued with this one's dQ
+// product.  Each item starts with delta = rowsum(dO O) of its rows, stored
+// for the dK / dV kernel.
 template <int DP>
-size_t tc_smem_bytes() {
-  return (size_t)4 * kB * (DP + 8) * sizeof(bf16) + 2 * kB * sizeof(float);
-}
+__global__ void __launch_bounds__(kTcThreads, 1)
+attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, TcArgs a) {
+  using S = Bw<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = base;
+  uint8_t* sDO = sQ + S::kWideTile;
+  uint8_t* sK = sDO + S::kWideTile;                   // kStages tiles
+  uint8_t* sV = sK + kStages * S::kNarrowTile;        // kStages tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      sV + kStages * S::kNarrowTile + kStages * 512);
+  const uint32_t bar_full = smem_u32(bars);                  // + 8 s
+  const uint32_t bar_empty = smem_u32(bars + kStages);       // + 8 s
+  const uint32_t bar_q_full = smem_u32(bars + 2 * kStages);
+  const uint32_t bar_q_empty = bar_q_full + 8;
 
-// c[8][4] = x[16 rows from r0] y^T over DP columns: a 16 x 64 tile of
-// products, x and y row-major tiles of pitch DP + 8 (y's rows are the
-// tile's 64 columns).
-template <int DP>
-__device__ __forceinline__ void tile_mma(float (*c)[4], const bf16* x,
-                                         const bf16* y, int r0) {
-  constexpr int ld = DP + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks) {
-    uint32_t xa[4];
-    ld_a(xa, x, ld, r0, 16 * ks);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t yb[4];
-      ld_b_nk(yb, y, ld, 16 * np, 16 * ks);
-      mma(c[2 * np], xa, yb[0], yb[1]);
-      mma(c[2 * np + 1], xa, yb[2], yb[3]);
+  const int tid = threadIdx.x;
+  const int BH = a.B * a.Hq;
+  const int n_qb = (a.Sq + kWide - 1) / kWide;
+  const int n_items = BH * n_qb;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);
     }
-  }
-}
-
-// acc[DP / 8][4] += op[16 x 64] m[64 x DP], op held as C fragments (split
-// in two bf16 terms), m a row-major tile of pitch DP + 8.
-template <int DP>
-__device__ __forceinline__ void acc_mma(float (*acc)[4], const float (*op)[4],
-                                        const bf16* m) {
-  constexpr int ld = DP + 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t hi[4], lo[4];
-    split_a(op, kk, hi, lo);
-#pragma unroll
-    for (int nd = 0; nd < DP / 16; ++nd) {
-      uint32_t mb[4];
-      ld_b_kn(mb, m, ld, 16 * kk, 16 * nd);
-      mma(acc[2 * nd], hi, mb[0], mb[1]);
-      mma(acc[2 * nd + 1], hi, mb[2], mb[3]);
-      mma(acc[2 * nd], lo, mb[0], mb[1]);
-      mma(acc[2 * nd + 1], lo, mb[2], mb[3]);
-    }
-  }
-}
-
-// bf16 dQ: one CTA of four warps per (batch, query head, 64 query rows),
-// warp w owning rows 16 w .. 16 w + 15.  Q and dO tiles stay in shared
-// memory; per kv tile S = Q K^T and dP = dO V^T on the tensor cores (bf16
-// products are exact, float32 sums), the row statistics (pass 1) and
-// dS = P (dP - delta) (pass 2) in registers, dQ += dS K with dS in two
-// bf16 terms.
-template <int DP>
-__global__ void __launch_bounds__(kTcThreads) attn_bwd_dq_tc(Args a) {
-  constexpr int ld = DP + 8, NT = DP / 8;
-  extern __shared__ __align__(16) uint8_t smem_tc[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_tc);
-  bf16* sDO = sQ + kB * ld;
-  bf16* sK = sDO + kB * ld;
-  bf16* sV = sK + kB * ld;
-  float* sDelta = reinterpret_cast<float*>(sV + kB * ld);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int D = a.D;
-  const int b = blockIdx.y / a.Hq, h = blockIdx.y % a.Hq;
-  const int hk = h / (a.Hq / a.Hkv);
-  const int q0 = blockIdx.x * kB;
-  const int nq = min(kB, a.Sq - q0);
-  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.qs[0] +
-                  h * a.qs[1] + q0 * a.qs[2];
-  const bf16* O = static_cast<const bf16*>(a.o) + b * a.os[0] +
-                  h * a.os[1] + q0 * a.os[2];
-  const bf16* DO = static_cast<const bf16*>(a.dO) + b * a.dos[0] +
-                   h * a.dos[1] + q0 * a.dos[2];
-  const bf16* K = static_cast<const bf16*>(a.k) + b * a.ks[0] +
-                  hk * a.ks[1];
-  const bf16* V = static_cast<const bf16*>(a.v) + b * a.vs[0] +
-                  hk * a.vs[1];
-  const long long stat0 = ((long long)b * a.Hq + h) * a.Sq + q0;
-
-  load_tile_tc<DP>(sQ, Q, a.qs[2], nq, D);
-  load_tile_tc<DP>(sDO, DO, a.dos[2], nq, D);
-  __syncthreads();
-  {                                   // delta: two threads a row
-    const int r = tid / 2;
-    float part = 0.f;
-    if (r < nq)
-      for (int d = tid % 2; d < D; d += 2)
-        part += __bfloat162float(sDO[r * ld + d]) *
-                __bfloat162float(O[r * a.os[2] + d]);
-    part += __shfl_xor_sync(0xffffffffu, part, 1);
-    if (tid % 2 == 0) sDelta[r] = part;
+    mbar_init(bar_q_full, 1);
+    mbar_init(bar_q_empty, 2 * 128);
+    mbar_init_fence();
   }
   __syncthreads();
 
-  const int r0 = 16 * warp;
-  const int qpos[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  const float delta[2] = {sDelta[r0 + g], sDelta[r0 + g + 8]};
-  const int kv_end = a.causal ? min(a.Skv, q0 + nq) : a.Skv;
-  float s[8][4], dp[8][4];
-
-  // pass 1: each row's max and sum of exp over the visible kv positions
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < kv_end; k0 += kB) {
-    __syncthreads();
-    load_tile_tc<DP>(sK, K + k0 * a.ks[2], a.ks[2], min(kB, a.Skv - k0), D);
-    __syncthreads();
-    tile_mma<DP>(s, sQ, sK, r0);
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      float tmax = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[j][2 * hf + e];
-          x = visible(a, qpos[hf], k0 + 8 * j + 2 * t + e) ? x * a.scale
-                                                            : kNegInf;
-          tmax = fmaxf(tmax, x);
+  if (tid < 128) {                       // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 0) {
+      int cnt = 0, it = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+        const int b = (item % BH) / a.Hq, h = item % a.Hq;
+        const int hk = h / (a.Hq / a.Hkv);
+        const int q0 = (n_qb - 1 - item / BH) * kWide;
+        const int kv_hi = a.causal ? min(a.Skv, q0 + kWide) : a.Skv;
+        const int n_tiles = (kv_hi + kNarrow - 1) / kNarrow;
+        if (it > 0) mbar_wait(bar_q_empty, (it - 1) & 1);
+        mbar_expect_tx(bar_q_full, 2 * S::kWideTile);
+        for (int c = 0; c < S::kBoxes; ++c) {
+          tma_load(smem_u32(sQ + c * kWideBox), &tq, bar_q_full, c * kBox,
+                   q0, h, b);
+          tma_load(smem_u32(sDO + c * kWideBox), &tdo, bar_q_full, c * kBox,
+                   q0, h, b);
         }
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-      const float mnew = fmaxf(m[hf], tmax);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float x = s[j][2 * hf + e];
-          if (x > 0.5f * kNegInf) sum += expf(x - mnew);
-        }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[hf] = l[hf] * expf(m[hf] - mnew) + sum;
-      m[hf] = mnew;
-    }
-  }
-  float lse[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int r = r0 + g + 8 * hf;
-    lse[hf] = r < nq ? m[hf] + logf(l[hf]) : 0.f;
-    if (t == 0 && r < nq) {
-      a.lse[stat0 + r] = lse[hf];
-      a.delta[stat0 + r] = delta[hf];
-    }
-  }
-
-  // pass 2: dS = P (dP - delta), dQ += dS K
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  for (int k0 = 0; k0 < kv_end; k0 += kB) {
-    const int nk = min(kB, a.Skv - k0);
-    __syncthreads();
-    load_tile_tc<DP>(sK, K + k0 * a.ks[2], a.ks[2], nk, D);
-    load_tile_tc<DP>(sV, V + k0 * a.vs[2], a.vs[2], nk, D);
-    __syncthreads();
-    tile_mma<DP>(s, sQ, sK, r0);
-    tile_mma<DP>(dp, sDO, sV, r0);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hf = e / 2;
-        float ds = 0.f;
-        if (qpos[hf] < q0 + nq &&
-            visible(a, qpos[hf], k0 + 8 * j + 2 * t + (e & 1))) {
-          const float p = expf(s[j][e] * a.scale - lse[hf]);
-          ds = p * (dp[j][e] - delta[hf]);
-        }
-        s[j][e] = ds;
-      }
-    acc_mma<DP>(acc, s, sK);
-  }
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int r = r0 + g + 8 * hf;
-    if (r >= nq) continue;
-    bf16* out = static_cast<bf16*>(a.dq) + b * a.dqs[0] + h * a.dqs[1] +
-                (q0 + r) * a.dqs[2];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = 8 * j + 2 * t + e;
-        if (d < D) out[d] = __float2bfloat16(acc[j][2 * hf + e] * a.scale);
-      }
-  }
-}
-
-// bf16 dK, dV: one CTA of four warps per (batch, kv head, 64 kv rows),
-// warp w owning kv rows 16 w .. 16 w + 15.  For each query head of the
-// group and each query tile that can see the block: S^T = K Q^T and
-// dP^T = V dO^T on the tensor cores, P^T and dS^T in registers (lse and
-// delta from attn_bwd_dq_tc), dV += P^T dO and dK += dS^T Q with P^T and
-// dS^T in two bf16 terms each.
-template <int DP>
-__global__ void __launch_bounds__(kTcThreads) attn_bwd_dkv_tc(Args a) {
-  constexpr int ld = DP + 8, NT = DP / 8;
-  extern __shared__ __align__(16) uint8_t smem_tc[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_tc);
-  bf16* sV = sK + kB * ld;
-  bf16* sQ = sV + kB * ld;
-  bf16* sDO = sQ + kB * ld;
-  float* sLse = reinterpret_cast<float*>(sDO + kB * ld);
-  float* sDelta = sLse + kB;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int D = a.D;
-  const int b = blockIdx.y / a.Hkv, hk = blockIdx.y % a.Hkv;
-  const int group = a.Hq / a.Hkv;
-  const int k0 = blockIdx.x * kB;
-  const int nk = min(kB, a.Skv - k0);
-  load_tile_tc<DP>(sK,
-                   static_cast<const bf16*>(a.k) + b * a.ks[0] +
-                       hk * a.ks[1] + k0 * a.ks[2],
-                   a.ks[2], nk, D);
-  load_tile_tc<DP>(sV,
-                   static_cast<const bf16*>(a.v) + b * a.vs[0] +
-                       hk * a.vs[1] + k0 * a.vs[2],
-                   a.vs[2], nk, D);
-
-  const int r0 = 16 * warp;
-  const int kpos[2] = {k0 + r0 + g, k0 + r0 + g + 8};
-  float dk[NT][4], dv[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-  float st[8][4], dpt[8][4];
-
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hk * group + gi;
-    const bf16* Q = static_cast<const bf16*>(a.q) + b * a.qs[0] +
-                    h * a.qs[1];
-    const bf16* DO = static_cast<const bf16*>(a.dO) + b * a.dos[0] +
-                     h * a.dos[1];
-    const long long stat0 = ((long long)b * a.Hq + h) * a.Sq;
-    for (int q0 = a.causal ? k0 : 0; q0 < a.Sq; q0 += kB) {
-      const int nq = min(kB, a.Sq - q0);
-      __syncthreads();
-      load_tile_tc<DP>(sQ, Q + q0 * a.qs[2], a.qs[2], nq, D);
-      load_tile_tc<DP>(sDO, DO + q0 * a.dos[2], a.dos[2], nq, D);
-      if (tid < kB) {
-        sLse[tid] = tid < nq ? a.lse[stat0 + q0 + tid] : 0.f;
-        sDelta[tid] = tid < nq ? a.delta[stat0 + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      tile_mma<DP>(st, sK, sQ, r0);
-      tile_mma<DP>(dpt, sV, sDO, r0);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 8 * j + 2 * t + (e & 1);     // query row in tile
-          float p = 0.f, ds = 0.f;
-          if (c < nq && kpos[e / 2] < k0 + nk &&
-              visible(a, q0 + c, kpos[e / 2])) {
-            p = expf(st[j][e] * a.scale - sLse[c]);
-            ds = p * (dpt[j][e] - sDelta[c]);
+        for (int t = 0; t < n_tiles; ++t, ++cnt) {
+          const int s = cnt % kStages;
+          if (cnt >= kStages)
+            mbar_wait(bar_empty + 8 * s, (cnt / kStages - 1) & 1);
+          mbar_expect_tx(bar_full + 8 * s, 2 * S::kNarrowTile);
+          for (int c = 0; c < S::kBoxes; ++c) {
+            const int off = s * S::kNarrowTile + c * kNarrowBox;
+            tma_load(smem_u32(sK + off), &tk, bar_full + 8 * s, c * kBox,
+                     t * kNarrow, hk, b);
+            tma_load(smem_u32(sV + off), &tv, bar_full + 8 * s, c * kBox,
+                     t * kNarrow, hk, b);
           }
-          st[j][e] = p;
-          dpt[j][e] = ds;
-        }
-      acc_mma<DP>(dv, st, sDO);
-      acc_mma<DP>(dk, dpt, sQ);
-    }
-  }
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int r = r0 + g + 8 * hf;
-    if (r >= nk) continue;
-    bf16* dko = static_cast<bf16*>(a.dk) + b * a.dks[0] + hk * a.dks[1] +
-                (k0 + r) * a.dks[2];
-    bf16* dvo = static_cast<bf16*>(a.dv) + b * a.dvs[0] + hk * a.dvs[1] +
-                (k0 + r) * a.dvs[2];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = 8 * j + 2 * t + e;
-        if (d < D) {
-          dko[d] = __float2bfloat16(dk[j][2 * hf + e] * a.scale);
-          dvo[d] = __float2bfloat16(dv[j][2 * hf + e]);
         }
       }
+    }
+  } else {                               // two consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = tid / 128 - 1;
+    const int warp = (tid % 128) / 32, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const uint32_t a_q = smem_u32(sQ) + 64 * cw * 128;
+    const uint32_t a_do = smem_u32(sDO) + 64 * cw * 128;
+    const float c2 = a.scale_log2;
+    float dq[DP / 2], sc[32], dp[32];
+    uint32_t df[16];
+    int cnt = 0, it = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+      const int b = (item % BH) / a.Hq, h = item % a.Hq;
+      const int q0 = (n_qb - 1 - item / BH) * kWide;
+      const int kv_hi = a.causal ? min(a.Skv, q0 + kWide) : a.Skv;
+      const int n_tiles = (kv_hi + kNarrow - 1) / kNarrow;
+      const int r0 = q0 + 64 * cw;       // this warpgroup's first row
+      const int row_a = r0 + 16 * warp + g, row_b = row_a + 8;
+      const long long stat = ((long long)b * a.Hq + h) * a.ld;
+
+      // delta = rowsum(dO O) of rows a and b, 16 B a thread per step
+      float delta[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = i ? row_b : row_a;
+        if (r >= a.Sq) continue;
+        const bf16* dor = a.dO + b * a.dos[0] + h * a.dos[1] + r * a.dos[2];
+        const bf16* orow = a.o + b * a.os[0] + h * a.os[1] + r * a.os[2];
+        for (int c = 8 * t4; c < a.D; c += 32) {
+          const uint4 x = *reinterpret_cast<const uint4*>(dor + c);
+          const uint4 y = *reinterpret_cast<const uint4*>(orow + c);
+          const __nv_bfloat162* x2 =
+              reinterpret_cast<const __nv_bfloat162*>(&x);
+          const __nv_bfloat162* y2 =
+              reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 xf = __bfloat1622float2(x2[e]);
+            const float2 yf = __bfloat1622float2(y2[e]);
+            delta[i] = fmaf(xf.x, yf.x, delta[i]);
+            delta[i] = fmaf(xf.y, yf.y, delta[i]);
+          }
+        }
+      }
+      float lse2[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 1);
+        delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 2);
+        const int r = i ? row_b : row_a;
+        lse2[i] = r < a.Sq ? a.lse[stat + r] * kLog2e : 0.f;
+        if (t4 == 0 && r < a.Sq) a.delta[stat + r] = delta[i];
+      }
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+
+      // dS of tile t from S (sc) and dP (dp) into df
+      auto probs = [&](int t) {
+        const int k0 = t * kNarrow;
+        const bool edge = k0 + kNarrow > a.Skv ||
+                          (a.causal && k0 + kNarrow - 1 > r0);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e / 2, col = k0 + 8 * j + 2 * t4 + (e & 1);
+            const int row = i ? row_b : row_a;
+            const bool vis =
+                !edge || (col < a.Skv && (!a.causal || col <= row));
+            const float p = ex2(fmaf(sc[4 * j + e], c2, -lse2[i]));
+            dp[4 * j + e] = vis ? p * (dp[4 * j + e] - delta[i]) : 0.f;
+          }
+        pack_a<32>(dp, df);
+      };
+      auto kv = [&](uint8_t* t, int u) {
+        return smem_u32(t + (u % kStages) * S::kNarrowTile);
+      };
+
+      mbar_wait(bar_q_full, it & 1);
+      mbar_wait(bar_full + 8 * (cnt % kStages), (cnt / kStages) & 1);
+      wg_fence();
+      issue_scores<DP>(sc, a_q, kWideBox, kv(sK, cnt), kNarrowBox);
+      issue_scores<DP>(dp, a_do, kWideBox, kv(sV, cnt), kNarrowBox);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs<32>(sc);
+      fence_regs<32>(dp);
+      probs(0);
+      for (int t = 1; t < n_tiles; ++t) {
+        // S, dP of tile t and dQ += dS K of tile t - 1 in flight together
+        const int u = cnt + t;
+        mbar_wait(bar_full + 8 * (u % kStages), (u / kStages) & 1);
+        fence_regs<DP / 2>(dq);
+        wg_fence();
+        issue_scores<DP>(sc, a_q, kWideBox, kv(sK, u), kNarrowBox);
+        issue_scores<DP>(dp, a_do, kWideBox, kv(sV, u), kNarrowBox);
+        issue_grad<DP>(dq, df, kv(sK, u - 1), kNarrowBox);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs<32>(sc);
+        fence_regs<32>(dp);
+        fence_regs<DP / 2>(dq);
+        fence_u32<16>(df);
+        mbar_arrive(bar_empty + 8 * ((u - 1) % kStages));
+        probs(t);
+      }
+      const int u_last = cnt + n_tiles - 1;
+      fence_regs<DP / 2>(dq);
+      wg_fence();
+      issue_grad<DP>(dq, df, kv(sK, u_last), kNarrowBox);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs<DP / 2>(dq);
+      fence_u32<16>(df);
+      mbar_arrive(bar_empty + 8 * (u_last % kStages));
+      mbar_arrive(bar_q_empty);          // Q and dO are free for the next
+      store_rows<DP>(a.dq + b * a.dqs[0] + h * a.dqs[1], a.dqs[2], dq, row_a,
+                     a.Sq, a.D, a.scale);
+      cnt += n_tiles;
+    }
   }
 }
 
+// bf16 dK, dV: a persistent grid, one CTA of 384 threads an SM, walking
+// the (batch, kv head, 128 kv rows) items, the first rows (the most causal
+// work) first.  K and V stay in shared memory for an item (released when
+// its products are done, so the next item's load overlaps this one's
+// stores); the producer brings, for each query head of the group and each
+// 64-row query tile that can see the block, Q, dO and the tile's 64 lse
+// and delta values through a kStages ring that runs on from item to item.
+// Warpgroups 1 and 2 own 64 kv rows each: S^T = K Q^T and dP^T = V dO^T
+// (both operands from shared memory), P^T = 2^(S^T c - lse log2 e) and
+// dS^T = P^T (dP^T - delta) in registers with kv rows, each rounded to
+// bf16 once as the register A operand of dV += P^T dO and dK += dS^T Q (dO
+// and Q read MN-major).
 template <int DP>
-int launch_tc(const Args& a, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_tc<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attn_bwd_dkv_tc<DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_bwd_dq_tc<DP><<<dim3((a.Sq + kB - 1) / kB, a.B * a.Hq), kTcThreads,
-                       smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  attn_bwd_dkv_tc<DP><<<dim3((a.Skv + kB - 1) / kB, a.B * a.Hkv),
-                        kTcThreads, smem, stream>>>(a);
+__global__ void __launch_bounds__(kTcThreads, 1)
+attn_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, TcArgs a) {
+  using S = Bw<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = base;
+  uint8_t* sV = sK + S::kWideTile;
+  uint8_t* sQ = sV + S::kWideTile;                    // kStages tiles
+  uint8_t* sDO = sQ + kStages * S::kNarrowTile;       // kStages tiles
+  float* sStat = reinterpret_cast<float*>(sDO + kStages * S::kNarrowTile);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sStat + kStages * 128);
+  const uint32_t bar_full = smem_u32(bars);                  // + 8 s
+  const uint32_t bar_empty = smem_u32(bars + kStages);       // + 8 s
+  const uint32_t bar_kv_full = smem_u32(bars + 2 * kStages);
+  const uint32_t bar_kv_empty = bar_kv_full + 8;
+
+  const int tid = threadIdx.x;
+  const int BH = a.B * a.Hkv;
+  const int group = a.Hq / a.Hkv;
+  const int n_items = BH * ((a.Skv + kWide - 1) / kWide);
+  const int n_qt = (a.Sq + kNarrow - 1) / kNarrow;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);
+    }
+    mbar_init(bar_kv_full, 1);
+    mbar_init(bar_kv_empty, 2 * 128);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid < 128) {                       // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 0) {
+      int cnt = 0, it = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+        const int b = (item % BH) / a.Hkv, hk = item % a.Hkv;
+        const int k0 = item / BH * kWide;
+        // causal: the query tiles from the block's first row on see it
+        const int first = a.causal ? min(k0 / kNarrow, n_qt) : 0;
+        const int per_head = n_qt - first;
+        if (it > 0) mbar_wait(bar_kv_empty, (it - 1) & 1);
+        mbar_expect_tx(bar_kv_full, 2 * S::kWideTile);
+        for (int c = 0; c < S::kBoxes; ++c) {
+          tma_load(smem_u32(sK + c * kWideBox), &tk, bar_kv_full, c * kBox,
+                   k0, hk, b);
+          tma_load(smem_u32(sV + c * kWideBox), &tv, bar_kv_full, c * kBox,
+                   k0, hk, b);
+        }
+        for (int t = 0; t < group * per_head; ++t, ++cnt) {
+          const int s = cnt % kStages;
+          if (cnt >= kStages)
+            mbar_wait(bar_empty + 8 * s, (cnt / kStages - 1) & 1);
+          const int h = hk * group + t / per_head;
+          const int qt = first + t % per_head;
+          mbar_expect_tx(bar_full + 8 * s, 2 * S::kNarrowTile + 512);
+          for (int c = 0; c < S::kBoxes; ++c) {
+            const int off = s * S::kNarrowTile + c * kNarrowBox;
+            tma_load(smem_u32(sQ + off), &tq, bar_full + 8 * s, c * kBox,
+                     qt * kNarrow, h, b);
+            tma_load(smem_u32(sDO + off), &tdo, bar_full + 8 * s, c * kBox,
+                     qt * kNarrow, h, b);
+          }
+          const long long st =
+              ((long long)b * a.Hq + h) * a.ld + qt * kNarrow;
+          bulk_load(smem_u32(sStat + s * 128), a.lse + st, 256,
+                    bar_full + 8 * s);
+          bulk_load(smem_u32(sStat + s * 128 + 64), a.delta + st, 256,
+                    bar_full + 8 * s);
+        }
+      }
+    }
+  } else {                               // two consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = tid / 128 - 1;
+    const int warp = (tid % 128) / 32, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const uint32_t a_k = smem_u32(sK) + 64 * cw * 128;
+    const uint32_t a_v = smem_u32(sV) + 64 * cw * 128;
+    const float c2 = a.scale_log2;
+    float dk[DP / 2], dv[DP / 2], st[32], dpt[32];
+    uint32_t pf[16], df[16];
+    int cnt = 0, it = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+      const int b = (item % BH) / a.Hkv, hk = item % a.Hkv;
+      const int k0 = item / BH * kWide;
+      const int first = a.causal ? min(k0 / kNarrow, n_qt) : 0;
+      const int per_head = n_qt - first;
+      const int n_tiles = group * per_head;
+      const int r0 = k0 + 64 * cw;       // this warpgroup's first kv row
+      const int row_a = r0 + 16 * warp + g, row_b = row_a + 8;
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+
+      // P^T and dS^T of tile t from S^T (st) and dP^T (dpt) into pf, df
+      auto probs = [&](int t) {
+        const float* ls = sStat + ((cnt + t) % kStages) * 128;
+        const int qb = (first + t % per_head) * kNarrow;
+        const bool edge = qb + kNarrow > a.Sq ||
+                          (a.causal && qb < r0 + 63);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int cl = 8 * j + 2 * t4;
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + cl);
+          const float2 d2 = *reinterpret_cast<const float2*>(ls + 64 + cl);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = qb + cl + (e & 1);
+            const int row = e < 2 ? row_a : row_b;
+            const bool vis =
+                !edge || (col < a.Sq && (!a.causal || row <= col));
+            const float p = ex2(fmaf(st[4 * j + e], c2,
+                                     -(e & 1 ? l2.y : l2.x) * kLog2e));
+            st[4 * j + e] = vis ? p : 0.f;
+            dpt[4 * j + e] =
+                vis ? p * (dpt[4 * j + e] - (e & 1 ? d2.y : d2.x)) : 0.f;
+          }
+        }
+        pack_a<32>(st, pf);
+        pack_a<32>(dpt, df);
+      };
+      auto q_do = [&](uint8_t* t, int u) {
+        return smem_u32(t + (u % kStages) * S::kNarrowTile);
+      };
+      auto scores = [&](int u) {
+        issue_scores<DP>(st, a_k, kWideBox, q_do(sQ, u), kNarrowBox);
+        issue_scores<DP>(dpt, a_v, kWideBox, q_do(sDO, u), kNarrowBox);
+      };
+      auto grads = [&](int u) {
+        issue_grad<DP>(dv, pf, q_do(sDO, u), kNarrowBox);
+        issue_grad<DP>(dk, df, q_do(sQ, u), kNarrowBox);
+      };
+      auto fence_all = [&]() {
+        fence_regs<32>(st);
+        fence_regs<32>(dpt);
+        fence_regs<DP / 2>(dk);
+        fence_regs<DP / 2>(dv);
+        fence_u32<16>(pf);
+        fence_u32<16>(df);
+      };
+      auto full = [&](int u) {
+        mbar_wait(bar_full + 8 * (u % kStages), (u / kStages) & 1);
+      };
+
+      mbar_wait(bar_kv_full, it & 1);
+      if (S::kOverlap && n_tiles > 0) {
+        full(cnt);
+        wg_fence();
+        scores(cnt);
+        wg_commit();
+        wg_wait<0>();
+        fence_all();
+        probs(0);
+        for (int t = 1; t < n_tiles; ++t) {
+          // S^T, dP^T of tile t and the products of tile t - 1 together
+          const int u = cnt + t;
+          full(u);
+          fence_all();
+          wg_fence();
+          scores(u);
+          grads(u - 1);
+          wg_commit();
+          wg_wait<0>();
+          fence_all();
+          mbar_arrive(bar_empty + 8 * ((u - 1) % kStages));
+          probs(t);
+        }
+        const int u_last = cnt + n_tiles - 1;
+        fence_all();
+        wg_fence();
+        grads(u_last);
+        wg_commit();
+        wg_wait<0>();
+        fence_all();
+        mbar_arrive(bar_empty + 8 * (u_last % kStages));
+      } else {
+        for (int t = 0; t < n_tiles; ++t) {
+          const int u = cnt + t;
+          full(u);
+          fence_all();
+          wg_fence();
+          scores(u);
+          wg_commit();
+          wg_wait<0>();
+          fence_all();
+          probs(t);
+          wg_fence();
+          grads(u);
+          wg_commit();
+          wg_wait<0>();
+          fence_all();
+          mbar_arrive(bar_empty + 8 * (u % kStages));
+        }
+      }
+      mbar_arrive(bar_kv_empty);         // K and V are free for the next
+      store_rows<DP>(a.dk + b * a.dks[0] + hk * a.dks[1], a.dks[2], dk,
+                     row_a, a.Skv, a.D, a.scale);
+      store_rows<DP>(a.dv + b * a.dvs[0] + hk * a.dvs[1], a.dvs[2], dv,
+                     row_a, a.Skv, a.D, 1.f);
+      cnt += n_tiles;
+    }
+  }
+}
+
+constexpr int kDevices = 64;           // devices a process may launch on
+
+template <typename K>
+int set_smem(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int DP>
+int launch_tc(const Args& a, const TcArgs& t, cudaStream_t stream) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return kErrNoTensorMap;
+  // Q and dO wide for dQ, narrow for dK / dV; K and V the other way
+  CUtensorMap q_w, do_w, k_n, v_n, q_n, do_n, k_w, v_w;
+  if (!tensor_map(enc, &q_w, a.q, a.D, a.Sq, a.Hq, a.B, a.qs, kWide) ||
+      !tensor_map(enc, &do_w, a.dO, a.D, a.Sq, a.Hq, a.B, a.dos, kWide) ||
+      !tensor_map(enc, &k_n, a.k, a.D, a.Skv, a.Hkv, a.B, a.ks, kNarrow) ||
+      !tensor_map(enc, &v_n, a.v, a.D, a.Skv, a.Hkv, a.B, a.vs, kNarrow) ||
+      !tensor_map(enc, &q_n, a.q, a.D, a.Sq, a.Hq, a.B, a.qs, kNarrow) ||
+      !tensor_map(enc, &do_n, a.dO, a.D, a.Sq, a.Hq, a.B, a.dos, kNarrow) ||
+      !tensor_map(enc, &k_w, a.k, a.D, a.Skv, a.Hkv, a.B, a.ks, kWide) ||
+      !tensor_map(enc, &v_w, a.v, a.D, a.Skv, a.Hkv, a.B, a.vs, kWide))
+    return kErrNoTensorMap;
+  // once per instantiation and device: the shared memory and SM count
+  static int sms_of[kDevices] = {};
+  int dev = 0, err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev >= kDevices) return (int)cudaErrorInvalidDevice;
+  int& sms = sms_of[dev];
+  if (sms == 0) {
+    int n = 0;
+    if ((err = set_smem(attn_bwd_dq_wgmma<DP>, Bw<DP>::kSmem)) ||
+        (err = set_smem(attn_bwd_dkv_wgmma<DP>, Bw<DP>::kSmem)) ||
+        (err = (int)cudaDeviceGetAttribute(
+             &n, cudaDevAttrMultiProcessorCount, dev)))
+      return err;
+    sms = n;
+  }
+  const int dq_items = a.B * a.Hq * ((a.Sq + kWide - 1) / kWide);
+  const int dkv_items = a.B * a.Hkv * ((a.Skv + kWide - 1) / kWide);
+  attn_bwd_dq_wgmma<DP><<<min(dq_items, sms), kTcThreads, Bw<DP>::kSmem,
+                          stream>>>(q_w, do_w, k_n, v_n, t);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  attn_bwd_dkv_wgmma<DP><<<min(dkv_items, sms), kTcThreads, Bw<DP>::kSmem,
+                           stream>>>(q_n, do_n, k_w, v_w, t);
   return (int)cudaGetLastError();
 }
 
 // bf16 inputs the tensor-core kernels take: head_dim and the batch, head
 // and sequence strides multiples of 8 elements and 16 B aligned pointers
-// (16 B vector loads); the head dim is padded to 16, 32, 64, 80 or 128.
+// (TMA and 16 B loads); the head dim is padded to 16, 32, 64, 80 or 128.
 bool tc_ok(const void* const* ptrs, const long long* const* strides, int D) {
   if (D % 8) return false;
   for (int i = 0; i < 8; ++i) {
@@ -832,32 +987,61 @@ bool tc_ok(const void* const* ptrs, const long long* const* strides, int D) {
   return true;
 }
 
-int launch_bf16(const Args& a, cudaStream_t s) {
-  if (a.D <= 16) return launch_tc<16>(a, s);
-  if (a.D <= 32) return launch_tc<32>(a, s);
-  if (a.D <= 64) return launch_tc<64>(a, s);
-  if (a.D <= 80) return launch_tc<80>(a, s);
-  return launch_tc<128>(a, s);
+int launch_bf16(const Args& a, const float* lse, int ld, cudaStream_t s) {
+  TcArgs t;
+  t.o = static_cast<const bf16*>(a.o);
+  t.dO = static_cast<const bf16*>(a.dO);
+  t.dq = static_cast<bf16*>(a.dq);
+  t.dk = static_cast<bf16*>(a.dk);
+  t.dv = static_cast<bf16*>(a.dv);
+  t.lse = lse;
+  t.delta = a.delta;
+  t.ld = ld;
+  for (int i = 0; i < 3; ++i) {
+    t.os[i] = a.os[i];
+    t.dos[i] = a.dos[i];
+    t.dqs[i] = a.dqs[i];
+    t.dks[i] = a.dks[i];
+    t.dvs[i] = a.dvs[i];
+  }
+  t.B = a.B;
+  t.Hq = a.Hq;
+  t.Hkv = a.Hkv;
+  t.Sq = a.Sq;
+  t.Skv = a.Skv;
+  t.D = a.D;
+  t.causal = a.causal;
+  t.scale = a.scale;
+  t.scale_log2 = a.scale * kLog2e;
+  if (a.D <= 16) return launch_tc<16>(a, t, s);
+  if (a.D <= 32) return launch_tc<32>(a, t, s);
+  if (a.D <= 64) return launch_tc<64>(a, t, s);
+  if (a.D <= 80) return launch_tc<80>(a, t, s);
+  return launch_tc<128>(a, t, s);
 }
 
 }  // namespace
 
 extern "C" int flash_attention_bwd_max_d() { return kMaxD; }
 
-// dtype: 0 float32, 1 bfloat16 (every tensor but stats).  stats is a
-// float32 scratch of 2 * B * Hq * Sq values (the rows' lse, then delta).
-// Strides are in elements, three per tensor (batch, head, sequence), in
-// the order q, k, v, o, dO, dQ, dK, dV.  bf16 needs strides multiples of
-// 8 and 16 B aligned pointers.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success; cudaErrorInvalidValue for inputs the
-// kernel does not take).
+// dtype: 0 float32, 1 bfloat16 (every tensor but the statistics).
+// float32: stats is a scratch of 2 * B * Hq * Sq values (the rows' lse,
+// then delta) and lse is not read.  bf16: lse holds the forward's row
+// log-sum-exp, [B, Hq, ld] (ld = Sq rounded up to 64, rows past Sq
+// unread), and stats is a scratch of B * Hq * ld values (delta).  Strides
+// are in elements, three per tensor (batch, head, sequence), in the order
+// q, k, v, o, dO, dQ, dK, dV.  bf16 needs strides multiples of 8 and 16 B
+// aligned pointers.  Launches on `stream` and returns cudaGetLastError() (0
+// on success; cudaErrorInvalidValue for inputs the kernel does not take;
+// 10000 when the TMA maps cannot be made).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dO, void* dq, void* dk, void* dv, float* stats, int dtype,
-    int B, int Hq, int Hkv, int Sq, int Skv, int D, const long long* qs,
-    const long long* ks, const long long* vs, const long long* os,
-    const long long* dos, const long long* dqs, const long long* dks,
-    const long long* dvs, int causal, float scale, void* stream) {
+    const void* dO, void* dq, void* dk, void* dv, float* stats,
+    const float* lse, int ld, int dtype, int B, int Hq, int Hkv, int Sq,
+    int Skv, int D, const long long* qs, const long long* ks,
+    const long long* vs, const long long* os, const long long* dos,
+    const long long* dqs, const long long* dks, const long long* dvs,
+    int causal, float scale, void* stream) {
   if (D < 1 || D > kMaxD || Hkv < 1 || Hq % Hkv || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Hq == 0 || Sq == 0 || Skv == 0) return (int)cudaGetLastError();
@@ -871,7 +1055,7 @@ extern "C" int flash_attention_bwd_launch(
   a.dk = dk;
   a.dv = dv;
   a.lse = stats;
-  a.delta = stats + (long long)B * Hq * Sq;
+  a.delta = dtype == 1 ? stats : stats + (long long)B * Hq * Sq;
   a.B = B;
   a.Hq = Hq;
   a.Hkv = Hkv;
@@ -894,6 +1078,8 @@ extern "C" int flash_attention_bwd_launch(
   if (dtype == 0) return launch(a, s);
   const void* ptrs[8] = {q, k, v, o, dO, dq, dk, dv};
   const long long* strides[8] = {qs, ks, vs, os, dos, dqs, dks, dvs};
-  if (!tc_ok(ptrs, strides, D)) return (int)cudaErrorInvalidValue;
-  return launch_bf16(a, s);
+  if (!tc_ok(ptrs, strides, D) || lse == nullptr || ld % 64 || ld < Sq ||
+      reinterpret_cast<uintptr_t>(lse) % 16)
+    return (int)cudaErrorInvalidValue;
+  return launch_bf16(a, lse, ld, s);
 }

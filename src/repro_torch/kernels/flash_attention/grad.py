@@ -18,8 +18,10 @@ the forward's mask (``q_offset = 0, kv_len = Skv``, causal or not):
     dQ  = dS K * scale  dK = dS^T Q * scale
 
 summing dK and dV over the query heads of a GQA group.  The Function saves
-q, k, v and o; the kernel recomputes the rows' log-sum-exp itself (the
-forward kernel is left as it is).  Gradients come back in the inputs' type.
+q, k, v and o and, for bf16 on the card, the rows' log-sum-exp that the
+forward kernel wrote beside o (``lse_buffer``), which the bf16 backward
+kernel reads instead of recomputing it; the float32 kernel recomputes it.
+Gradients come back in the inputs' type.
 
 ``attention`` is what the model layer calls: with a gradient required it
 takes the Function, and raises ``NotImplementedError`` for any mask but the
@@ -36,8 +38,8 @@ import torch
 
 from .. import aligned16, needs_grad
 from ..build import load_library
-from .kernel import (_DTYPES, NEG_INF, _as_4d, _check, flash_attention,
-                     mixed)
+from .kernel import (_DTYPES, _ERR_TENSOR_MAP, LSE_ROWS, NEG_INF, _as_4d,
+                     _check, flash_attention, lse_buffer, mixed)
 
 __all__ = ["FlashAttentionFn", "attention", "attention_bwd_plain",
            "flash_attention_bwd"]
@@ -82,12 +84,17 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True,
-                        sm_scale: Optional[float] = None
+                        sm_scale: Optional[float] = None,
+                        lse: Optional[torch.Tensor] = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of ``flash_attention``'s output ``o`` with
     ``q_offset = 0, kv_len = Skv``: the CUDA kernel on CUDA tensors, the
-    plain version on the CPU.  ``flash_attention_bwd.launches`` counts the
-    kernel's launches (one per call: a row-statistics pass, then dK / dV)."""
+    plain version on the CPU.  ``lse`` is the forward's ``lse_buffer`` as
+    ``flash_attention(..., lse=)`` filled it; bf16 on the card reads it,
+    and without it runs the forward kernel once more to fill one (the
+    float32 kernel and the plain version recompute it and ignore it).
+    ``flash_attention_bwd.launches`` counts the kernel's launches (one per
+    call: the dQ kernel, which also forms delta, then dK / dV)."""
     _check(q, k, v, k.shape[1], 0)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
@@ -108,12 +115,28 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: head_dim {D} must be a "
                          "multiple of 8 up to "
                          f"{lib.flash_attention_bwd_max_d()}")
+    ld = 0
     if q.dtype == torch.bfloat16:
         q4, k4, v4, o4, do4 = (aligned16(t) for t in (q4, k4, v4, o4, do4))
+        ld = -(-Sq // LSE_ROWS) * LSE_ROWS
+        if lse is None:
+            lse = lse_buffer(q)
+            with torch.no_grad():
+                flash_attention(q.detach(), k.detach(), v.detach(),
+                                causal=causal, sm_scale=sm_scale, lse=lse)
+        elif (lse.dtype != torch.float32 or lse.device != dev
+              or tuple(lse.shape) != (B, Hq, ld)
+              or not lse.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                             f"{lse.dtype} is not the forward's lse_buffer "
+                             f"(float32 [{B}, {Hq}, {ld}], contiguous)")
+        stats = torch.empty((B, Hq, ld), dtype=torch.float32, device=dev)
+    else:
+        lse = None
+        stats = torch.empty((2, B, Hq, Sq), dtype=torch.float32, device=dev)
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
     dk = torch.empty(k.shape, dtype=k.dtype, device=dev)
     dv = torch.empty(v.shape, dtype=v.dtype, device=dev)
-    stats = torch.empty((2, B, Hq, Sq), dtype=torch.float32, device=dev)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
 
     def strides(t):                  # batch, head, sequence (elements)
@@ -124,9 +147,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_bwd_launch(
             *(t.data_ptr() for t in tensors), stats.data_ptr(),
+            None if lse is None else lse.data_ptr(), ld,
             _DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, D,
             *(strides(t) for t in tensors), int(causal), float(scale),
             stream)
+    if err == _ERR_TENSOR_MAP:
+        raise RuntimeError("flash_attention_bwd: cuTensorMapEncodeTiled "
+                           "refused the TMA maps of q, k, v or dO")
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
                            f"{err}")
@@ -139,12 +166,17 @@ flash_attention_bwd.launches = 0
 
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` (``q_offset = 0, kv_len = Skv``) with its
-    backward kernel.  Saves q, k, v and o."""
+    backward kernel.  Saves q, k, v and o, and for bf16 off the CPU the
+    forward's row log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sm_scale: Optional[float]):
-        o = flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+        lse = (lse_buffer(q) if q.dtype == torch.bfloat16
+               and q.device.type != "cpu" else None)
+        o = flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                            lse=lse)
         ctx.save_for_backward(q, k, v, o)
+        ctx.lse = lse
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return o
 
@@ -152,7 +184,7 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=ctx.causal,
-                                         sm_scale=ctx.sm_scale)
+                                         sm_scale=ctx.sm_scale, lse=ctx.lse)
         return dq, dk, dv, None, None
 
 
@@ -195,7 +227,7 @@ def _lib() -> ctypes.CDLL:
         p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(
             ctypes.c_longlong)
         lib.flash_attention_bwd_launch.argtypes = (
-            [p] * 9 + [i] * 7 + [s] * 8 + [i, ctypes.c_float, p])
+            [p] * 10 + [i] * 8 + [s] * 8 + [i, ctypes.c_float, p])
         lib.flash_attention_bwd_launch.restype = i
         lib.flash_attention_bwd_max_d.argtypes = []
         lib.flash_attention_bwd_max_d.restype = i

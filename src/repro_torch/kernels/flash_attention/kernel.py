@@ -43,17 +43,29 @@ import torch
 from .. import needs_grad
 from ..build import load_library
 
-__all__ = ["NEG_INF", "attention_plain", "flash_attention", "mixed"]
+__all__ = ["LSE_ROWS", "NEG_INF", "attention_plain", "flash_attention",
+           "lse_buffer", "mixed"]
 
 NEG_INF = -1e30                # finite: exp(-inf - -inf) would be NaN
 _SMEM_LIMIT = 232448           # dynamic shared memory a block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ERR_TENSOR_MAP = 10000        # the launcher's code for refused TMA maps
+LSE_ROWS = 64                  # lse_buffer's rows round up to this
 
 
 def _as_4d(t: torch.Tensor) -> torch.Tensor:
     """``[BH, S, D]`` as the ``[1, S, BH, D]`` view the kernel reads."""
     return t.unsqueeze(0).transpose(1, 2) if t.dim() == 3 else t
+
+
+def lse_buffer(q: torch.Tensor) -> torch.Tensor:
+    """An uninitialised float32 ``[B, Hq, Sq']`` for the rows' log-sum-exp
+    of a call with these queries, ``Sq`` rounded up to ``LSE_ROWS`` (the
+    bf16 backward kernel reads it 64 rows at a time)."""
+    q4 = _as_4d(q)
+    B, Sq, Hq = q4.shape[:3]
+    rows = -(-Sq // LSE_ROWS) * LSE_ROWS
+    return torch.empty((B, Hq, rows), dtype=torch.float32, device=q.device)
 
 
 def mixed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -65,9 +77,11 @@ def mixed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
                     kv_len: Optional[int] = None,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
+                    sm_scale: Optional[float] = None,
+                    lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain torch version of the kernel, in float32, in either layout;
-    the output in v's type."""
+    the output in v's type.  ``lse`` (as in ``flash_attention``) receives
+    the rows' log-sum-exp."""
     three = q.dim() == 3
     q4, k4, v4 = _as_4d(q), _as_4d(k), _as_4d(v)
     Sq, Hq, D = q4.shape[1:]
@@ -84,8 +98,21 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q_pos = torch.arange(Sq, device=q.device) + q_offset
         mask = mask & (kv_pos[None, :] <= q_pos[:, None])
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    if lse is not None:
+        lse[:, :, :Sq] = torch.logsumexp(s, dim=-1)
     out = (torch.softmax(s, dim=-1) @ vf).transpose(1, 2).to(v.dtype)
     return out[0].transpose(0, 1) if three else out
+
+
+def _check_lse(q: torch.Tensor, lse: torch.Tensor) -> None:
+    q4 = _as_4d(q)
+    B, Sq, Hq = q4.shape[:3]
+    if (lse.dtype != torch.float32 or lse.device != q.device
+            or lse.dim() != 3 or tuple(lse.shape[:2]) != (B, Hq)
+            or lse.shape[2] < Sq or lse.stride(2) != 1):
+        raise ValueError(f"flash_attention: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} must be float32 [{B}, {Hq}, >= {Sq}] "
+                         "with contiguous rows on q's device")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -114,11 +141,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
                     kv_len: Optional[int] = None,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
+                    sm_scale: Optional[float] = None,
+                    lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention ``[.., Sq, .., D]`` out: the CUDA kernel on CUDA tensors.
 
-    ``q_offset`` and ``kv_len`` are Python ints (no device read).  Tensors
-    on the CPU take ``attention_plain``.  Mixed float32 / bf16 inputs
+    ``q_offset`` and ``kv_len`` are Python ints (no device read).  ``lse``,
+    a float32 ``[B, Hq, >= Sq]`` (``lse_buffer``; the TPU layout is B = 1),
+    receives each query row's log-sum-exp of the scaled, masked scores
+    (the training forward keeps it for the backward kernel); serving
+    passes none, and the kernel then writes nothing more.  Tensors on the
+    CPU take ``attention_plain``.  Mixed float32 / bf16 inputs
     (``mixed``) take the float32 path on the upcast inputs and return v's
     type.  ``flash_attention.launches`` counts kernel launches.  Other
     tensors that require grad (with grad mode on) raise
@@ -128,14 +160,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if mixed(q, k, v):
         return flash_attention(q.float(), k.float(), v.float(),
                                causal=causal, q_offset=q_offset,
-                               kv_len=kv_len, sm_scale=sm_scale).to(v.dtype)
+                               kv_len=kv_len, sm_scale=sm_scale,
+                               lse=lse).to(v.dtype)
     Skv = k.shape[1]
     kv_len = Skv if kv_len is None else int(kv_len)
     _check(q, k, v, kv_len, q_offset)
+    if lse is not None:
+        _check_lse(q, lse)
     dev = q.device
     if dev.type == "cpu":
         return attention_plain(q, k, v, causal=causal, q_offset=q_offset,
-                               kv_len=kv_len, sm_scale=sm_scale)
+                               kv_len=kv_len, sm_scale=sm_scale, lse=lse)
     if needs_grad(q, k, v):
         # the kernel's output has no grad_fn: a gradient would be lost
         raise NotImplementedError(
@@ -179,7 +214,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
             _DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, D, strides(q4),
             strides(k4), strides(v4), strides(o4), int(causal),
-            int(q_offset), min(Skv, kv_len), float(scale), stream)
+            int(q_offset), min(Skv, kv_len), float(scale),
+            None if lse is None else lse.data_ptr(),
+            0 if lse is None else lse.stride(0),
+            0 if lse is None else lse.stride(1), stream)
     if err == _ERR_TENSOR_MAP:
         raise RuntimeError("flash_attention: cuTensorMapEncodeTiled refused "
                            "the TMA maps of q, k or v")
@@ -204,7 +242,7 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_longlong)
         lib.flash_attention_launch.argtypes = [
             p, p, p, p, i, i, i, i, i, i, i, s, s, s, s, i, i, i,
-            ctypes.c_float, p]
+            ctypes.c_float, p, ctypes.c_longlong, ctypes.c_longlong, p]
         lib.flash_attention_launch.restype = i
         lib.flash_attention_smem_bytes.argtypes = [i, i]
         lib.flash_attention_smem_bytes.restype = ctypes.c_longlong

@@ -46,6 +46,7 @@ from .kernel import _DTYPES, _as_4d, _check, ssd_scan, ssd_scan_plain
 
 __all__ = ["SSDScanFn", "scan", "ssd_scan_bwd", "ssd_scan_bwd_plain"]
 
+_ERR_TENSOR_MAP = 10000        # the launcher's code for refused TMA maps
 MAX_NP = 64                    # the backward kernel's N and P
 MAX_CHUNK = 256                # and rows of a chunk
 
@@ -114,8 +115,9 @@ def ssd_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  a: torch.Tensor, do: torch.Tensor, *, chunk: int = 128):
     """``(dq, dk, dv, da)`` of ``ssd_scan``'s output: the CUDA kernel on
     CUDA tensors, the plain version on the CPU.  ``ssd_scan_bwd.launches``
-    counts the kernel's launches (one per call, which runs the states, dq,
-    dk / dv and da kernels in order on the stream)."""
+    counts the kernel's launches (one per call, which runs its kernels in
+    order on the stream: bf16 the states, the fused dq / dk / dv and da;
+    float32 the states, dq, dk / dv and da)."""
     _check(q, k, v, a, chunk)
     if do.shape != v.shape:
         raise ValueError(f"ssd_scan_bwd: do {tuple(do.shape)} must be "
@@ -142,8 +144,13 @@ def ssd_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.empty((B, L, H, N), dtype=v.dtype, device=dev)
     dv = torch.empty((B, L, H, P), dtype=v.dtype, device=dev)
     da = torch.empty((B, L, H), dtype=torch.float32, device=dev)
-    ws = torch.empty((lib.ssd_scan_bwd_ws_floats(B, L, H, N, P, c),),
+    ws = torch.empty((lib.ssd_scan_bwd_ws_floats(B, L, H, N, P, c,
+                                                 _DTYPES[v.dtype]),),
                      dtype=torch.float32, device=dev)
+    # bf16: the states launch's ticket counter and ready flags (zeroed)
+    sync = (torch.zeros((lib.ssd_scan_bwd_sync_ints(B, L, H, c),),
+                        dtype=torch.int32, device=dev)
+            if v.dtype == torch.bfloat16 else None)
 
     def strides(t):                  # batch, sequence, head (elements)
         return (ctypes.c_longlong * 3)(t.stride(0), t.stride(1), t.stride(2))
@@ -153,9 +160,13 @@ def ssd_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.ssd_scan_bwd_launch(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), do4.data_ptr(),
             a3.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            da.data_ptr(), ws.data_ptr(), _DTYPES[v.dtype], B, L, H, N, P,
-            c, strides(q4), strides(k4), strides(v4), strides(do4),
-            strides(a3), stream)
+            da.data_ptr(), ws.data_ptr(),
+            None if sync is None else sync.data_ptr(), _DTYPES[v.dtype],
+            B, L, H, N, P, c, strides(q4), strides(k4), strides(v4),
+            strides(do4), strides(a3), stream)
+    if err == _ERR_TENSOR_MAP:
+        raise RuntimeError("ssd_scan_bwd: cuTensorMapEncodeTiled refused "
+                           "the TMA maps of q, k, v or dO")
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {err}")
     ssd_scan_bwd.launches += 1
@@ -229,9 +240,11 @@ def _lib() -> ctypes.CDLL:
         p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(
             ctypes.c_longlong)
         lib.ssd_scan_bwd_launch.argtypes = (
-            [p] * 10 + [i] * 7 + [s] * 5 + [p])
+            [p] * 11 + [i] * 7 + [s] * 5 + [p])
         lib.ssd_scan_bwd_launch.restype = i
-        lib.ssd_scan_bwd_ws_floats.argtypes = [i] * 6
+        lib.ssd_scan_bwd_ws_floats.argtypes = [i] * 7
         lib.ssd_scan_bwd_ws_floats.restype = ctypes.c_longlong
+        lib.ssd_scan_bwd_sync_ints.argtypes = [i] * 4
+        lib.ssd_scan_bwd_sync_ints.restype = ctypes.c_longlong
         _LIB = lib
     return _LIB

@@ -27,7 +27,8 @@ from repro_torch.kernels.flash_attention import (FlashAttentionFn, attention,
                                                  attention_bwd_plain,
                                                  attention_plain,
                                                  flash_attention,
-                                                 flash_attention_bwd)
+                                                 flash_attention_bwd,
+                                                 lse_buffer)
 from repro_torch.models import layers as TL
 
 REL = 1e-5
@@ -213,6 +214,37 @@ def test_kernel_call_off_the_cpu_that_requires_grad_raises():
         flash_attention_bwd(q.detach(), k, k, q.detach(), q.detach())
 
 
+def _logsumexp(q, k, causal):
+    """Each query row's log-sum-exp of the scaled (masked) scores, float32,
+    ``[B, Hq, Sq]``: what the forward hands the bf16 backward kernel."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1:3]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+    s = (qf @ kf.transpose(-1, -2)) / D ** 0.5
+    if causal:
+        s = s.masked_fill(torch.ones(Sq, Skv, dtype=torch.bool,
+                                     device=q.device).triu(1), -1e30)
+    return torch.logsumexp(s, dim=-1)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_forward_fills_the_lse_buffer(causal):
+    """On the CPU ``flash_attention(..., lse=)`` fills the rows' log-sum-exp
+    as the kernel does (rows past Sq in the rounded-up buffer untouched)."""
+    q, k, v, _ = (torch.tensor(x) for x in inputs(9, 2, 37, 4, 2, 16))
+    lse = lse_buffer(q)
+    assert lse.shape == (2, 4, 64) and lse.dtype == torch.float32
+    lse.fill_(7.0)
+    out = flash_attention(q, k, v, causal=causal, lse=lse)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal))
+    torch.testing.assert_close(lse[..., :37], _logsumexp(q, k, causal),
+                               rtol=0, atol=1e-5)
+    assert bool((lse[..., 37:] == 7.0).all())
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention(q, k, v, lse=lse[:, :, :30])
+
+
 def test_function_saves_inputs_and_output():
     q, k, v, _ = (torch.tensor(x, requires_grad=True)
                   for x in inputs(6, 1, 16, 2, 1, 8))
@@ -279,3 +311,79 @@ def test_cuda_function_trains_through_the_kernels():
     want = attention_bwd_plain(q, k, v, attention_plain(q, k, v), do)
     for t, w in zip(leaves, want):
         assert (t.grad - w).abs().max() <= 2e-5 * w.abs().max()
+
+
+# zamba2-2.7b's training shape: its shared attention (B, S, Hq, Hkv, D)
+ZAMBA2_TRAIN = (4, 1024, 32, 32, 80)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_gives_the_same_bits_twice():
+    """bf16 at zamba2's training shape: two calls on the same inputs (the
+    forward's lse) give the same bits; every output element is written by
+    one thread in a fixed order, with no atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel runs only on the card)")
+    B, S, Hq, Hkv, D = ZAMBA2_TRAIN
+    q, k, v, do = (torch.tensor(x).to("cuda", torch.bfloat16)
+                   for x in inputs(11, B, S, Hq, Hkv, D))
+    lse = lse_buffer(q)
+    o = flash_attention(q, k, v, lse=lse)
+    first = flash_attention_bwd(q, k, v, o, do, lse=lse)
+    second = flash_attention_bwd(q, k, v, o, do, lse=lse)
+    without = flash_attention_bwd(q, k, v, o, do)     # lse recomputed
+    torch.cuda.synchronize()
+    for x, y, z in zip(first, second, without):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("case", [(2, 100, 4, 2, 80, True),
+                                  (1, 130, 4, 4, 128, False),
+                                  (4, 1024, 32, 32, 80, True)])
+def test_cuda_forward_lse_is_the_logsumexp(case, bf16):
+    """The forward kernel's lse output against ``torch.logsumexp`` of the
+    plain scores, within 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel runs only on the card)")
+    B, S, Hq, Hkv, D, causal = case
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q, k, v, _ = (torch.tensor(x).to("cuda", dtype)
+                  for x in inputs(12, B, S, Hq, Hkv, D))
+    lse = lse_buffer(q)
+    flash_attention(q, k, v, causal=causal, lse=lse)
+    torch.testing.assert_close(lse[..., :S], _logsumexp(q, k, causal),
+                               rtol=0, atol=1e-5)
+
+
+# scripts/flash_forward_bits.py's digests of the forward kernel's outputs
+# as they were before the kernel had an lse output (NVIDIA H100 80GB HBM3)
+FORWARD_BITS = {
+    "2,300,300,8,2,80,1,0,None,torch.bfloat16":
+        "42580d860f6393c9909925738963903bb0a45561a5dbc4ec79c1792bd520771a",
+    "1,200,520,4,4,128,1,300,500,torch.bfloat16":
+        "2e00b128d0562c66a2c325cb3cb2972e3609644b3cb6ee8382cad169cece207a",
+    "2,100,100,4,2,64,1,0,None,torch.float32":
+        "a33d371ed3d6b2fdf12a9fc5dfa47d7a4c233b46a17557a6e265fa5a321cdb95"}
+
+
+@pytest.mark.cuda
+def test_cuda_forward_bits_unchanged():
+    """Serving's forward (no lse) gives the bits it gave before the lse
+    output existed, on seeded inputs; with the lse output it gives the
+    same bits too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel runs only on the card)")
+    import importlib.util
+    import pathlib
+    path = (pathlib.Path(__file__).resolve().parents[1] / "scripts"
+            / "flash_forward_bits.py")
+    spec = importlib.util.spec_from_file_location("flash_forward_bits", path)
+    bits = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bits)
+    assert bits.digests(flash_attention, torch) == FORWARD_BITS
+
+    def with_lse(q, k, v, **kw):
+        return flash_attention(q, k, v, lse=lse_buffer(q), **kw)
+    assert bits.digests(with_lse, torch) == FORWARD_BITS

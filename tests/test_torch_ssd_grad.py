@@ -267,3 +267,25 @@ def test_cuda_kernel_matches_plain(case, bf16):
                                        atol=2e-2)
         else:
             assert (g - w).abs().max() <= 2e-5 * w.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_gives_the_same_bits_twice():
+    """bf16 at zamba2's training shape (q and k broadcast over 80 heads,
+    N = P = 64, chunk 256): two calls on the same inputs give the same
+    bits; the states hand-off runs in a fixed order and every output
+    element is written by one thread, with no atomics."""
+    case = (4, 1024, 80, 64, 64, 256, True, False)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel runs only on the card)")
+    B, L, H, N, P, c, bc, slow = case
+    q, k, v, do, a = inputs(13, B, L, H, N, P, bc, slow)
+    tq, tk = (torch.tensor(x).to("cuda", torch.bfloat16).expand(B, L, H, N)
+              for x in (q, k))
+    tv, tdo = (torch.tensor(x).to("cuda", torch.bfloat16) for x in (v, do))
+    ta = torch.tensor(a).cuda()
+    first = ssd_scan_bwd(tq, tk, tv, ta, tdo, chunk=c)
+    second = ssd_scan_bwd(tq, tk, tv, ta, tdo, chunk=c)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
