@@ -15,11 +15,13 @@ online serving
 layer's traces on the card; then runs the portfolio sweeps, plans and
 realizes three models on a pod, and serves the MoE and xLSTM models at
 full width; then trains zamba2-2.7b at full width, with the attention and
-SSD backward kernels.  It imports neither JAX nor the reference
-package.  Phases, each printed as it runs:
+SSD backward kernels, xlstm-350m at full width, with the wide scan's
+backward and the sLSTM recurrence kernels, and qwen2-moe-a2.7b at its
+published widths with the depth cut.  It imports neither JAX nor the
+reference package.  Phases, each printed as it runs:
 
 1. card: ``nvidia-smi`` name, power limit and SM clock, library versions,
-   kernel builds (one ``nvcc`` per source, all six at once)
+   kernel builds (one ``nvcc`` per source, all eight at once)
 2a. ``scar_eval`` (a whole window's scores, comm terms included, in one
    launch) against ``scar_eval_window_plain``, bit for bit, over a sweep
    of shapes (one and four models a launch) and on every window of the
@@ -54,6 +56,16 @@ package.  Phases, each printed as it runs:
    (qwen2-moe-a2.7b's MHA [4, 1024, 16, 128], minitron-8b's GQA [4, 1024,
    32, 128] over 8 kv heads): each output within 2e-2 of the largest plain
    output, times, bounds, SDPA for attention
+2f. xLSTM's training kernels: ``ssd_wide_bwd`` (the SSD scan's backward
+   for N, P up to 256 and the mLSTM's normaliser) against
+   ``ssd_scan_bwd_plain``, and ``slstm`` / ``slstm_bwd`` (the sLSTM
+   recurrence, forward and backward) against ``slstm_scan_plain`` /
+   ``slstm_scan_bwd_plain``, over sweeps (float32 and bf16, a decode step,
+   a batch over two clusters, xlstm-350m's training shapes last), each
+   output within 2e-2 (bf16) or 2e-5 (float32) of its largest plain entry
+   and a second call the same bits; times at xlstm-350m's shapes beside
+   the bound and the plain version, device times profiled in a new
+   process
 3. paper package: the ten Table II scenarios on the 6x6 ``het_cross`` MCM,
    under ``eval_backend="auto"`` (as the golden file was made), with every
    batch on the kernel (``eval_backend="cuda"``), and with
@@ -130,8 +142,9 @@ package.  Phases, each printed as it runs:
 11. multimodel (``repro_torch.multimodel``): the 16x16 pod plan == the
    record; then minitron-8b, qwen2-moe-a2.7b and xlstm-350m planned at
    batch 4, sequence 1024 and realized at full width one at a time on the
-   card: launches, prefill time, peak memory, every kernel call of one
-   prefill against its plain version (2e-2); the bf16 last-token logits
+   card: launches (xlstm-350m: 12 ``ssd_scan`` and 12 ``slstm``), prefill
+   time, peak memory, every kernel call of one prefill against its plain
+   version (2e-2); the bf16 last-token logits
    against the plain path's (each routing its own tokens) beside a
    witness, the plain path with one-ulp moves at the share of outputs the
    kernels leave unequal, both printed; for minitron-8b and
@@ -139,9 +152,10 @@ package.  Phases, each printed as it runs:
    plain versions within 1e-3 of the largest logit (phase 6's check)
 12. serving qwen2-moe-a2.7b and xlstm-350m at full width (batch 4, prompt
    1024, 32 tokens): prefill time, decode tokens/s, peak memory, launches
-   per prefill (none in decode), a profiled prefill's device idle share,
-   and, printed, the step where each row's greedy tokens part from the
-   plain versions' run
+   per prefill and per decode step (xlstm-350m: 12 ``slstm`` in each, the
+   cache's carry in and out; no other kernel in decode), a profiled
+   prefill's device idle share, and, printed, the step where each row's
+   greedy tokens part from the plain versions' run
 13. sync witness: the 16x16 ``dc4`` golden case of phases 4-5 under
    ``beam`` with ``auto`` and with ``eval_backend="cuda"``, under
    ``beam_jax``, and under ``beam_jax`` with the ``narrow`` congestion
@@ -176,14 +190,22 @@ package.  Phases, each printed as it runs:
    time, tokens/s, peak memory, 6 N T FLOP a step over that time, launches
    a step) and one profiled step; then ``python -m
    repro_torch.launch.train --smoke --device cuda`` crashed at step 12,
-   resumed, and its losses ``==`` a clean run's
+   resumed, and its losses ``==`` a clean run's; then (f) reduced xLSTM in
+   float32 on the kernels against ``tests/fixtures/
+   torch_train_golden_xlstm.npz``, (g) xlstm-350m at full width in the
+   same manner (24 / 12 launches of ``ssd_scan`` / ``ssd_wide_bwd`` and of
+   ``slstm`` / ``slstm_bwd`` a step; the profiled step in a new process)
+   and (h) qwen2-moe-a2.7b at its published widths with the depth cut to
+   the first of 3 and 2 layers that fits (attention on
+   ``flash_attention`` and its backward at head_dim 128)
 8. summary: a JSON line of the portfolio, multimodel, serving, sync
    witness, VLM and training numbers,
    then one of per-kernel numbers (``launches_by_path`` includes the
    online, portfolio, realized, served, VLM and trained runs; ``shapes``
    the new models' kernel shapes of phase 2e and the VLM's self and cross
-   calls of phase 15; the backward kernels' launches
-   are those of the three timed full-width steps)
+   calls of phase 15; the backward kernels' launches, and xLSTM's three
+   kernels', are those of the three timed full-width steps of zamba2 and
+   of xlstm-350m)
 10. last line: ``{"ok": true, "device": {...}}``
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -231,10 +253,18 @@ ATTN_D128 = {"qwen2-moe-a2.7b": (4, 1024, 16, 16, 128),
              "minitron-8b": (4, 1024, 32, 8, 128)}
 # the models served at full width (phases 11 and 12), batch 4, prompt 1024:
 # each kernel's launches per prefill (one per layer of its kind)
-NEW_SERVE = {"qwen2-moe-a2.7b": {"flash_attention": 24, "ssd_scan": 0},
-             "xlstm-350m": {"flash_attention": 0, "ssd_scan": 12}}
+NEW_SERVE = {"qwen2-moe-a2.7b": {"flash_attention": 24, "ssd_scan": 0,
+                                 "slstm": 0},
+             "xlstm-350m": {"flash_attention": 0, "ssd_scan": 12,
+                            "slstm": 12}}
+# and per decode step (only the sLSTM's recurrence runs a kernel there)
+NEW_SERVE_DECODE = {"qwen2-moe-a2.7b": {"flash_attention": 0, "ssd_scan": 0,
+                                        "slstm": 0},
+                    "xlstm-350m": {"flash_attention": 0, "ssd_scan": 0,
+                                   "slstm": 12}}
 POD_ARCHS = ("minitron-8b", "qwen2-moe-a2.7b", "xlstm-350m")
-POD_LAUNCHES = {"minitron-8b": {"flash_attention": 32, "ssd_scan": 0},
+POD_LAUNCHES = {"minitron-8b": {"flash_attention": 32, "ssd_scan": 0,
+                                "slstm": 0},
                 **NEW_SERVE}
 PORTFOLIO_GOLDEN = (ROOT / "tests" / "fixtures"
                     / "torch_portfolio_golden.json")
@@ -1087,16 +1117,24 @@ def online_phase(dev) -> dict:
     return launches
 
 
-def kernel_err_of_max(out, ref, what: str) -> float:
-    """``max |out - ref|``; raises unless it is at most ``LM_TOL`` (float32:
-    2e-5) of ``max |ref|``."""
+def kernel_err_of_max(out, ref, what: str,
+                      dtype: torch.dtype = torch.float32) -> float:
+    """``max |out - ref|``; raises unless it is at most ``LM_TOL[dtype]``
+    (float32 2e-5, bf16 2e-2) of ``max |ref|``."""
     o, r = out.float(), ref.float()
     check(bool(torch.isfinite(o).all()), f"{what}: output not finite")
     err = (o - r).abs().max().item()
-    limit = LM_TOL[torch.float32] * r.abs().max().item()
+    limit = LM_TOL[dtype] * r.abs().max().item()
     check(err <= limit, f"{what}: max |kernel - plain| = {err}, beyond "
-          f"2e-5 of max |plain| ({limit})")
+          f"{LM_TOL[dtype]} of max |plain| ({limit})")
     return err
+
+
+def repeat_bits(fn, got, what):
+    """A second call's outputs, held to the first's bits."""
+    again = fn()
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"{what}: a second call on the same inputs gave other bits")
 
 
 def kernel_err(out, ref, dtype, what: str) -> float:
@@ -1171,30 +1209,38 @@ def keep(t):
         else t.clone()
 
 
+def keep_arg(a):
+    """A copy of a recorded call's argument (the sLSTM's carry a tuple)."""
+    return tuple(t.clone() for t in a) if isinstance(a, tuple) else keep(a)
+
+
 @contextlib.contextmanager
 def recording_calls(calls: list):
-    """Every ``flash_attention`` and ``ssd_scan`` call of the model layers
-    inside appends ``(name, args, kwargs, out)`` to ``calls``, copies of
-    its inputs and its output."""
-    from repro_torch.models import layers
+    """Every ``flash_attention``, ``ssd_scan`` and ``slstm`` call of the
+    model layers inside appends ``(name, args, kwargs, out)`` to
+    ``calls``, copies of its inputs and its outputs."""
+    from repro_torch.models import blocks, layers
     real = {"flash_attention": layers.flash_attention,
-            "ssd_scan": layers.ssd_scan}
+            "ssd_scan": layers.ssd_scan, "slstm": blocks.slstm_scan}
 
     def recorder(name):
         def call(*args, **kwargs):
             out = real[name](*args, **kwargs)
-            calls.append((name, tuple(keep(a) for a in args), dict(kwargs),
+            calls.append((name, tuple(keep_arg(a) for a in args),
+                          dict(kwargs),
                           tuple(o.clone() for o in outputs(out))))
             return out
         return call
 
     layers.flash_attention = recorder("flash_attention")
     layers.ssd_scan = recorder("ssd_scan")
+    blocks.slstm_scan = recorder("slstm")
     try:
         yield
     finally:
         layers.flash_attention = real["flash_attention"]
         layers.ssd_scan = real["ssd_scan"]
+        blocks.slstm_scan = real["slstm"]
 
 
 def recorded_prefill():
@@ -1275,9 +1321,12 @@ def logit_agreement(lk, lp) -> dict:
 
 
 def outputs(out) -> tuple:
-    """A kernel call's outputs as a tuple (``ssd_scan`` with ``norm=True``
-    returns the scan and its normaliser)."""
-    return out if isinstance(out, tuple) else (out,)
+    """A kernel call's outputs as a flat tuple (``ssd_scan`` with
+    ``norm=True`` returns the scan and its normaliser, ``slstm`` ys and
+    the carry)."""
+    if not isinstance(out, tuple):
+        return (out,)
+    return tuple(t for o in out for t in outputs(o))
 
 
 def check_calls(calls: list) -> dict:
@@ -1286,17 +1335,22 @@ def check_calls(calls: list) -> dict:
     per kernel the calls, the largest difference and the least share of
     outputs equal to the plain version's."""
     from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.kernels.slstm import slstm_scan_plain
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
-    plain = {"flash_attention": attention_plain, "ssd_scan": ssd_scan_plain}
+    plain = {"flash_attention": attention_plain, "ssd_scan": ssd_scan_plain,
+             "slstm": slstm_scan_plain}
     seen = {}
     for name, args, kwargs, outs in calls:
         refs = outputs(plain[name](*args, **kwargs))
         n, err, same = seen.get(name, (0, 0.0, 1.0))
         for out, ref in zip(outs, refs):
+            # the sLSTM's float32 carry is as exact as its bf16 ys, and
+            # only the bf16 outputs count toward the bit-equal share
             err = max(err, kernel_err(
-                out, ref, out.dtype, f"{name}, call {n} of the bf16 "
+                out, ref, outs[0].dtype, f"{name}, call {n} of the bf16 "
                 "prefill"))
-            same = min(same, (out == ref).float().mean().item())
+            if out.dtype == outs[0].dtype:
+                same = min(same, (out == ref).float().mean().item())
         seen[name] = (n + 1, err, same)
     return {k: {"calls": n, "max_abs": e, "least_equal_share": sh}
             for k, (n, e, sh) in seen.items()}
@@ -1317,16 +1371,18 @@ def ulp_flips(t, share: float, gen):
 @contextlib.contextmanager
 def plain_kernels(flash: bool = True, ssd: bool = True,
                   perturb: float = 0.0):
-    """The model layers take the named kernels' plain versions inside (on
-    the card: the comparison prefills of phases 6, 11 and 12).  With
-    ``perturb``, every plain output has that share of its entries moved
-    one ulp (``ulp_flips``): the plain path with as many last-bit
-    differences as the kernels leave, at random places, a witness of how
-    far the model itself carries such differences."""
+    """The model layers take the named kernels' plain versions inside, and
+    the sLSTM's plain loop always (on the card: the comparison prefills of
+    phases 6, 11 and 12).  With ``perturb``, every plain output has that
+    share of its entries moved one ulp (``ulp_flips``): the plain path
+    with as many last-bit differences as the kernels leave, at random
+    places, a witness of how far the model itself carries such
+    differences (the sLSTM's ys only: its carry stays as computed)."""
     from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.kernels.slstm import slstm_scan_plain
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
-    from repro_torch.models import layers
-    real = layers.flash_attention, layers.ssd_scan
+    from repro_torch.models import blocks, layers
+    real = layers.flash_attention, layers.ssd_scan, blocks.slstm_scan
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def perturbed(fn):
@@ -1339,13 +1395,20 @@ def plain_kernels(flash: bool = True, ssd: bool = True,
             return outs if isinstance(out, tuple) else outs[0]
         return call
 
+    def plain_slstm(gx, r, carry):
+        ys, carry = slstm_scan_plain(gx, r, carry)
+        if perturb:
+            ys = ulp_flips(ys, perturb, gen)
+        return ys, carry
+
     layers.flash_attention = perturbed(attention_plain) if flash \
         else real[0]
     layers.ssd_scan = perturbed(ssd_scan_plain) if ssd else real[1]
+    blocks.slstm_scan = plain_slstm
     try:
         yield
     finally:
-        layers.flash_attention, layers.ssd_scan = real
+        layers.flash_attention, layers.ssd_scan, blocks.slstm_scan = real
 
 
 def new_shapes_phase(g, dev, smi) -> dict:
@@ -1423,6 +1486,198 @@ def new_shapes_phase(g, dev, smi) -> dict:
                 smi, f"{arch}'s shape")}
         del q, k, v, out, ref
     torch.cuda.empty_cache()
+    return rec
+
+
+# xLSTM's kernels (phase 2f): ssd_wide_bwd cases (B, L, H, N, P, chunk,
+# normaliser, bf16?) and slstm cases (B, L, H, dh, bf16?); the last of each
+# is xlstm-350m's training shape (its mLSTM's scan with the normaliser; its
+# sLSTM over batch 4 x 1024), an L = 1 case is a decode step, 9 batch rows
+# take two clusters a head
+WIDE_BWD_CASES = ((1, 64, 2, 16, 16, 16, True, False),
+                  (2, 256, 3, 128, 96, 128, True, False),
+                  (1, 512, 2, 128, 64, 256, False, True),
+                  (2, 256, 3, 256, 256, 256, True, True),
+                  (4, 1024, 4, 256, 256, 256, True, True))
+SLSTM_CASES = ((2, 16, 4, 16, False), (3, 64, 2, 256, False),
+               (9, 32, 2, 64, True), (4, 1, 4, 256, True),
+               (4, 1024, 4, 256, True))
+PROFILE_XLSTM_ARG = "--profile-xlstm-kernels"
+
+
+def of_largest(got, ref, dtype, what: str) -> float:
+    """``max |got - ref|`` over a tuple of outputs, each of the plain
+    version's type and shape and within ``LM_TOL[dtype]`` of its largest
+    plain entry (``kernel_err_of_max``)."""
+    for i, (o, r) in enumerate(zip(got, ref)):
+        check(o.shape == r.shape and o.dtype == r.dtype,
+              f"{what} output {i}: {o.dtype} {tuple(o.shape)}, plain "
+              f"{r.dtype} {tuple(r.shape)}")
+    return max(kernel_err_of_max(o, r, f"{what} output {i}", dtype)
+               for i, (o, r) in enumerate(zip(got, ref)))
+
+
+def wide_bwd_inputs(g, dev, B, L, H, N, P, norm, dt):
+    """The mLSTM's scan inputs (q / sqrt(P), log sigmoid forget gates) and
+    random output gradients."""
+    q = randn((B, L, H, N), g, dt, dev) / math.sqrt(P)
+    k, v = randn((B, L, H, N), g, dt, dev), randn((B, L, H, P), g, dt, dev)
+    a = -torch.nn.functional.softplus(-randn((B, L, H), g, torch.float32,
+                                             dev))
+    do = randn((B, L, H, P), g, dt, dev)
+    dden = randn((B, L, H), g, dt, dev) if norm else None
+    return q, k, v, a, do, dden
+
+
+def slstm_inputs(g, dev, B, L, H, dh, dt):
+    """sLSTM inputs as the model makes them (r / sqrt(dh), a carry from
+    earlier positions) and random gradients of ys and of the carry out."""
+    gx = randn((B, L, H, 4 * dh), g, dt, dev)
+    r = (randn((H, dh, 4 * dh), g, torch.float32, dev)
+         / math.sqrt(dh)).to(dt)
+    f32 = torch.float32
+    carry = (randn((B, H, dh), g, f32, dev),
+             randn((B, H, dh), g, f32, dev).abs() + 0.5,
+             randn((B, H, dh), g, dt, dev), randn((B, H, dh), g, f32, dev))
+    dys = randn((B, L, H, dh), g, dt, dev)
+    dcarry = (randn((B, H, dh), g, f32, dev), randn((B, H, dh), g, f32, dev),
+              randn((B, H, dh), g, dt, dev), randn((B, H, dh), g, f32, dev))
+    return gx, r, carry, dys, dcarry
+
+
+def slstm_bound_ms(gx, backward: bool) -> tuple[float, str]:
+    """The sLSTM recurrence's least time, forward (gx and r read, ys
+    written, the carry read and written; the gate products, 2 B L H dh
+    4 dh FLOP) or the backward call (the saved gate inputs, c, n, m, ys
+    and dys read, dgx, dr and the carry's gradients written; dg r^T and
+    the dr product, twice the forward's FLOP), at the peak rate of gx's
+    type."""
+    B, L, H, four_dh = gx.shape
+    dh, es = four_dh // 4, gx.element_size()
+    carry = B * H * dh * (12 + es)
+    if backward:
+        nbytes = (es * (2 * B * L * H * four_dh + 2 * B * L * H * dh
+                        + 2 * H * dh * four_dh) + 12 * B * L * H * dh
+                  + 2 * carry)
+    else:
+        nbytes = (es * (B * L * H * four_dh + B * L * H * dh
+                        + H * dh * four_dh) + 2 * carry)
+    flops = (4 if backward else 2) * B * L * H * dh * four_dh
+    peak = BF16_FLOP_PER_S if gx.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def profile_xlstm_kernels() -> None:
+    """The child of ``device_ms_in_child(PROFILE_XLSTM_ARG)``: seeded
+    inputs at xlstm-350m's training shapes, the three kernels' profiled
+    device times as JSON."""
+    from repro_torch.kernels.slstm import slstm_scan, slstm_scan_bwd
+    from repro_torch.kernels.ssd_scan import ssd_wide_bwd
+    dev, bf = torch.device("cuda", 0), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, L, H, N, P, c, norm, _ = WIDE_BWD_CASES[-1]
+    q, k, v, a, do, dden = wide_bwd_inputs(g, dev, B, L, H, N, P, norm, bf)
+    out = {"ssd_wide_bwd": profiled_device_ms(
+        lambda: ssd_wide_bwd(q, k, v, a, do, chunk=c, dden=dden), reps=10)}
+    del q, k, v, a, do, dden
+    B, L, H, dh, _ = SLSTM_CASES[-1]
+    gx, r, carry, dys, dcarry = slstm_inputs(g, dev, B, L, H, dh, bf)
+    out["slstm"] = profiled_device_ms(lambda: slstm_scan(gx, r, carry),
+                                      reps=10)
+    ys, _, saved = slstm_scan(gx, r, carry, save=True)
+    out["slstm_bwd"] = profiled_device_ms(
+        lambda: slstm_scan_bwd(saved[0], r, carry, saved[1:], ys, dys,
+                               dcarry), reps=10)
+    print(json.dumps(out))
+
+
+def xlstm_kernels_phase(g, dev, smi) -> dict:
+    """Phase 2f: xLSTM's training kernels against their plain versions
+    over the sweeps (each call repeated and held to the same bits), then
+    their times at xlstm-350m's training shapes beside the bound and the
+    plain version, each kernel's device time profiled in a new process.
+    No single PyTorch call computes any of the three."""
+    from repro_torch.kernels.slstm import (slstm_scan, slstm_scan_bwd,
+                                           slstm_scan_bwd_plain,
+                                           slstm_scan_plain)
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_plain, ssd_wide_bwd
+
+    rec = {}
+    for B, L, H, N, P, c, norm, bf in WIDE_BWD_CASES:
+        dt = torch.bfloat16 if bf else torch.float32
+        q, k, v, a, do, dden = wide_bwd_inputs(g, dev, B, L, H, N, P, norm,
+                                               dt)
+        what = f"ssd_wide_bwd {(B, L, H, N, P, c)} norm={norm} {dt}"
+
+        def call():
+            return ssd_wide_bwd(q, k, v, a, do, chunk=c, dden=dden)
+        got = call()
+        ref = ssd_scan_bwd_plain(q, k, v, a, do, chunk=c, dden=dden)
+        err = of_largest(got, ref, dt, what)
+        repeat_bits(call, got, what)
+        print(f"{what}: max |kernel - plain| {err!r} (dq, dk, dv, da each "
+              f"within {LM_TOL[dt]} of its largest plain entry), a second "
+              "call the same bits")
+    rec["ssd_wide_bwd"] = {"max_abs_err": err}
+    b_ms, b_by = ssd_bwd_bound_ms(q, k, v, c, norm)
+    rec["ssd_wide_bwd"].update(
+        ms=cuda_ms(call), plain_ms=cuda_ms(lambda: ssd_scan_bwd_plain(
+            q, k, v, a, do, chunk=c, dden=dden), reps=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del q, k, v, a, do, dden, got, ref
+    for B, L, H, dh, bf in SLSTM_CASES:
+        dt = torch.bfloat16 if bf else torch.float32
+        gx, r, carry, dys, dcarry = slstm_inputs(g, dev, B, L, H, dh, dt)
+        what = f"slstm {(B, L, H, dh)} {dt}"
+
+        def fwd():
+            ys, c1, saved = slstm_scan(gx, r, carry, save=True)
+            return (ys, *c1, *saved)
+        got = fwd()
+        ys, saved = got[0], got[5:]
+        p_ys, p_c1 = slstm_scan_plain(gx, r, carry)
+        err_f = of_largest(got[:5], (p_ys, *p_c1), dt, what)
+        repeat_bits(fwd, got, what)
+
+        def bwd(fn=slstm_scan_bwd):
+            dgx, dr, dc = fn(saved[0], r, carry, saved[1:], ys, dys, dcarry)
+            return (dgx, dr, *dc)
+        got = bwd()
+        err_b = of_largest(got, bwd(slstm_scan_bwd_plain), dt,
+                           f"{what} backward")
+        repeat_bits(bwd, got, f"{what} backward")
+        print(f"{what}: forward (ys, c, n, h, m) max |kernel - plain| "
+              f"{err_f!r}, backward (dgx, dr, dc, dn, dh, dm, both fed the "
+              f"kernel's saved values) {err_b!r}, each within {LM_TOL[dt]} "
+              "of its largest plain entry; a second call of each the same "
+              "bits")
+    rec["slstm"] = {"max_abs_err": err_f}
+    rec["slstm_bwd"] = {"max_abs_err": err_b}
+    for name, fn, plain, back in (
+            ("slstm", lambda: slstm_scan(gx, r, carry),
+             lambda: slstm_scan_plain(gx, r, carry), False),
+            ("slstm_bwd", bwd, lambda: bwd(slstm_scan_bwd_plain), True)):
+        b_ms, b_by = slstm_bound_ms(gx, back)
+        rec[name].update(ms=cuda_ms(fn), plain_ms=cuda_ms(plain, reps=3),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del gx, r, carry, dys, dcarry, ys, saved, got, p_ys, p_c1
+    torch.cuda.empty_cache()
+    dev_ms = device_ms_in_child(PROFILE_XLSTM_ARG)
+    shapes = {"ssd_wide_bwd": "q, k, v, dO [4, 1024, 4, 256] bf16, chunk "
+              "256, the normaliser",
+              "slstm": "gx [4, 1024, 4, 1024] bf16, r [4, 256, 1024]",
+              "slstm_bwd": "gx [4, 1024, 4, 1024] bf16, r [4, 256, 1024], "
+              "the kernel and the dr product"}
+    for name, r_ in rec.items():
+        r_["device_ms"], r_["parts"] = dev_ms[name]
+        print(f"{name} at xlstm-350m's training shape ({shapes[name]}): per "
+              f"call (CUDA events, median) kernel {r_['ms']:.6f} ms, plain "
+              f"{r_['plain_ms']:.6f} ms; device time (profiler, a new "
+              f"process) {r_['device_ms']!r} ms [{show_parts(r_['parts'])}]"
+              f"; bound {r_['bound_ms']:.6f} ms ({r_['bound_by']}); no "
+              f"library call computes it; on {smi}")
     return rec
 
 
@@ -1540,6 +1795,7 @@ def realized_prefill(pod, pl, reqs, dev) -> dict:
     For ``F32_POD_ARCHS`` the same pair of prefills again in float32
     (``realize(dtype="float32")``).  Each model is released on return."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.slstm import slstm_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.multimodel import realize
     one = dataclasses.replace(pod, placements=[pl])
@@ -1554,13 +1810,15 @@ def realized_prefill(pod, pl, reqs, dev) -> dict:
     prefill_fn()                              # warm-up
     flash_attention.launches = 0
     ssd_scan.launches = 0
+    slstm_scan.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     last_k, cache = prefill_fn()
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention.launches,
-                "ssd_scan": ssd_scan.launches}
+                "ssd_scan": ssd_scan.launches,
+                "slstm": slstm_scan.launches}
     check(launches == POD_LAUNCHES[pl.arch],
           f"{pl.arch} prefill launched {launches}, want "
           f"{POD_LAUNCHES[pl.arch]}")
@@ -1668,33 +1926,75 @@ def multimodel_phase(dev, smi) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def launches_by_step(kernels: dict, seen: dict):
+    """``serve.main`` inside records each kernel's launches in its prefill
+    (``seen["prefill"]``) and in each decode step (``seen["decode"]``, one
+    dict a step): every count is set to 0 before the step and read after
+    it, on the host, where the wrappers count."""
+    from repro_torch.launch import serve
+    real = serve.make_prefill_step, serve.make_decode_step
+
+    def counted(make, record):
+        def maker(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def call(*a, **kw):
+                for fn in kernels.values():
+                    fn.launches = 0
+                res = step(*a, **kw)
+                record({k: fn.launches for k, fn in kernels.items()})
+                return res
+            return call
+        return maker
+
+    seen["decode"] = []
+    serve.make_prefill_step = counted(
+        real[0], lambda n: seen.__setitem__("prefill", n))
+    serve.make_decode_step = counted(real[1], seen["decode"].append)
+    try:
+        yield
+    finally:
+        serve.make_prefill_step, serve.make_decode_step = real
+
+
 def serve_phase(dev, smi) -> dict:
     """Phase 12: ``serve.main`` on qwen2-moe-a2.7b and xlstm-350m at full
     width (batch 4, prompt 1024, 32 greedy tokens, bf16): prefill time,
-    decode tokens/s, peak memory, launches (all in the prefill), one
-    profiled prefill's device busy share, and, printed, the greedy tokens
-    beside a run with the kernels' plain versions on the same weights and
-    prompt (phase 11 holds these models' logits)."""
+    decode tokens/s, peak memory, launches (counted in the prefill and in
+    each decode step on its own), one profiled prefill's device busy
+    share, and, printed, the greedy tokens beside a run with the kernels'
+    plain versions on the same weights and prompt (phase 11 holds these
+    models' logits)."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.slstm import slstm_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch import serve
     from repro_torch.models import ModelDims, get_arch, init_params, prefill
     from repro_torch.models.testing import synth_batch
+    kernels = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
+               "slstm": slstm_scan}
     out = {}
     for arch, want in NEW_SERVE.items():
         torch.cuda.empty_cache()
-        flash_attention.launches = 0
-        ssd_scan.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        res = serve.main(["--arch", arch, "--batch", "4", "--prompt-len",
-                          "1024", "--gen", "32"])
+        seen = {}
+        with launches_by_step(kernels, seen):
+            res = serve.main(["--arch", arch, "--batch", "4",
+                              "--prompt-len", "1024", "--gen", "32"])
         torch.cuda.synchronize()
-        launches = {"flash_attention": flash_attention.launches,
-                    "ssd_scan": ssd_scan.launches}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        check(launches == want, f"serve {arch} launched {launches}, want "
-              f"{want}: one per layer of the kernel's kind in the prefill, "
-              "none in decode")
+        per_prefill, steps = seen["prefill"], seen["decode"]
+        check(per_prefill == want, f"serve {arch} launched {per_prefill} in "
+              f"its prefill, want {want}: one per layer of the kernel's kind")
+        want_step = NEW_SERVE_DECODE[arch]
+        odd = [(i, n) for i, n in enumerate(steps) if n != want_step]
+        check(len(steps) == 31 and not odd, f"serve {arch} ran {len(steps)} "
+              f"decode steps, want 31, each launching {want_step}; the "
+              f"steps that did not: {odd}")
+        per_step = steps[0]
+        launches = {k: per_prefill[k] + sum(n[k] for n in steps)
+                    for k in kernels}
         cfg = get_arch(arch)
         tokens = res["tokens"]
         check(tuple(tokens.shape) == (4, 32) and bool(
@@ -1720,7 +2020,9 @@ def serve_phase(dev, smi) -> dict:
         out[arch] = {"prefill_s": res["prefill_s"],
                      "decode_s": res["decode_s"],
                      "decode_tok_s": dec_tok_s, "peak_gib": peak,
-                     "launches_per_prefill": launches,
+                     "launches_per_prefill": per_prefill,
+                     "launches_per_decode_step": per_step,
+                     "launches_32_tokens": launches,
                      "profiled_prefill_wall_s": wall,
                      "device_busy_s": busy,
                      "device_idle_share": 1 - busy / wall,
@@ -1729,8 +2031,9 @@ def serve_phase(dev, smi) -> dict:
         print(f"serve {arch} (batch 4, prompt 1024, 32 tokens, bf16): "
               f"prefill {res['prefill_s'] * 1e3:.3f} ms, decode "
               f"{res['decode_s'] * 1e3:.3f} ms = {dec_tok_s:.1f} tokens/s, "
-              f"peak {peak:.3f} GiB, launches per prefill {launches} (none "
-              f"in decode); profiled prefill: wall {wall:.4f} s, device "
+              f"peak {peak:.3f} GiB, launches per prefill {per_prefill}, per "
+              f"decode step {per_step} (all 32 tokens: {launches}); "
+              f"profiled prefill: wall {wall:.4f} s, device "
               f"busy {busy:.6f} s (idle {100 * (1 - busy / wall):.2f}%) in "
               f"{n} device events, top:"
               + "; ".join(f" {k} x{c} {t:.6f} s" for k, c, t in top)
@@ -2062,10 +2365,31 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 4, 1024, 3
 # each of the 9 attention and 45 Mamba-2 layers runs its forward kernel in
 # the forward pass and again when the backward recomputes its super-block,
 # then its backward kernel once
-TRAIN_LAUNCHES = {"flash_attention": 18, "flash_attention_bwd": 9,
-                  "ssd_scan": 90, "ssd_scan_bwd": 45}
+NO_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
+               "ssd_scan": 0, "ssd_scan_bwd": 0, "ssd_wide_bwd": 0,
+               "slstm": 0, "slstm_bwd": 0}
+TRAIN_LAUNCHES = {**NO_LAUNCHES, "flash_attention": 18,
+                  "flash_attention_bwd": 9, "ssd_scan": 90,
+                  "ssd_scan_bwd": 45}
+# xlstm-350m at full width (24 layers, d_model 1 024, 4 heads of 256):
+# each of its 12 mLSTM and 12 sLSTM layers runs its forward kernel twice
+# (the forward pass, and the backward's recomputation under remat
+# "nothing") and its backward kernel once
+TRAIN_GOLDEN_XLSTM = (ROOT / "tests" / "fixtures"
+                      / "torch_train_golden_xlstm.npz")
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_TRAIN_LAUNCHES = {**NO_LAUNCHES, "ssd_scan": 24, "ssd_wide_bwd": 12,
+                        "slstm": 24, "slstm_bwd": 12}
+PROFILE_XLSTM_STEP_ARG = "--profile-xlstm-step"
+# qwen2-moe-a2.7b at its published widths (d_model 2 048, 16 heads of 128,
+# 60 routed experts of width 1 408, top-4, 4 shared) with the depth cut:
+# its 24 layers are 14.3 B parameters, more than one card trains; 3
+# layers (2.33 B) fit at 58.7 GiB (NVIDIA H100, chip_smoke.py phase 14)
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_DEPTH = 3
 # the profiled step's device time by kind, by kernel name
-TRAIN_OP_KINDS = (("LM kernels", ("attn_bwd", "ssd_bwd", "flash_", "ssd_")),
+TRAIN_OP_KINDS = (("LM kernels", ("attn_bwd", "ssd_bwd", "flash_", "ssd_",
+                                  "slstm")),
                   ("GEMMs", ("gemm", "sm90_", "cutlass", "xmma", "nvjet")),
                   ("elementwise", ("elementwise", "reduce", "index",
                                    "scatter", "gather")))
@@ -2078,10 +2402,14 @@ def lm_kernels() -> dict:
     """The LM kernels' wrappers by name (their ``launches`` counts)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    from repro_torch.kernels.slstm import slstm_scan, slstm_scan_bwd
+    from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd,
+                                              ssd_wide_bwd)
     return {"flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd,
-            "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd}
+            "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd,
+            "ssd_wide_bwd": ssd_wide_bwd, "slstm": slstm_scan,
+            "slstm_bwd": slstm_scan_bwd}
 
 
 def zero_lm_counts() -> None:
@@ -2110,22 +2438,26 @@ def flash_bwd_bound_ms(q, k, causal) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ssd_bwd_bound_ms(q, k, v, chunk) -> tuple[float, str]:
+def ssd_bwd_bound_ms(q, k, v, chunk, norm: bool = False
+                     ) -> tuple[float, str]:
     """``ssd_scan_bwd``'s least time: q and k read and their gradients
     written once at their own widths (once per batch row when broadcast
     over heads), v and dO read and dv written, a read and da written;
     per (batch, head) the in-chunk causal pairs times 3 N + 2 P
     multiply-adds (q k^T, dO v^T, dq, dk, dv) plus 5 N P a position (the
-    forward and backward states and their terms in dq, dk, dv)."""
+    forward and backward states and their terms in dq, dk, dv).  With
+    ``norm`` (``ssd_wide_bwd``) the normaliser is one more column of v and
+    dO in the products, and its dden is read."""
     B, L, H, N = q.shape
     P = v.shape[-1]
+    Pe = P + (1 if norm else 0)
     c = min(chunk, L)
     es = v.element_size()
     heads_q = 1 if q.stride(2) == 0 else H
     heads_k = 1 if k.stride(2) == 0 else H
-    nbytes = (es * (2 * B * L * (heads_q + heads_k) * N + 3 * B * L * H * P)
-              + 8 * B * L * H)
-    flops = B * H * (L * (c + 1) * (3 * N + 2 * P) + 10 * L * N * P)
+    nbytes = (es * (2 * B * L * (heads_q + heads_k) * N + 3 * B * L * H * P
+                    + (B * L * H if norm else 0)) + 8 * B * L * H)
+    flops = B * H * (L * (c + 1) * (3 * N + 2 * Pe) + 10 * L * N * Pe)
     peak = BF16_FLOP_PER_S if v.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -2205,12 +2537,6 @@ def backward_kernels_phase(g, dev, smi) -> dict:
                                                      flash_attention_bwd,
                                                      lse_buffer)
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_plain
-
-    def repeat_bits(fn, got, what):
-        """A second call's outputs, held to the first's bits."""
-        again = fn()
-        check(all(torch.equal(x, y) for x, y in zip(got, again)),
-              f"{what}: a second call on the same inputs gave other bits")
 
     def equal_share(got, ref) -> float:
         return float(sum((x == y).sum().item() for x, y in zip(got, ref))
@@ -2325,63 +2651,99 @@ def backward_kernels_phase(g, dev, smi) -> dict:
     return out
 
 
-def training_phase(dev, smi) -> dict:
-    """Phase 14: training.  (a) the backward kernels were built in phase 1;
-    (b) each held against its plain version, timed; (c) reduced zamba2 in
-    float32 on the kernels against the reference's three training steps
-    (``tests/fixtures/torch_train_golden.npz``); (d) zamba2-2.7b trained
-    at full width; (e) the train driver's crash and resume."""
-    import shutil
-    import tempfile
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.launch import train
-    from repro_torch.launch.platform import device_fetch
-    from repro_torch.models import ModelDims, get_arch, init_params
-    from repro_torch.models.steps import (batch_to_device, loss_and_grads,
-                                          make_train_step)
+def reduced_training(path, dev, kernels: tuple) -> dict:
+    """A reduced float32 config's three AdamW steps on the card's kernels
+    (forward and backward) against the reference's fixture at ``path``,
+    within the CPU test's limits (``models.testing.TRAIN_TOL``); every
+    kernel named in ``kernels`` must launch."""
     from repro_torch.models.testing import (TRAIN_TOL, _fixture_config,
                                             train_fixture_errors,
                                             train_steps)
-    from repro_torch.optim import AdamWConfig, adamw
-    from repro_torch.optim.tree import tree_flatten_with_paths, tree_leaves
-    g = torch.Generator(device=dev).manual_seed(14)
-    t_phase = time.perf_counter()
-    out = {"kernels": backward_kernels_phase(g, dev, smi)}
-
-    # (c) reduced zamba2, float32, kernels forward and backward
-    with np.load(TRAIN_GOLDEN) as f:
+    with np.load(path) as f:
         fix = {k: f[k] for k in f.files}
     zero_lm_counts()
     run = train_steps(_fixture_config(fix), fix, dev)
     counts = lm_counts()
-    check(all(counts.values()), f"the reduced float32 training launched "
-          f"{counts}: every LM kernel must run")
+    check(all(counts[k] for k in kernels), f"the reduced float32 training "
+          f"of {fix['arch']} launched {counts}: each of {kernels} must run")
     errs = train_fixture_errors(fix, run)
     for key, tol in TRAIN_TOL.items():
-        check(errs[key] <= tol, f"reduced zamba2 float32 training on the "
-              f"card: {key} error {errs[key]} beyond {tol} (the CPU "
+        check(errs[key] <= tol, f"reduced {fix['arch']} float32 training on "
+              f"the card: {key} error {errs[key]} beyond {tol} (the CPU "
               "test's limit)")
-    out["reduced_f32"] = {"errors": errs, "launches": counts,
-                          "loss": run["loss"].tolist(),
-                          "grad_norm": run["grad_norm"].tolist()}
-    print(f"reduced zamba2 float32 (TF32 off), 3 AdamW steps against the "
-          f"JAX reference's: errors {errs} (limits {TRAIN_TOL}); losses "
+    print(f"reduced {fix['arch']} float32 (TF32 off), 3 AdamW steps against "
+          f"the JAX reference's: errors {errs} (limits {TRAIN_TOL}); losses "
           f"{run['loss'].tolist()} (reference {fix['loss'].tolist()}); "
           f"launches {counts}")
+    return {"errors": errs, "launches": counts,
+            "loss": run["loss"].tolist(),
+            "grad_norm": run["grad_norm"].tolist()}
 
-    # (d) zamba2-2.7b at full width, bf16, seeded random weights
-    cfg = get_arch(TRAIN_ARCH)
+
+def step_profile(rows, wall, busy, n_ev) -> dict:
+    """A profiled step's record: idle share, device time by kind, top."""
+    by_kind = collections.Counter()
+    for name, _, sec in rows:
+        by_kind[next((kind for kind, keys in TRAIN_OP_KINDS
+                      if any(key in name for key in keys)), "other")] += sec
+    return {"profiled_step_wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1 - busy / wall, "device_events": n_ev,
+            "device_s_by_kind": dict(by_kind),
+            "top_device_ops": [tuple(r) for r in rows[:8]]}
+
+
+def training_setup(cfg, dev):
+    """``cfg`` at full width with seeded bf16 weights, AdamW (float32
+    moments), its remat-"nothing" step and ``SyntheticLM`` batches (batch
+    4 x 1024)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import ModelDims, init_params
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw
     dims = ModelDims.create(cfg)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, dims, generator=torch.Generator(
         device=dev).manual_seed(0))
-    n_params = sum(p.numel() for p in tree_leaves(params))
     opt = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=100)
     state = adamw.init_state(opt, params)
     step = make_train_step(cfg, dims, opt, remat=True,
                            remat_policy="nothing", device=dev)
-    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    return params, state, step, SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                            seed=0)
+
+
+def profile_xlstm_step() -> None:
+    """The child of ``PROFILE_XLSTM_STEP_ARG``: one full-width xlstm-350m
+    training step after a warm-up, profiled in a process whose profiler
+    has recorded nothing before; the record as JSON."""
+    from repro_torch.models import get_arch
+    dev = torch.device("cuda", 0)
+    params, state, step, data = training_setup(get_arch(XLSTM_ARCH), dev)
+    params, state, _ = step(params, state, data.batch_at(0))
+    wall, busy, rows, n_ev = device_time_of(
+        lambda: step(params, state, data.batch_at(1)), host_ops=False,
+        top=None)
+    print(json.dumps(step_profile(rows, wall, busy, n_ev)))
+
+
+def full_width_training(name, cfg, setup, want, dev, smi,
+                        profile) -> dict:
+    """A model trained at full width on the card: ``setup()`` gives the
+    parameters (seeded, bf16), the AdamW state (float32 moments), the
+    remat-"nothing" step and the batches (batch 4 x 1024).  A warm-up step
+    (its launches == ``want``), every parameter leaf's gradient nonzero and
+    finite after it (``loss_and_grads``), three timed steps (step time,
+    tokens/s, peak memory, 6 N T FLOP a step over that time) and, with
+    ``profile``, one profiled step (``profile(step, params, state,
+    batch)`` gives ``step_profile``'s record)."""
+    from repro_torch.launch.platform import device_fetch
+    from repro_torch.models import ModelDims
+    from repro_torch.models.steps import batch_to_device, loss_and_grads
+    from repro_torch.optim.tree import tree_flatten_with_paths, tree_leaves
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, step, data = setup()
+    dims = ModelDims.create(cfg)
+    n_params = sum(p.numel() for p in tree_leaves(params))
     zero_lm_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2389,22 +2751,22 @@ def training_phase(dev, smi) -> dict:
     warm_loss, warm_norm = device_fetch(m["loss"], m["grad_norm"])
     warm_s = time.perf_counter() - t0
     step_counts = lm_counts()
-    check(step_counts == TRAIN_LAUNCHES, f"one full-width training step "
-          f"launched {step_counts}, want {TRAIN_LAUNCHES}")
+    check(step_counts == want, f"one full-width {name} training step "
+          f"launched {step_counts}, want {want}")
     # the guard against a silent detach: every leaf's gradient after step 1
     zero_lm_counts()
     loss1, grads = loss_and_grads(cfg, dims, params, batch_to_device(
         data.batch_at(1), dev))
-    check(lm_counts() == TRAIN_LAUNCHES, f"loss_and_grads launched "
-          f"{lm_counts()}, want {TRAIN_LAUNCHES}")
+    check(lm_counts() == want, f"{name} loss_and_grads launched "
+          f"{lm_counts()}, want {want}")
     named = list(tree_flatten_with_paths(grads))
     nonzero = torch.stack([torch.count_nonzero(t) for _, t in named])
     finite = torch.stack([torch.isfinite(t).all() for _, t in named])
     nonzero, finite = device_fetch(nonzero, finite)
     dead = [p for (p, _), n in zip(named, nonzero) if n == 0]
-    check(not dead, f"parameter leaves with an all-zero gradient after "
-          f"step 1: {dead}")
-    check(bool(finite.all()), "a gradient leaf is not finite")
+    check(not dead, f"{name}: parameter leaves with an all-zero gradient "
+          f"after step 1: {dead}")
+    check(bool(finite.all()), f"{name}: a gradient leaf is not finite")
     del grads
     zero_lm_counts()
     times, losses, norms = [], [float(warm_loss[()])], [float(warm_norm[()])]
@@ -2417,27 +2779,21 @@ def training_phase(dev, smi) -> dict:
         losses.append(float(loss[()]))
         norms.append(float(norm[()]))
     timed_counts = lm_counts()
-    check(timed_counts == {k: TRAIN_TIMED * v
-                           for k, v in TRAIN_LAUNCHES.items()},
-          f"{TRAIN_TIMED} training steps launched {timed_counts}")
+    check(timed_counts == {k: TRAIN_TIMED * v for k, v in want.items()},
+          f"{name}: {TRAIN_TIMED} training steps launched {timed_counts}")
     check(bool(np.isfinite(losses).all() and np.isfinite(norms).all()),
-          f"full-width losses {losses}, grad norms {norms}")
+          f"{name}: full-width losses {losses}, grad norms {norms}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     step_s = float(np.median(times))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = 6 * n_params * tokens
-    wall, busy, rows, n_ev = device_time_of(
-        lambda: step(params, state, data.batch_at(1 + TRAIN_TIMED)),
-        host_ops=False, top=None)
-    top = rows[:8]
-    by_kind = collections.Counter()
-    for name, _, sec in rows:
-        by_kind[next((kind for kind, keys in TRAIN_OP_KINDS
-                      if any(key in name for key in keys)), "other")] += sec
-    del params, state
+    prof = profile(step, params, state, data.batch_at(1 + TRAIN_TIMED)) \
+        if profile else {}
+    del params, state, step
     torch.cuda.empty_cache()
-    out["zamba2_full_width"] = {
-        "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+    rec = {
+        "params": n_params, "param_count": cfg.param_count(),
+        "n_layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "losses": losses, "grad_norms": norms, "warmup_step_s": warm_s,
         "step_s": times, "median_step_s": step_s,
         "tokens_per_s": tokens / step_s, "peak_gib": peak,
@@ -2445,13 +2801,11 @@ def training_phase(dev, smi) -> dict:
         "model_flops_per_s": flops / step_s,
         "model_flops_share_of_bf16_peak": flops / step_s / BF16_FLOP_PER_S,
         "launches_per_step": step_counts,
-        "launches_timed_steps": timed_counts,
-        "profiled_step_wall_s": wall, "device_busy_s": busy,
-        "device_idle_share": 1 - busy / wall, "device_events": n_ev,
-        "device_s_by_kind": dict(by_kind),
-        "top_device_ops": [(k, c, t) for k, c, t in top]}
-    print(f"zamba2-2.7b training at full width ({n_params} parameters, "
-          f"bf16, batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat 'nothing', AdamW "
+        "launches_timed_steps": timed_counts, "leaves": len(named), **prof}
+    shown = {k: v for k, v in step_counts.items() if v}
+    print(f"{name} training at full width ({n_params} parameters, "
+          f"param_count {cfg.param_count()}, {cfg.n_layers} layers, bf16, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat 'nothing', AdamW "
           f"float32 moments): losses {losses}, grad norms {norms}; every "
           f"one of {len(named)} parameter leaves has a nonzero gradient "
           f"after step 1; warm-up step {warm_s:.3f} s, steps {times} s, "
@@ -2459,12 +2813,66 @@ def training_phase(dev, smi) -> dict:
           f"{peak:.3f} GiB, 6 N T = {flops:.4g} FLOP a step = "
           f"{flops / step_s / 1e12:.2f} TFLOP/s "
           f"({100 * flops / step_s / BF16_FLOP_PER_S:.2f}% of 989); "
-          f"launches per step {step_counts}; profiled step: wall "
-          f"{wall:.4f} s, device busy {busy:.6f} s (idle "
-          f"{100 * (1 - busy / wall):.2f}%) in {n_ev} device events, by "
-          f"kind (s) {dict(by_kind)}, top:"
-          + "; ".join(f" {k} x{c} {t:.6f} s" for k, c, t in top)
-          + f"; on {smi}")
+          f"launches per step {shown}"
+          + (f"; profiled step: wall {prof['profiled_step_wall_s']:.4f} s, "
+             f"device busy {prof['device_busy_s']:.6f} s (idle "
+             f"{100 * prof['device_idle_share']:.2f}%) in "
+             f"{prof['device_events']} device events, by kind (s) "
+             f"{prof['device_s_by_kind']}, top:"
+             + "; ".join(f" {k} x{c} {t:.6f} s"
+                         for k, c, t in prof["top_device_ops"])
+             if prof else "") + f"; on {smi}")
+    return rec
+
+
+def moe_cut_training(dev, smi) -> dict:
+    """qwen2-moe-a2.7b trained at its published widths (attention at head
+    dim 128 on ``flash_attention`` and its backward, the GShard dispatch
+    differentiated by autograd) with the depth cut to ``MOE_DEPTH``."""
+    from repro_torch.models import get_arch
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_DEPTH)
+    want = {**NO_LAUNCHES, "flash_attention": 2 * MOE_DEPTH,
+            "flash_attention_bwd": MOE_DEPTH}
+    return full_width_training(
+        f"{MOE_ARCH} cut to {MOE_DEPTH} layers", cfg,
+        lambda: training_setup(cfg, dev), want, dev, smi, None)
+
+
+def training_phase(dev, smi) -> dict:
+    """Phase 14: training.  (a) the backward kernels were built in phase 1;
+    (b) each held against its plain version, timed; (c) reduced zamba2 in
+    float32 on the kernels against the reference's three training steps
+    (``tests/fixtures/torch_train_golden.npz``); (d) zamba2-2.7b trained
+    at full width; (e) the train driver's crash and resume; (f) reduced
+    xLSTM in float32 on the kernels against its fixture
+    (``tests/fixtures/torch_train_golden_xlstm.npz``); (g) xlstm-350m
+    trained at full width, its step profiled in a new process; (h)
+    qwen2-moe-a2.7b trained at its published widths with the depth cut."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import train
+    from repro_torch.models import get_arch
+    g = torch.Generator(device=dev).manual_seed(14)
+    t_phase = time.perf_counter()
+    out = {"kernels": backward_kernels_phase(g, dev, smi)}
+
+    # (c) reduced zamba2, float32, kernels forward and backward
+    out["reduced_f32"] = reduced_training(
+        TRAIN_GOLDEN, dev, ("flash_attention", "flash_attention_bwd",
+                            "ssd_scan", "ssd_scan_bwd"))
+
+    def setup(cfg):
+        return lambda: training_setup(cfg, dev)
+
+    def in_process(step, params, state, batch):
+        wall, busy, rows, n_ev = device_time_of(
+            lambda: step(params, state, batch), host_ops=False, top=None)
+        return step_profile(rows, wall, busy, n_ev)
+
+    # (d) zamba2-2.7b at full width, bf16, seeded random weights
+    cfg = get_arch(TRAIN_ARCH)
+    out["zamba2_full_width"] = full_width_training(
+        TRAIN_ARCH, cfg, setup(cfg), TRAIN_LAUNCHES, dev, smi, in_process)
 
     # (e) the driver: a crash at step 12, a resume, and a clean run
     scratch = ROOT / "build"
@@ -2488,16 +2896,31 @@ def training_phase(dev, smi) -> dict:
     check(resumed["losses"] == clean["losses"][10:],
           f"resumed losses {resumed['losses']} != the clean run's "
           f"{clean['losses'][10:]}")
-    check(all(driver_counts.values()), f"the driver runs launched "
-          f"{driver_counts}")
+    check(all(driver_counts[k] for k, n in TRAIN_LAUNCHES.items() if n),
+          f"the driver runs launched {driver_counts}")
     out["driver"] = {"resumed_losses": resumed["losses"],
                      "final_loss": clean["final_loss"],
                      "launches": driver_counts}
-    out["phase_s"] = time.perf_counter() - t_phase
     print(f"train driver (reduced zamba2, bf16, on the card): crashed at "
           f"step 12, resumed from step 10; its losses == the clean run's "
           f"steps 10-19 {clean['losses'][10:]}; launches over the three "
-          f"runs {driver_counts}; phase 14 took {out['phase_s']:.1f} s")
+          f"runs {driver_counts}")
+
+    # (f) reduced xLSTM, float32, kernels forward and backward
+    out["xlstm_reduced_f32"] = reduced_training(
+        TRAIN_GOLDEN_XLSTM, dev, ("ssd_scan", "ssd_wide_bwd", "slstm",
+                                  "slstm_bwd"))
+
+    # (g) xlstm-350m at full width, its profiled step in a new process
+    out["xlstm_full_width"] = full_width_training(
+        XLSTM_ARCH, get_arch(XLSTM_ARCH), setup(get_arch(XLSTM_ARCH)),
+        XLSTM_TRAIN_LAUNCHES, dev, smi,
+        lambda *_: device_ms_in_child(PROFILE_XLSTM_STEP_ARG))
+
+    # (h) qwen2-moe-a2.7b at its published widths, the depth cut to fit
+    out["moe_cut_depth"] = moe_cut_training(dev, smi)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 14 took {out['phase_s']:.1f} s")
     return out
 
 
@@ -2509,6 +2932,12 @@ def main() -> None:
         return
     if sys.argv[1:] == [PROFILE_VLM_ARG]:
         profile_vlm_attention()
+        return
+    if sys.argv[1:] == [PROFILE_XLSTM_ARG]:
+        profile_xlstm_kernels()
+        return
+    if sys.argv[1:] == [PROFILE_XLSTM_STEP_ARG]:
+        profile_xlstm_step()
         return
     from repro_torch.kernels import build
     from repro_torch.kernels.scar_eval import (scar_eval,
@@ -2539,7 +2968,8 @@ def main() -> None:
           "numpy lacks bitwise_count (engine.batched_fitness needs >= 2.0)")
     t0 = time.perf_counter()
     build.build(["scar_eval", "scar_search", "flash_attention",
-                 "ssd_scan", "flash_attention_bwd", "ssd_scan_bwd"])
+                 "ssd_scan", "flash_attention_bwd", "ssd_scan_bwd",
+                 "ssd_wide_bwd", "slstm"])
     print(f"kernel build {time.perf_counter() - t0:.3f} s "
           f"(nvcc: {build.build_seconds})")
     for name, log in build.build_log.items():
@@ -2892,6 +3322,10 @@ def main() -> None:
     phase("2e kernels at the new models' shapes: ssd_scan at xlstm-350m's "
           "N = P = 256 with its normaliser, flash_attention at head_dim 128")
     new_shapes = new_shapes_phase(g, dev, smi)
+
+    phase("2f xLSTM's training kernels: ssd_wide_bwd, slstm and slstm_bwd "
+          "against their plain versions, timed at xlstm-350m's shapes")
+    xlstm_kernels = xlstm_kernels_phase(g, dev, smi)
 
     phase("3 paper package: ten scenarios, 6x6 het_cross, auto, cuda, "
           "beam_jax")
@@ -3392,7 +3826,35 @@ def main() -> None:
         ("flash_attention_bwd", "src/repro/models/layers.py:94 (_sdpa, "
          "differentiated by jax.grad; no TPU kernel)"),
         ("ssd_scan_bwd", "src/repro/models/layers.py:314 (gla_chunked, "
-         "differentiated by jax.grad; no TPU kernel)")))]}))
+         "differentiated by jax.grad; no TPU kernel)"))), *({
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+        "replaces": replaces,
+        "launches": trained["xlstm_full_width"]["launches_timed_steps"][
+            name],
+        **xlstm_kernels[name],
+        "launches_by_path": {
+            "train_xlstm_step": trained["xlstm_full_width"][
+                "launches_per_step"][name],
+            f"train_xlstm_{TRAIN_TIMED}_steps": trained[
+                "xlstm_full_width"]["launches_timed_steps"][name],
+            "train_xlstm_reduced_f32": trained["xlstm_reduced_f32"][
+                "launches"][name],
+            **({"serve_xlstm_prefill": served[XLSTM_ARCH][
+                "launches_per_prefill"]["slstm"],
+                "serve_xlstm_decode_step": served[XLSTM_ARCH][
+                    "launches_per_decode_step"]["slstm"],
+                "realize_xlstm-350m": pod[XLSTM_ARCH]["launches"]["slstm"]}
+               if name == "slstm" else {})},
+    } for name, source, replaces in (
+        ("ssd_wide_bwd", "ssd_wide_bwd", "src/repro/models/layers.py:314 "
+         "(gla_chunked, the mLSTM's numerator and normaliser, "
+         "differentiated by jax.grad; no TPU kernel)"),
+        ("slstm", "slstm", "src/repro/models/blocks.py:333 (_slstm_cell "
+         "under lax.scan at :369; no TPU kernel)"),
+        ("slstm_bwd", "slstm", "src/repro/models/blocks.py:333 "
+         "(_slstm_cell's lax.scan, differentiated by jax.grad; no TPU "
+         "kernel)")))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,9 @@
 
 Runs the JAX reference package (``repro``) on the CPU, in float32, on reduced
 ``zamba2-2.7b`` (``repro.models.testing.reduced``: two super-blocks of five
-Mamba-2 blocks and the shared attention block, d_model 64, SSD chunk 16),
-with weights drawn by ``repro_torch.models.testing.numpy_tree`` from a
+Mamba-2 blocks and the shared attention block, d_model 64, SSD chunk 16) or,
+with ``--arch xlstm-350m``, reduced xLSTM (two super-blocks of an mLSTM and
+an sLSTM block, d_model 64, 4 heads of 16, SSD chunk 16), with weights drawn by ``repro_torch.models.testing.numpy_tree`` from a
 numpy seed (``weight_seed``: the initial parameters, rebuilt bit for bit
 by the same function) and the batches of ``SyntheticLM(seed=0)``
 (``repro.data.pipeline``), and records:
@@ -21,9 +22,10 @@ by the same function) and the batches of ``SyntheticLM(seed=0)``
 steps on the card with the CUDA kernels forward and backward, and holds
 them against the file without importing JAX;
 ``tests/test_torch_train_golden.py`` regenerates the arrays and compares,
-and holds the port's CPU run to them.
+and holds the port's CPU run to them.  Each arch has its own file
+(``GOLDEN``).
 
-Usage: python scripts/make_torch_train_golden.py [--out PATH]
+Usage: python scripts/make_torch_train_golden.py [--arch ARCH] [--out PATH]
 """
 from __future__ import annotations
 
@@ -38,8 +40,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import numpy as np
 
-GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                      "tests", "fixtures", "torch_train_golden.npz")
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "tests", "fixtures")
+GOLDEN = {"zamba2-2.7b": os.path.join(FIXTURES, "torch_train_golden.npz"),
+          "xlstm-350m": os.path.join(FIXTURES,
+                                     "torch_train_golden_xlstm.npz")}
 ARCH = "zamba2-2.7b"
 WEIGHT_SEED = 0
 DATA_SEED = 0
@@ -47,11 +52,11 @@ BATCH, SEQ, STEPS = 2, 32, 3
 LR, WARMUP = 1e-2, 1
 
 
-def port_config():
+def port_config(arch: str = ARCH):
     """The port's reduced float32 config (what ``numpy_tree`` draws for)."""
     import repro_torch.models as TM
     from repro_torch.models.testing import reduced
-    return dataclasses.replace(reduced(TM.get_arch(ARCH)), dtype="float32")
+    return dataclasses.replace(reduced(TM.get_arch(arch)), dtype="float32")
 
 
 def flat(tree: dict, prefix: str) -> dict:
@@ -65,7 +70,7 @@ def flat(tree: dict, prefix: str) -> dict:
     return out
 
 
-def reference_arrays() -> dict:
+def reference_arrays(arch: str = ARCH) -> dict:
     """The JAX package's three steps and one loss_fn call."""
     import jax
     import jax.numpy as jnp
@@ -74,9 +79,10 @@ def reference_arrays() -> dict:
     from repro.models.testing import reduced
     from repro.optim import AdamWConfig, adamw
     from repro_torch.models.testing import numpy_tree
-    cfg = dataclasses.replace(reduced(RM.get_arch(ARCH)), dtype="float32")
+    cfg = dataclasses.replace(reduced(RM.get_arch(arch)), dtype="float32")
     dims = RM.ModelDims.create(cfg, tp=1)
-    params = jax.tree.map(jnp.asarray, numpy_tree(port_config(), WEIGHT_SEED))
+    params = jax.tree.map(jnp.asarray, numpy_tree(port_config(arch),
+                                                  WEIGHT_SEED))
     data = SyntheticLM(cfg, BATCH, SEQ, seed=DATA_SEED)
     batches = [data.batch_at(s) for s in range(STEPS)]
     b0 = jax.tree.map(jnp.asarray, batches[0])
@@ -90,7 +96,7 @@ def reference_arrays() -> dict:
         params, state, m = step(params, state, jax.tree.map(jnp.asarray, b))
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
-    out = {"arch": np.array(ARCH), "weight_seed": np.int64(WEIGHT_SEED),
+    out = {"arch": np.array(arch), "weight_seed": np.int64(WEIGHT_SEED),
            "data_seed": np.int64(DATA_SEED), "lr": np.float64(LR),
            "warmup_steps": np.int64(WARMUP),
            "tokens": np.stack([b["tokens"] for b in batches]),
@@ -105,9 +111,12 @@ def reference_arrays() -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=GOLDEN)
+    ap.add_argument("--arch", default=ARCH, choices=sorted(GOLDEN))
+    ap.add_argument("--out", default=None,
+                    help="default: the arch's file in tests/fixtures")
     args = ap.parse_args(argv)
-    arrays = reference_arrays()
+    args.out = args.out or GOLDEN[args.arch]
+    arrays = reference_arrays(args.arch)
     np.savez_compressed(args.out, **arrays)
     print(f"wrote {args.out}: {len(arrays)} arrays, "
           f"{os.path.getsize(args.out)} bytes; loss {arrays['loss']}, "

@@ -5,7 +5,11 @@ use.  Each kernel package exposes the wrapper (launch counter included) and
 the plain version it is held against.  A kernel's output has no
 ``grad_fn``: where autograd would record a call (``needs_grad``), the
 wrappers raise, and the LM kernels' ``grad`` modules hold the
-``autograd.Function``s whose backward is a kernel too.
+``autograd.Function``s whose backward is a kernel too.  Packages:
+``scar_eval`` and ``scar_search`` (the scheduler's), ``flash_attention``
+(with ``flash_attention_bwd``), ``ssd_scan`` (with ``ssd_scan_bwd`` and,
+for wide heads and the mLSTM's normaliser, ``ssd_wide_bwd``) and
+``slstm`` (the sLSTM recurrence, with ``slstm_bwd``).
 """
 import torch
 

@@ -24,14 +24,23 @@ Mamba-2 hands in q and k broadcast over heads (an ``expand``, head stride
 the heads.  Gradients come back in the inputs' type (da in float32).  The
 Function saves q, k, v and a.
 
+Heads wider than 64 (xLSTM's mLSTM, N = P = 256) and the normaliser the
+mLSTM divides by go to the second backward kernel, ``ssd_wide_bwd``
+(``kernels/csrc/ssd_wide_bwd.cu``): the normaliser is the scan of ``v =
+1``, so its gradient is that of one more column of v, all ones, whose
+output gradient is ``dden``; dq, dk and da take it in with the other
+columns and dv of that column is dropped.  ``ssd_scan_bwd`` routes a call
+to it (``ssd_scan_bwd.launches`` counts the narrow kernel,
+``ssd_wide_bwd.launches`` the wide one); ``SSDScanNormFn`` is the
+normalised scan's ``autograd.Function`` (backward ``(do, dden)``).
+
 ``scan`` is what the model layer calls: with a gradient required it takes
-the Function where the backward kernel covers the call (N and P up to 64,
-multiples of 16 in bf16, chunks up to 256 rows, no normaliser); on the
-card anything else raises
-``NotImplementedError`` (xLSTM's wide heads and normaliser: ROADMAP.md,
-queue 1, xLSTM training).  On the CPU the plain forward is ordinary torch
-and autograd differentiates it where the Function does not apply.
-Without a gradient it is ``ssd_scan`` itself, launch for launch.
+``SSDScanFn`` (or ``SSDScanNormFn`` with the normaliser) where the backward
+kernels cover the call (bf16: N, P <= 256, multiples of 16; float32: N, P
+<= 128; chunks up to 256 rows); on the card anything else raises
+``NotImplementedError``.  On the CPU both Functions run the plain
+versions.  Without a gradient it is ``ssd_scan`` itself, launch for
+launch.
 """
 from __future__ import annotations
 
@@ -42,20 +51,33 @@ import torch
 from .. import aligned16, needs_grad
 from ..build import load_library
 from ..scar_eval.kernel import blocked_cumsum
-from .kernel import _DTYPES, _as_4d, _check, ssd_scan, ssd_scan_plain
+from .kernel import _DTYPES, _as_4d, _check, ssd_scan
 
-__all__ = ["SSDScanFn", "scan", "ssd_scan_bwd", "ssd_scan_bwd_plain"]
+__all__ = ["SSDScanFn", "SSDScanNormFn", "scan", "ssd_scan_bwd",
+           "ssd_scan_bwd_plain", "ssd_wide_bwd"]
 
 _ERR_TENSOR_MAP = 10000        # the launcher's code for refused TMA maps
-MAX_NP = 64                    # the backward kernel's N and P
-MAX_CHUNK = 256                # and rows of a chunk
+MAX_NP = 64                    # the narrow backward kernel's N and P
+MAX_CHUNK = 256                # and rows of a chunk (both kernels)
+# the wide kernel's N and P: the forward's range (ssd_wide_tc, ssd_f32)
+MAX_WIDE_NP = {torch.bfloat16: 256, torch.float32: 128}
 
 
 def ssd_scan_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        a: torch.Tensor, do: torch.Tensor, *,
-                       chunk: int = 128):
-    """Plain torch version of the backward kernel, in float32, in either
-    layout: ``(dq, dk, dv, da)``, dq and dk per head."""
+                       chunk: int = 128, dden: torch.Tensor | None = None):
+    """Plain torch version of the backward kernels, in float32, in either
+    layout: ``(dq, dk, dv, da)``, dq and dk per head.  With ``dden`` (the
+    normaliser's output gradient, shaped like ``a``) v gains a column of
+    ones and do the column dden, and dv of that column is dropped."""
+    if dden is not None:
+        ones = torch.ones(v.shape[:-1] + (1,), dtype=torch.float32,
+                          device=v.device)
+        dq, dk, dv, da = ssd_scan_bwd_plain(
+            q.float(), k.float(), torch.cat([v.float(), ones], -1), a,
+            torch.cat([do.float(), dden.float()[..., None]], -1), chunk=chunk)
+        return (dq.to(v.dtype), dk.to(v.dtype), dv[..., :-1].to(v.dtype),
+                da)
     three = v.dim() == 3
     q4, k4, v4, a3, do4 = (_as_4d(t, three) for t in (q, k, v, a, do))
     L = v4.shape[1]
@@ -111,32 +133,47 @@ def ssd_scan_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv, da
 
 
-def ssd_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 a: torch.Tensor, do: torch.Tensor, *, chunk: int = 128):
-    """``(dq, dk, dv, da)`` of ``ssd_scan``'s output: the CUDA kernel on
-    CUDA tensors, the plain version on the CPU.  ``ssd_scan_bwd.launches``
-    counts the kernel's launches (one per call, which runs its kernels in
-    order on the stream: bf16 the states, the fused dq / dk / dv and da;
-    float32 the states, dq, dk / dv and da)."""
+def _check_bwd(q, k, v, a, do, chunk, dden, what):
     _check(q, k, v, a, chunk)
     if do.shape != v.shape:
-        raise ValueError(f"ssd_scan_bwd: do {tuple(do.shape)} must be "
+        raise ValueError(f"{what}: do {tuple(do.shape)} must be "
                          f"shaped like v {tuple(v.shape)}")
+    if dden is not None and dden.shape != a.shape:
+        raise ValueError(f"{what}: dden {tuple(dden.shape)} must be "
+                         f"shaped like a {tuple(a.shape)}")
+
+
+def _strides(t):                     # batch, sequence, head (elements)
+    return (ctypes.c_longlong * 3)(t.stride(0), t.stride(1), t.stride(2))
+
+
+def ssd_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 a: torch.Tensor, do: torch.Tensor, *, chunk: int = 128,
+                 dden: torch.Tensor | None = None):
+    """``(dq, dk, dv, da)`` of ``ssd_scan``'s output (and of its
+    normaliser, given ``dden``): the CUDA kernels on CUDA tensors, the
+    plain version on the CPU.  Calls with the normaliser or N or P over
+    64 go to ``ssd_wide_bwd``; ``ssd_scan_bwd.launches`` counts the narrow
+    kernel's launches (one per call, which runs its kernels in order on
+    the stream: bf16 the states, the fused dq / dk / dv and da; float32
+    the states, dq, dk / dv and da)."""
+    _check_bwd(q, k, v, a, do, chunk, dden, "ssd_scan_bwd")
     dev = v.device
     if dev.type == "cpu":
-        return ssd_scan_bwd_plain(q, k, v, a, do, chunk=chunk)
+        return ssd_scan_bwd_plain(q, k, v, a, do, chunk=chunk, dden=dden)
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan_bwd: no kernel for {dev}")
+    N, P, c = q.shape[-1], v.shape[-1], min(chunk, v.shape[1])
+    beyond = _beyond(N, P, c, v.dtype)
+    if beyond:
+        raise NotImplementedError(beyond)
+    if dden is not None or N > MAX_NP or P > MAX_NP:
+        return _wide_bwd_launch(q, k, v, a, do, c, dden)
     three = v.dim() == 3
     q4, k4, v4, a3, do4 = (
         _as_4d(t if t.stride(-1) == 1 else t.contiguous(), three)
         for t in (q, k, v, a, do))
     B, L, H, N = q4.shape
-    P = v4.shape[-1]
-    c = min(chunk, L)
-    beyond = _beyond(N, P, c, v.dtype)
-    if beyond:
-        raise NotImplementedError(beyond)
     if v.dtype == torch.bfloat16:
         q4, k4, v4, do4 = (aligned16(t) for t in (q4, k4, v4, do4))
     lib = _lib()
@@ -151,10 +188,6 @@ def ssd_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sync = (torch.zeros((lib.ssd_scan_bwd_sync_ints(B, L, H, c),),
                         dtype=torch.int32, device=dev)
             if v.dtype == torch.bfloat16 else None)
-
-    def strides(t):                  # batch, sequence, head (elements)
-        return (ctypes.c_longlong * 3)(t.stride(0), t.stride(1), t.stride(2))
-
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssd_scan_bwd_launch(
@@ -162,8 +195,8 @@ def ssd_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             a3.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             da.data_ptr(), ws.data_ptr(),
             None if sync is None else sync.data_ptr(), _DTYPES[v.dtype],
-            B, L, H, N, P, c, strides(q4), strides(k4), strides(v4),
-            strides(do4), strides(a3), stream)
+            B, L, H, N, P, c, _strides(q4), _strides(k4), _strides(v4),
+            _strides(do4), _strides(a3), stream)
     if err == _ERR_TENSOR_MAP:
         raise RuntimeError("ssd_scan_bwd: cuTensorMapEncodeTiled refused "
                            "the TMA maps of q, k, v or dO")
@@ -178,19 +211,80 @@ def ssd_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 ssd_scan_bwd.launches = 0
 
 
-def _beyond(N: int, P: int, c: int, dtype: torch.dtype,
-            norm: bool = False) -> str:
-    """Why the backward kernel does not take this call ("" if it does)."""
-    if norm or N > MAX_NP or P > MAX_NP or c > MAX_CHUNK:
-        return (f"ssd_scan's backward kernel takes N, P <= {MAX_NP} and "
-                f"chunks <= {MAX_CHUNK} rows without the normaliser (got N "
-                f"{N}, P {P}, chunk {c}{', the normaliser' if norm else ''})"
-                "; xLSTM's wide heads wait for their own backward "
-                "(ROADMAP.md, queue 1: xLSTM training)")
+def ssd_wide_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 a: torch.Tensor, do: torch.Tensor, *, chunk: int = 128,
+                 dden: torch.Tensor | None = None):
+    """``(dq, dk, dv, da)`` from the wide backward kernel
+    (``csrc/ssd_wide_bwd.cu``: N, P up to 256, the normaliser given
+    ``dden``) on CUDA tensors, the plain version on the CPU.
+    ``ssd_wide_bwd.launches`` counts its launches (one per call, which
+    runs three kernels in order on the stream: the states, dq / dk / dv,
+    da)."""
+    _check_bwd(q, k, v, a, do, chunk, dden, "ssd_wide_bwd")
+    dev = v.device
+    if dev.type == "cpu":
+        return ssd_scan_bwd_plain(q, k, v, a, do, chunk=chunk, dden=dden)
+    if dev.type != "cuda":
+        raise ValueError(f"ssd_wide_bwd: no kernel for {dev}")
+    c = min(chunk, v.shape[1])
+    beyond = _beyond(q.shape[-1], v.shape[-1], c, v.dtype)
+    if beyond:
+        raise NotImplementedError(beyond)
+    return _wide_bwd_launch(q, k, v, a, do, c, dden)
+
+
+def _wide_bwd_launch(q, k, v, a, do, c, dden):
+    """``ssd_wide_bwd``'s launch on CUDA tensors that its callers have
+    checked, with the chunk ``c`` already cut to the sequence."""
+    dev = v.device
+    three = v.dim() == 3
+    q4, k4, v4, a3, do4 = (
+        _as_4d(t if t.stride(-1) == 1 else t.contiguous(), three)
+        for t in (q, k, v, a, do))
+    d3 = None if dden is None else _as_4d(dden.to(v.dtype), three)
+    B, L, H, N = q4.shape
+    P = v4.shape[-1]
+    lib = _wide_lib()
+    dq = torch.empty((B, L, H, N), dtype=v.dtype, device=dev)
+    dk = torch.empty((B, L, H, N), dtype=v.dtype, device=dev)
+    dv = torch.empty((B, L, H, P), dtype=v.dtype, device=dev)
+    da = torch.empty((B, L, H), dtype=torch.float32, device=dev)
+    ws = torch.empty((lib.ssd_wide_bwd_ws_floats(B, L, H, N, P, c,
+                                                 int(d3 is not None)),),
+                     dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ssd_wide_bwd_launch(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), do4.data_ptr(),
+            a3.data_ptr(), None if d3 is None else d3.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), da.data_ptr(),
+            ws.data_ptr(), _DTYPES[v.dtype], B, L, H, N, P, c,
+            _strides(q4), _strides(k4), _strides(v4), _strides(do4),
+            _strides(a3), None if d3 is None else _strides(d3), stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_wide_bwd launch failed: CUDA error {err}")
+    ssd_wide_bwd.launches += 1
+    if three:
+        return dq[:, :, 0], dk[:, :, 0], dv[:, :, 0], da[:, :, 0]
+    return dq, dk, dv, da
+
+
+ssd_wide_bwd.launches = 0
+
+
+def _beyond(N: int, P: int, c: int, dtype: torch.dtype) -> str:
+    """Why no backward kernel takes this call ("" if one does)."""
+    top = MAX_WIDE_NP.get(dtype, 0)
+    if N > top or P > top or c > MAX_CHUNK:
+        return (f"ssd_scan's backward kernels take bf16 N, P <= "
+                f"{MAX_WIDE_NP[torch.bfloat16]} and float32 N, P <= "
+                f"{MAX_WIDE_NP[torch.float32]}, chunks <= {MAX_CHUNK} rows, "
+                f"with or without the normaliser (got {dtype} N {N}, P {P}, "
+                f"chunk {c})")
     if dtype == torch.bfloat16 and (N % 16 or P % 16):
-        return (f"ssd_scan's backward kernel takes bf16 N and P multiples of "
-                f"16 only (got N {N}, P {P}); float32 takes any up to "
-                f"{MAX_NP}")
+        return (f"ssd_scan's backward kernels take bf16 N and P multiples "
+                f"of 16 only (got N {N}, P {P}); float32 takes any up to "
+                f"{MAX_WIDE_NP[torch.float32]}")
     return ""
 
 
@@ -212,21 +306,38 @@ class SSDScanFn(torch.autograd.Function):
         return dq, dk, dv, da, None
 
 
+class SSDScanNormFn(torch.autograd.Function):
+    """``ssd_scan(..., norm=True)``, ``(o, den)``, with the backward kernels
+    (``ssd_scan_bwd`` given ``dden``).  Saves q, k, v and a."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, a, chunk: int):
+        out, den = ssd_scan(q, k, v, a, chunk=chunk, norm=True)
+        ctx.save_for_backward(q, k, v, a)
+        ctx.chunk = chunk
+        return out, den
+
+    @staticmethod
+    def backward(ctx, do, dden):
+        q, k, v, a = ctx.saved_tensors
+        dq, dk, dv, da = ssd_scan_bwd(q, k, v, a, do, chunk=ctx.chunk,
+                                      dden=dden)
+        return dq, dk, dv, da, None
+
+
 def scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
          *, chunk: int = 128, norm: bool = False):
     """``ssd_scan`` that autograd can differentiate (see the module note).
     """
     if not needs_grad(q, k, v, a):
         return ssd_scan(q, k, v, a, chunk=chunk, norm=norm)
-    if v.device.type == "cpu":
-        if norm:                  # plain torch ops, differentiated as such
-            return ssd_scan_plain(q, k, v, a, chunk=chunk, norm=True)
-        return SSDScanFn.apply(q, k, v, a, chunk)
-    N, P, c = q.shape[-1], v.shape[-1], min(chunk, v.shape[1])
-    beyond = _beyond(N, P, c, v.dtype, norm)
-    if beyond:
-        raise NotImplementedError(beyond)
-    return SSDScanFn.apply(q, k, v, a, chunk)
+    if v.device.type != "cpu":
+        N, P, c = q.shape[-1], v.shape[-1], min(chunk, v.shape[1])
+        beyond = _beyond(N, P, c, v.dtype)
+        if beyond:
+            raise NotImplementedError(beyond)
+    fn = SSDScanNormFn if norm else SSDScanFn
+    return fn.apply(q, k, v, a, chunk)
 
 
 _LIB = None
@@ -248,3 +359,22 @@ def _lib() -> ctypes.CDLL:
         lib.ssd_scan_bwd_sync_ints.restype = ctypes.c_longlong
         _LIB = lib
     return _LIB
+
+
+_WIDE_LIB = None
+
+
+def _wide_lib() -> ctypes.CDLL:
+    """The wide backward kernel's library, built at first use."""
+    global _WIDE_LIB
+    if _WIDE_LIB is None:
+        lib = load_library("ssd_wide_bwd")
+        p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(
+            ctypes.c_longlong)
+        lib.ssd_wide_bwd_launch.argtypes = (
+            [p] * 11 + [i] * 7 + [s] * 6 + [p])
+        lib.ssd_wide_bwd_launch.restype = i
+        lib.ssd_wide_bwd_ws_floats.argtypes = [i] * 7
+        lib.ssd_wide_bwd_ws_floats.restype = ctypes.c_longlong
+        _WIDE_LIB = lib
+    return _WIDE_LIB

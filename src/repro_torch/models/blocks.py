@@ -10,8 +10,8 @@ whose weights live at the model level), ``MAMBA2`` and xLSTM's ``MLSTM``
 and ``SLSTM``.
 
 The sLSTM recurrence is a ``lax.scan`` over positions in the reference,
-with no kernel; here it is a Python loop over positions on the device, a
-few torch ops a step.
+with no kernel; here it is one ``slstm`` kernel launch over the sequence
+on the card (``kernels/slstm``), its plain loop on the CPU.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.scar_eval.kernel import blocked_cumsum
+from repro_torch.kernels.slstm import scan as slstm_scan
 from .config import ArchConfig, BlockKind, MLPKind
 from .layers import (AttnDims, MoEDims, attn_apply, attn_init, dense,
                      dense_init, gla_chunked, gla_step, mlp_apply, mlp_init,
@@ -307,7 +308,8 @@ def mlstm_apply(p: Params, x: torch.Tensor, ctx: BlockCtx,
     the log-decay, and the output divided by ``max(|q . n|, 1)``, n the
     normaliser state (the scan of ``v = 1``).  Prefill takes numerator and
     normaliser from ``gla_chunked(..., norm=True)`` (one ``ssd_scan``
-    launch on the card); decode steps the state with ``gla_step``."""
+    launch on the card; with a gradient, ``ssd_wide_bwd`` in the
+    backward); decode steps the state with ``gla_step``."""
     cfg = ctx.cfg
     B, L, d = x.shape
     H = cfg.n_heads
@@ -368,28 +370,15 @@ def slstm_init(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
     }
 
 
-def _slstm_cell(carry: tuple, gx: torch.Tensor, r: torch.Tensor
-                ) -> tuple[tuple, torch.Tensor]:
-    """One sLSTM step.  carry: (c, n, h, m), each [B, H, dh]; gx: [B, H,
-    4 dh]; r: [H, dh, 4 dh] in h's type."""
-    c, n, h, m = carry
-    gr = torch.einsum("bhd,hdk->bhk", h, r)
-    zt, it, ft, ot = torch.chunk((gx + gr).float(), 4, dim=-1)
-    log_f = -softplus(-ft)
-    m2 = torch.maximum(log_f + m, it)
-    ip = torch.exp(it - m2)
-    fp = torch.exp(log_f + m - m2)
-    c2 = fp * c + ip * torch.tanh(zt)
-    n2 = fp * n + ip
-    h2 = (torch.sigmoid(ot) * c2 / torch.clamp_min(n2, 1.0)).to(h.dtype)
-    return (c2, n2, h2, m2), h2
-
-
 def slstm_apply(p: Params, x: torch.Tensor, ctx: BlockCtx,
                 cache: Optional[Params]
                 ) -> tuple[torch.Tensor, Optional[Params]]:
     """The scalar-memory cell with exponential gating and its stabiliser
-    m, one position at a time (the reference's ``lax.scan``)."""
+    m over every position (the reference's ``lax.scan`` of
+    ``_slstm_cell``): one ``slstm`` kernel launch on the card for a
+    prefill, a decode step (L = 1, the cache's carry in and out) or a
+    training forward (``kernels.slstm.scan``, with the backward kernel
+    when a gradient is required); the plain loop on the CPU."""
     cfg = ctx.cfg
     B, L, d = x.shape
     H = cfg.n_heads
@@ -403,11 +392,7 @@ def slstm_apply(p: Params, x: torch.Tensor, ctx: BlockCtx,
                             device=x.device)
         carry = (zeros, zeros, zeros.to(x.dtype), zeros)
     r = p["r"].to(carry[2].dtype)
-    ys = []
-    for t in range(L):
-        carry, y = _slstm_cell(carry, gx[:, t], r)
-        ys.append(y)
-    ys = torch.stack(ys, dim=1)
+    ys, carry = slstm_scan(gx, r, carry)
     new_cache = None
     if cache is not None:
         c, n, h, m = carry

@@ -382,9 +382,12 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``norm=True`` returns ``(o, den)``, den the normaliser the reference's
     mLSTM takes from a second call with ``v = ones[..., :1]`` ([B, L, H]):
     on CUDA bf16 the one ``ssd_scan`` launch computes both.  With a
-    gradient required the call goes through ``SSDScanFn`` (the backward
-    kernel), which on the card raises for the normaliser and for heads
-    wider than 64 (``kernels.ssd_scan.grad.scan``).
+    gradient required the call goes through ``SSDScanFn`` (``SSDScanNormFn``
+    with the normaliser, its backward given ``(do, dden)``), whose backward
+    is ``ssd_scan_bwd`` for N, P <= 64 and ``ssd_wide_bwd`` for wider heads
+    or the normaliser; on the card, calls beyond both kernels (bf16 N or P
+    over 256 or off multiples of 16, float32 over 128, chunks over 256)
+    raise (``kernels.ssd_scan.grad.scan``).
     """
     L = q.shape[1]
     c = min(chunk, L)

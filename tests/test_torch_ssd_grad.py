@@ -13,12 +13,17 @@ sequence in a reverse sum, the others sum products in other orders; the
 reads are below 1e-6).
 
 Also: ``SSDScanFn`` / ``scan`` (what the model layer calls with a
-gradient required) give those gradients; on the card (the ``meta`` device
-stands in here) a grad-requiring call the backward kernel does not cover
-(the normaliser, N > 64) raises, as does a direct kernel call; the CPU's
-``norm=True`` takes plain torch.  The ``cuda``-marked cases hold the CUDA
-kernel against the plain version on the card and skip elsewhere
-(``python -m pytest -m cuda tests/test_torch_ssd_grad.py``).
+gradient required) give those gradients; with the normaliser (the
+mLSTM's ``norm=True``) ``SSDScanNormFn`` gives those of ``jax.vjp`` of
+the reference's two ``gla_chunked`` calls (numerator and ``v = 1``), and
+the plain normaliser backward those of autograd through
+``ssd_scan_plain(norm=True)``; on the card (the ``meta`` device stands
+in here) a grad-requiring call beyond both backward kernels (bf16 N or P
+over 256, float32 over 128) raises, as does a direct kernel call.  The
+``cuda``-marked cases hold the CUDA kernels (``ssd_scan_bwd`` and, for
+wide heads and the normaliser, ``ssd_wide_bwd``) against the plain
+version on the card and skip elsewhere (``python -m pytest -m cuda
+tests/test_torch_ssd_grad.py``).
 """
 import numpy as np
 import pytest
@@ -27,7 +32,7 @@ import torch
 from repro_torch.kernels import aligned16
 from repro_torch.kernels.ssd_scan import (SSDScanFn, scan, ssd_scan,
                                           ssd_scan_bwd, ssd_scan_bwd_plain,
-                                          ssd_scan_plain)
+                                          ssd_scan_plain, ssd_wide_bwd)
 from repro_torch.models import layers as TL
 
 REL = 2e-5
@@ -162,31 +167,118 @@ def test_model_layer_takes_the_function_only_with_a_gradient():
 
 
 def test_cpu_normaliser_takes_plain_autograd():
-    """The backward kernel has no normaliser; on the CPU the plain forward
-    is ordinary torch and autograd differentiates it (mLSTM training on
-    the CPU)."""
+    """The normalised call takes ``SSDScanNormFn`` on the CPU too (mLSTM
+    training), with the plain backward: the gradients of autograd through
+    the plain forward."""
     q, k, v, _, a = (torch.tensor(x) for x in inputs(4, 1, 32, 2, 8, 8,
                                                      False, False))
     vg = v.clone().requires_grad_()
     num, den = scan(q, k, vg, a, chunk=16, norm=True)
-    assert type(num.grad_fn).__name__ != "SSDScanFnBackward"
+    assert type(num.grad_fn).__name__ == "SSDScanNormFnBackward"
     (num.sum() + den.sum()).backward()
-    assert torch.isfinite(vg.grad).all() and vg.grad.abs().sum() > 0
+    vp = v.clone().requires_grad_()
+    pn, pd = ssd_scan_plain(q, k, vp, a, chunk=16, norm=True)
+    (pn.sum() + pd.sum()).backward()
+    close(vg.grad, vp.grad)
+    assert vg.grad.abs().sum() > 0
+
+
+# (B, L, H, N, P, chunk, q and k broadcast, slow decay): the normaliser
+NORM_CASES = [(2, 64, 3, 8, 5, 16, False, False),
+              (1, 96, 2, 16, 16, 32, False, True)]
+
+
+def jax_norm_grads(q, k, v, do, dden, a, chunk):
+    """``jax.vjp`` of the reference mLSTM's two ``gla_chunked`` calls: the
+    numerator and the normaliser (``v = 1``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import layers as RL
+
+    def f(q, k, v, a):
+        ones = jnp.ones(v.shape[:-1] + (1,), v.dtype)
+        return (RL.gla_chunked(q, k, v, a, chunk),
+                RL.gla_chunked(q, k, ones, a, chunk)[..., 0])
+
+    @jax.jit
+    def value_and_vjp(q, k, v, a, do, dden):
+        out, vjp = jax.vjp(f, q, k, v, a)
+        return out, vjp((do, dden))
+    return value_and_vjp(q, k, v, a, do, dden)
+
+
+@pytest.mark.parametrize("case", NORM_CASES)
+def test_normalised_function_matches_jax_vjp_of_two_gla_chunked(case):
+    B, L, H, N, P, c, bc, slow = case
+    q, k, v, do, a = inputs(6, B, L, H, N, P, bc, slow)
+    dden = np.random.default_rng(7).standard_normal(a.shape).astype(
+        np.float32)
+    (out, den), want = jax_norm_grads(q, k, v, do, dden, a, c)
+    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v, a)]
+    got_o, got_d = scan(*leaves, chunk=c, norm=True)
+    assert type(got_o.grad_fn).__name__ == "SSDScanNormFnBackward"
+    close(got_o, out)
+    close(got_d, den)
+    torch.autograd.backward((got_o, got_d), (torch.tensor(do),
+                                             torch.tensor(dden)))
+    for t, w in zip(leaves, want):
+        close(t.grad, w)
+
+
+@pytest.mark.parametrize("case", NORM_CASES + [
+    (1, 64, 2, 64, 64, 16, True, False)])
+def test_plain_normaliser_backward_matches_autograd(case):
+    """``ssd_scan_bwd_plain(..., dden=)`` against autograd through the
+    plain forward's two scans (``norm=True``)."""
+    B, L, H, N, P, c, bc, slow = case
+    q, k, v, do, a = (torch.tensor(x) for x in inputs(8, B, L, H, N, P, bc,
+                                                      slow))
+    dden = torch.tensor(np.random.default_rng(9).standard_normal(
+        a.shape).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, a)]
+    qe, ke = expanded(leaves[0], leaves[1], H)
+    o, den = ssd_scan_plain(qe, ke, leaves[2], leaves[3], chunk=c, norm=True)
+    want = torch.autograd.grad((o, den), leaves, (do, dden))
+    qe, ke = expanded(q, k, H)
+    dq, dk, dv, da = ssd_wide_bwd(qe, ke, v, a, do, chunk=c, dden=dden)
+    assert dv.shape == v.shape
+    got = (dq.sum(2, keepdim=True) if bc else dq,
+           dk.sum(2, keepdim=True) if bc else dk, dv, da)
+    for g, w in zip(got, want):
+        close(g, w)
 
 
 def meta(*shape, grad=False):
     return torch.empty(shape, device="meta", requires_grad=grad)
 
 
-@pytest.mark.parametrize("N, P, norm", [(16, 16, True), (128, 16, False),
-                                        (16, 128, False)])
-def test_uncovered_grad_call_off_the_cpu_raises(N, P, norm):
-    """The card's xLSTM shapes (the normaliser, heads wider than 64) have
-    no backward kernel yet: a grad-requiring call raises, citing the
-    ROADMAP item, instead of detaching."""
-    q, k = meta(1, 32, 2, N, grad=True), meta(1, 32, 2, N)
-    with pytest.raises(NotImplementedError, match="xLSTM training"):
-        scan(q, k, meta(1, 32, 2, P), meta(1, 32, 2), chunk=16, norm=norm)
+@pytest.mark.parametrize("N, P, norm, bf16", [(512, 16, False, True),
+                                              (256, 16, True, False),
+                                              (16, 256, False, False)])
+def test_uncovered_grad_call_off_the_cpu_raises(N, P, norm, bf16):
+    """Beyond both backward kernels (bf16 N or P over 256, float32 over
+    128, with or without the normaliser) a grad-requiring call raises,
+    stating the limits, instead of detaching."""
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q = meta(1, 32, 2, N, grad=True).to(dt)
+    k, v = meta(1, 32, 2, N).to(dt), meta(1, 32, 2, P).to(dt)
+    with pytest.raises(NotImplementedError, match="backward kernels take"):
+        scan(q, k, v, meta(1, 32, 2), chunk=16, norm=norm)
+
+
+@pytest.mark.parametrize("N, norm, bf16", [(256, True, True),
+                                           (128, True, False),
+                                           (16, True, False)])
+def test_xlstm_grad_call_off_the_cpu_reaches_the_function(N, norm, bf16):
+    """xlstm-350m's mLSTM (bf16 N = P = 256 with the normaliser) and the
+    reduced float32 one pass the limits and reach ``SSDScanNormFn``,
+    whose forward kernel refuses the ``meta`` device."""
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q = meta(1, 32, 2, N, grad=True).to(dt)
+    k, v = meta(1, 32, 2, N).to(dt), meta(1, 32, 2, N).to(dt)
+    with pytest.raises(ValueError, match="no kernel"):
+        scan(q, k, v, meta(1, 32, 2), chunk=16, norm=norm)
 
 
 @pytest.mark.parametrize("N, P", [(8, 16), (16, 40)])
@@ -267,6 +359,38 @@ def test_cuda_kernel_matches_plain(case, bf16):
                                        atol=2e-2)
         else:
             assert (g - w).abs().max() <= 2e-5 * w.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, norm, bf16", [
+    ((1, 64, 2, 16, 16, 16, False, False), True, False),
+    ((2, 256, 3, 128, 96, 128, False, True), True, False),
+    ((1, 512, 2, 128, 64, 256, False, False), False, True),
+    ((4, 1024, 4, 256, 256, 256, False, False), True, True)])
+def test_cuda_wide_kernel_matches_plain(case, norm, bf16):
+    """``ssd_wide_bwd`` (xLSTM's widths and the normaliser, the last case
+    xlstm-350m's training shape) against the plain version: bf16 dq, dk,
+    dv within 2e-2 and da, and float32, within 2e-5 of the largest entry;
+    a second call gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel runs only on the card)")
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    B, L, H, N, P, c, _, slow = case
+    q, k, v, do, a = inputs(10, B, L, H, N, P, False, slow)
+    tq, tk, tv, tdo = (torch.tensor(x).to("cuda", dtype)
+                       for x in (q, k, v, do))
+    ta = torch.tensor(a).cuda()
+    dden = (torch.tensor(np.random.default_rng(11).standard_normal(
+        a.shape).astype(np.float32)).to("cuda", dtype) if norm else None)
+    got = ssd_wide_bwd(tq, tk, tv, ta, tdo, chunk=c, dden=dden)
+    want = ssd_scan_bwd_plain(tq, tk, tv, ta, tdo, chunk=c, dden=dden)
+    again = ssd_wide_bwd(tq, tk, tv, ta, tdo, chunk=c, dden=dden)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        rel = 2e-2 if bf16 and i < 3 else 2e-5
+        assert (g.float() - w.float()).abs().max() <= rel * w.float().abs(
+        ).max()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.cuda

@@ -1,11 +1,13 @@
 """The committed reference training run: fresh from the reference, met by
 the port.
 
-``tests/fixtures/torch_train_golden.npz`` (written by
-``scripts/make_torch_train_golden.py``: reduced zamba2 in float32, three
-AdamW steps and one ``loss_fn`` gradient) is what ``chip_smoke.py`` phase
-14 holds the port's training on the card against, without importing the
-JAX package.  The arrays are regenerated here from the reference, so the
+``tests/fixtures/torch_train_golden.npz`` and
+``tests/fixtures/torch_train_golden_xlstm.npz`` (written by
+``scripts/make_torch_train_golden.py [--arch xlstm-350m]``: reduced zamba2
+and reduced xLSTM in float32, three AdamW steps and one ``loss_fn``
+gradient each) are what ``chip_smoke.py`` phase 14 holds the port's
+training on the card against, without importing the JAX package.  The
+``xlstm`` tests repeat the three for the second file.  The arrays are regenerated here from the reference, so the
 file cannot go stale (the float32 values to 1e-5 of each array's largest
 entry: XLA's CPU code may differ between hosts in the last bits, and
 Adam's steps carry them), and the port's CPU run must meet them with
@@ -46,14 +48,23 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def committed():
-    with np.load(golden.GOLDEN) as f:
+def _load(arch):
+    with np.load(golden.GOLDEN[arch]) as f:
         return {k: f[k] for k in f.files}
 
 
-def test_fixture_is_current(committed):
-    fresh = golden.reference_arrays()
+@pytest.fixture(scope="module")
+def committed():
+    return _load("zamba2-2.7b")
+
+
+@pytest.fixture(scope="module")
+def committed_xlstm():
+    return _load("xlstm-350m")
+
+
+def test_fixture_is_current(committed, arch="zamba2-2.7b"):
+    fresh = golden.reference_arrays(arch)
     assert sorted(fresh) == sorted(committed)
     for k in EXACT:
         np.testing.assert_array_equal(fresh[k], committed[k])
@@ -63,19 +74,20 @@ def test_fixture_is_current(committed):
                                    atol=1e-5 * scale, err_msg=k)
 
 
-def test_port_cpu_training_meets_fixture(committed):
-    cfg = golden.port_config()
+def test_port_cpu_training_meets_fixture(committed, arch="zamba2-2.7b"):
+    cfg = golden.port_config(arch)
     run = train_steps(cfg, committed, "cpu")
     errs = train_fixture_errors(committed, run)
     for key, tol in TRAIN_TOL.items():
         assert errs[key] <= tol, (key, errs)
 
 
-def test_port_cpu_loss_fn_gradient_meets_fixture(committed):
+def test_port_cpu_loss_fn_gradient_meets_fixture(committed,
+                                                 arch="zamba2-2.7b"):
     """One ``loss_fn`` call at the initial weights on step 0's batch:
     the loss to 1e-6 relative, each gradient leaf to 5e-5 of the largest
     reference gradient (``tests/test_torch_train.py``'s rule)."""
-    cfg = golden.port_config()
+    cfg = golden.port_config(arch)
     params = params_from_numpy(cfg, numpy_tree(cfg, int(
         committed["weight_seed"])), device="cpu", dtype=torch.float32)
     batch = {"tokens": torch.tensor(committed["tokens"][0]).long(),
@@ -89,3 +101,19 @@ def test_port_cpu_loss_fn_gradient_meets_fixture(committed):
     scale = max(np.abs(v).max() for v in want.values())
     for key, w in want.items():
         assert np.abs(got[key] - w).max() <= 5e-5 * scale, key
+
+
+def test_xlstm_fixture_is_current(committed_xlstm):
+    test_fixture_is_current(committed_xlstm, "xlstm-350m")
+
+
+def test_xlstm_port_cpu_training_meets_fixture(committed_xlstm):
+    """Reduced xLSTM: the mLSTM's normalised scan through
+    ``SSDScanNormFn`` and the sLSTM through ``SLSTMScanFn``, both with
+    their plain backward versions on the CPU."""
+    test_port_cpu_training_meets_fixture(committed_xlstm, "xlstm-350m")
+
+
+def test_xlstm_port_cpu_loss_fn_gradient_meets_fixture(committed_xlstm):
+    test_port_cpu_loss_fn_gradient_meets_fixture(committed_xlstm,
+                                                 "xlstm-350m")
