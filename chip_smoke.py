@@ -57,15 +57,16 @@ reference package.  Phases, each printed as it runs:
    32, 128] over 8 kv heads): each output within 2e-2 of the largest plain
    output, times, bounds, SDPA for attention
 2f. xLSTM's training kernels: ``ssd_wide_bwd`` (the SSD scan's backward
-   for N, P up to 256 and the mLSTM's normaliser) against
-   ``ssd_scan_bwd_plain``, and ``slstm`` / ``slstm_bwd`` (the sLSTM
-   recurrence, forward and backward) against ``slstm_scan_plain`` /
-   ``slstm_scan_bwd_plain``, over sweeps (float32 and bf16, a decode step,
-   a batch over two clusters, xlstm-350m's training shapes last), each
-   output within 2e-2 (bf16) or 2e-5 (float32) of its largest plain entry
-   and a second call the same bits; times at xlstm-350m's shapes beside
-   the bound and the plain version, device times profiled in a new
-   process
+   for N, P up to 256 and the mLSTM's normaliser; bf16 on ``wgmma``)
+   against ``ssd_scan_bwd_plain``, and ``slstm`` / ``slstm_bwd`` (the
+   sLSTM recurrence, forward and backward) against ``slstm_scan_plain`` /
+   ``slstm_scan_bwd_plain``, over sweeps (float32 and bf16; N and P of 48
+   and 80; at xlstm-350m's shape slow decay and the mLSTM's strided
+   views; a decode step, a batch over two clusters, xlstm-350m's training
+   shapes last), each output within 2e-2 (bf16) or 2e-5 (float32) of its
+   largest plain entry and a second call the same bits; times at
+   xlstm-350m's shapes beside the bound and the plain version, device
+   times and each launch's part profiled in a new process
 3. paper package: the ten Table II scenarios on the 6x6 ``het_cross`` MCM,
    under ``eval_backend="auto"`` (as the golden file was made), with every
    batch on the kernel (``eval_backend="cuda"``), and with
@@ -1490,15 +1491,21 @@ def new_shapes_phase(g, dev, smi) -> dict:
 
 
 # xLSTM's kernels (phase 2f): ssd_wide_bwd cases (B, L, H, N, P, chunk,
-# normaliser, bf16?) and slstm cases (B, L, H, dh, bf16?); the last of each
-# is xlstm-350m's training shape (its mLSTM's scan with the normaliser; its
+# normaliser, bf16?, inputs: "" the mLSTM's, "slow" its slow decay a =
+# -0.01 U[0, 1), "views" q, k and v as column slices of one projection and
+# dO head-major) and slstm cases (B, L, H, dh, bf16?); the last of each is
+# xlstm-350m's training shape (its mLSTM's scan with the normaliser; its
 # sLSTM over batch 4 x 1024), an L = 1 case is a decode step, 9 batch rows
-# take two clusters a head
-WIDE_BWD_CASES = ((1, 64, 2, 16, 16, 16, True, False),
-                  (2, 256, 3, 128, 96, 128, True, False),
-                  (1, 512, 2, 128, 64, 256, False, True),
-                  (2, 256, 3, 256, 256, 256, True, True),
-                  (4, 1024, 4, 256, 256, 256, True, True))
+# take two clusters a head; N and P of 48 and 80 are multiples of 16 but
+# not of the bf16 kernels' 64-column boxes
+WIDE_BWD_CASES = ((1, 64, 2, 16, 16, 16, True, False, ""),
+                  (2, 256, 3, 128, 96, 128, True, False, ""),
+                  (1, 512, 2, 128, 64, 256, False, True, ""),
+                  (2, 256, 3, 256, 256, 256, True, True, ""),
+                  (2, 256, 3, 48, 80, 128, True, True, ""),
+                  (4, 1024, 4, 256, 256, 256, True, True, "slow"),
+                  (4, 1024, 4, 256, 256, 256, True, True, "views"),
+                  (4, 1024, 4, 256, 256, 256, True, True, ""))
 SLSTM_CASES = ((2, 16, 4, 16, False), (3, 64, 2, 256, False),
                (9, 32, 2, 64, True), (4, 1, 4, 256, True),
                (4, 1024, 4, 256, True))
@@ -1517,15 +1524,24 @@ def of_largest(got, ref, dtype, what: str) -> float:
                for i, (o, r) in enumerate(zip(got, ref)))
 
 
-def wide_bwd_inputs(g, dev, B, L, H, N, P, norm, dt):
-    """The mLSTM's scan inputs (q / sqrt(P), log sigmoid forget gates) and
-    random output gradients."""
+def wide_bwd_inputs(g, dev, B, L, H, N, P, norm, dt, kind=""):
+    """The mLSTM's scan inputs (q / sqrt(P), log sigmoid forget gates, or
+    with ``kind`` "slow" a = -0.01 U[0, 1)) and random output gradients;
+    with "views" q, k and v are column slices of one [B, L, H, 2 N + P]
+    projection and dO is head-major ([B, H, L, P] transposed)."""
     q = randn((B, L, H, N), g, dt, dev) / math.sqrt(P)
     k, v = randn((B, L, H, N), g, dt, dev), randn((B, L, H, P), g, dt, dev)
-    a = -torch.nn.functional.softplus(-randn((B, L, H), g, torch.float32,
-                                             dev))
+    if kind == "slow":
+        a = -0.01 * torch.rand((B, L, H), generator=g, device=dev)
+    else:
+        a = -torch.nn.functional.softplus(-randn((B, L, H), g,
+                                                 torch.float32, dev))
     do = randn((B, L, H, P), g, dt, dev)
     dden = randn((B, L, H), g, dt, dev) if norm else None
+    if kind == "views":
+        proj = torch.cat([q, k, v], dim=-1)
+        q, k, v = proj[..., :N], proj[..., N:2 * N], proj[..., 2 * N:]
+        do = do.transpose(1, 2).contiguous().transpose(1, 2)
     return q, k, v, a, do, dden
 
 
@@ -1577,7 +1593,7 @@ def profile_xlstm_kernels() -> None:
     from repro_torch.kernels.ssd_scan import ssd_wide_bwd
     dev, bf = torch.device("cuda", 0), torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
-    B, L, H, N, P, c, norm, _ = WIDE_BWD_CASES[-1]
+    B, L, H, N, P, c, norm, _, _ = WIDE_BWD_CASES[-1]
     q, k, v, a, do, dden = wide_bwd_inputs(g, dev, B, L, H, N, P, norm, bf)
     out = {"ssd_wide_bwd": profiled_device_ms(
         lambda: ssd_wide_bwd(q, k, v, a, do, chunk=c, dden=dden), reps=10)}
@@ -1605,11 +1621,12 @@ def xlstm_kernels_phase(g, dev, smi) -> dict:
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd_plain, ssd_wide_bwd
 
     rec = {}
-    for B, L, H, N, P, c, norm, bf in WIDE_BWD_CASES:
+    for B, L, H, N, P, c, norm, bf, kind in WIDE_BWD_CASES:
         dt = torch.bfloat16 if bf else torch.float32
         q, k, v, a, do, dden = wide_bwd_inputs(g, dev, B, L, H, N, P, norm,
-                                               dt)
-        what = f"ssd_wide_bwd {(B, L, H, N, P, c)} norm={norm} {dt}"
+                                               dt, kind)
+        what = (f"ssd_wide_bwd {(B, L, H, N, P, c)} norm={norm} {dt}"
+                + (f" ({kind})" if kind else ""))
 
         def call():
             return ssd_wide_bwd(q, k, v, a, do, chunk=c, dden=dden)
@@ -3832,6 +3849,7 @@ def main() -> None:
         "replaces": replaces,
         "launches": trained["xlstm_full_width"]["launches_timed_steps"][
             name],
+        "design": design,
         **xlstm_kernels[name],
         "launches_by_path": {
             "train_xlstm_step": trained["xlstm_full_width"][
@@ -3846,15 +3864,21 @@ def main() -> None:
                     "launches_per_decode_step"]["slstm"],
                 "realize_xlstm-350m": pod[XLSTM_ARCH]["launches"]["slstm"]}
                if name == "slstm" else {})},
-    } for name, source, replaces in (
+    } for name, source, replaces, design in (
         ("ssd_wide_bwd", "ssd_wide_bwd", "src/repro/models/layers.py:314 "
          "(gla_chunked, the mLSTM's numerator and normaliser, "
-         "differentiated by jax.grad; no TPU kernel)"),
+         "differentiated by jax.grad; no TPU kernel)",
+         "redesigned for Hopper: bf16 on wgmma with TMA rings (states "
+         "chained by release flags, dq / dk / dv items, the normaliser a "
+         "rank-1 term), float32 on the CUDA cores"),
         ("slstm", "slstm", "src/repro/models/blocks.py:333 (_slstm_cell "
-         "under lax.scan at :369; no TPU kernel)"),
+         "under lax.scan at :369; no TPU kernel)",
+         "a cluster of 8 CTAs a head, r resident, h exchanged through "
+         "distributed shared memory"),
         ("slstm_bwd", "slstm", "src/repro/models/blocks.py:333 "
          "(_slstm_cell's lax.scan, differentiated by jax.grad; no TPU "
-         "kernel)")))]}))
+         "kernel)", "the reverse recurrence on the same clusters, dr one "
+         "batched product")))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,16 +1,17 @@
 """Where the backward kernels' time goes: each bf16 kernel timed whole and
 with parts of its work taken out.
 
-Builds ``flash_attention_bwd.cu`` and ``ssd_scan_bwd.cu`` from
-``src/repro_torch/kernels/csrc`` as they are and in variants made by
-editing the source text (each edit must find its anchor, else the script
-fails), loads each library in turn behind the wrappers, and prints, at
-zamba2-2.7b's training shapes (attention q, k, v [4, 1024, 32, 80], causal;
-the SSD scan q, k [4, 1024, 80, 64] broadcast over heads, v [4, 1024, 80,
-64], chunk 256; bf16, seeded), each variant's device time per kernel
-(``torch.profiler``, 10 calls) and per call (CUDA events, 20 calls), twice
-in turns.  The variants compute wrong gradients by design; only their
-times mean anything:
+Builds ``flash_attention_bwd.cu``, ``ssd_scan_bwd.cu`` and
+``ssd_wide_bwd.cu`` from ``src/repro_torch/kernels/csrc`` as they are and
+in variants made by editing the source text (each edit must find its
+anchor, else the script fails), loads each library in turn behind the
+wrappers, and prints, at zamba2-2.7b's training shapes (attention q, k, v
+[4, 1024, 32, 80], causal; the SSD scan q, k [4, 1024, 80, 64] broadcast
+over heads, v [4, 1024, 80, 64], chunk 256) and xlstm-350m's (the wide
+scan q, k, v, dO [4, 1024, 4, 256], chunk 256, the normaliser), bf16,
+seeded, each variant's device time per kernel (``torch.profiler``, 10
+calls) and per call (CUDA events, 20 calls), twice in turns.  The variants
+compute wrong gradients by design; only their times mean anything:
 
 * attention ``no_products``: the wgmma loops of the score and gradient
   products emptied; ``no_elementwise``: the per-element work on the score
@@ -18,8 +19,15 @@ times mean anything:
 * SSD ``no_gate``: the gate's ex2 replaced by 1; ``no_gradient_products``:
   the register-A wgmmas (dq, dk, dv) emptied; ``no_products``: every wgmma
   of the fused kernel emptied.
+* wide SSD ``no_products``: every wgmma of the states and grads kernels
+  emptied; ``no_handoff``: the states chain's wait for the step before
+  and its read skipped (each tile publishes its own chunk's state);
+  ``hi_only``: the lo term of every split operand (gated scores, S_in,
+  dS_out, the decayed k and q) left out, one product where there were
+  two; ``no_gate``: the gate's ex2 replaced by 1.
 
 Needs a CUDA device and nvcc.  Usage: python scripts/bwd_kernel_ablation.py
+[flash] [ssd] [wide] (the kernels to take apart; all three by default)
 """
 from __future__ import annotations
 
@@ -66,6 +74,23 @@ S_RN = "  for (int kk = 0; kk < 4; ++kk)\n    Wgmma<64>::rs("
 SSD = {"whole": [], "no_gate": [(S_GATE, "      const float gv = 1.f;")],
        "no_gradient_products": [(S_RN, S_RN.replace("kk < 4", "kk < 0"))],
        "no_products": [(S_MM, S_MM.replace("kk < 4", "kk < 0"))]}
+
+W_NT = "  for (int kk = 0; kk < steps; ++kk)\n    Wgmma<64>::ss<0>"
+W_NN = "  for (int kk = 0; kk < 4; ++kk)\n    Wgmma<64>::ss<1>"
+W_RN = "  for (int kk = 0; kk < 4; ++kk)\n    Wgmma<64>::rs("
+W_LO = ["    mm_rn(own, lo, y_addr, 0);\n",
+        "          mm_nt(acc[q], my_do, st + nbP * kBoxBytes, kP, true);\n",
+        "          mm_rn(acc[q], gl, st, q);\n",
+        "        mm_nt(acc[q], v_j, st + nbP * kBoxBytes, kP, true);\n",
+        "          mm_nn(acc[x], k_j, q, st + nbP * kBoxBytes, x);\n",
+        "      mm_rn(acc[q], gl, y, q);\n"]
+WIDE = {"whole": [],
+        "no_products": [(W_NT, W_NT.replace("kk < steps", "kk < 0")),
+                        (W_NN, W_NN.replace("kk < 4", "kk < 0")),
+                        (W_RN, W_RN.replace("kk < 4", "kk < 0"))],
+        "no_handoff": [("  if (step > 0) {", "  if (false) {")],
+        "hi_only": [(lo, "") for lo in W_LO],
+        "no_gate": [(S_GATE, "      const float gv = 1.f;")]}
 
 
 def variant_sources(name: str, variants: dict) -> dict:
@@ -129,14 +154,16 @@ def device_ms(fn, n: int = 10) -> dict:
             if getattr(ev, "device_time_total", 0) > 0}
 
 
-def use(module, base, path: str) -> None:
-    """Route ``module``'s wrapper to the library at ``path``."""
+def use(module, base, path: str, attr: str) -> None:
+    """Route ``module``'s wrapper (its library global ``attr``) to the
+    library at ``path``."""
     lib = ctypes.CDLL(os.path.abspath(path))
     for fn in dir(base):
-        if fn.startswith(("flash_attention_bwd_", "ssd_scan_bwd_")):
+        if fn.startswith(("flash_attention_bwd_", "ssd_scan_bwd_",
+                          "ssd_wide_bwd_")):
             f, b = getattr(lib, fn), getattr(base, fn)
             f.argtypes, f.restype = b.argtypes, b.restype
-    module._LIB = lib
+    setattr(module, attr, lib)
 
 
 def main() -> None:
@@ -145,12 +172,15 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    jobs = {f"flash_{v}": s for v, s in
-            variant_sources("flash_attention_bwd", FLASH).items()}
-    jobs.update({f"ssd_{v}": s for v, s in
-                 variant_sources("ssd_scan_bwd", SSD).items()})
+    kinds = sys.argv[1:] or ["flash", "ssd", "wide"]
+    sources = {"flash": ("flash_attention_bwd", FLASH),
+               "ssd": ("ssd_scan_bwd", SSD), "wide": ("ssd_wide_bwd", WIDE)}
+    jobs = {}
+    for kind in kinds:
+        name, variants = sources[kind]
+        jobs.update({f"{kind}_{v}": s for v, s in
+                     variant_sources(name, variants).items()})
     libs = build_all(jobs)
-    base_f, base_s = FG._lib(), SG._lib()
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def rn(*shape, dt=torch.bfloat16):
@@ -162,15 +192,20 @@ def main() -> None:
     sk = rn(4, 1024, 1, 64).expand(4, 1024, 80, 64)
     sv, sdo = rn(4, 1024, 80, 64), rn(4, 1024, 80, 64)
     sa = -torch.nn.functional.softplus(rn(4, 1024, 80, dt=torch.float32))
-    calls = {"flash": (FG, base_f, lambda: FG.flash_attention_bwd(
+    wq, wk, wv, wdo = (rn(4, 1024, 4, 256) for _ in range(4))
+    wa = -torch.nn.functional.softplus(rn(4, 1024, 4, dt=torch.float32))
+    wdd = rn(4, 1024, 4)
+    calls = {"flash": (FG, FG._lib(), "_LIB", lambda: FG.flash_attention_bwd(
                  q, k, v, o, do, lse=lse)),
-             "ssd": (SG, base_s, lambda: SG.ssd_scan_bwd(
-                 sq, sk, sv, sa, sdo, chunk=256))}
+             "ssd": (SG, SG._lib(), "_LIB", lambda: SG.ssd_scan_bwd(
+                 sq, sk, sv, sa, sdo, chunk=256)),
+             "wide": (SG, SG._wide_lib(), "_WIDE_LIB", lambda: SG.ssd_wide_bwd(
+                 wq, wk, wv, wa, wdo, chunk=256, dden=wdd))}
     result = {"device": smi, "runs": []}
     for turn in range(2):
         for key in (list(libs) if turn == 0 else list(libs)[::-1]):
-            module, base, fn = calls[key.split("_")[0]]
-            use(module, base, libs[key])
+            module, base, attr, fn = calls[key.split("_")[0]]
+            use(module, base, libs[key], attr)
             result["runs"].append({"variant": key, "ms": events_ms(fn),
                                    "device_ms": device_ms(fn)})
             print(json.dumps(result["runs"][-1]), flush=True)

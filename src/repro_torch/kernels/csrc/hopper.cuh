@@ -2,9 +2,10 @@
 // share: shared-memory mbarriers, TMA loads (tiled and bulk), wgmma
 // descriptors and instructions, bf16 splitting, and the host-side tensor
 // maps (cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint so
-// no library links libcuda).  Included by flash_attention.cu,
-// flash_attention_bwd.cu and ssd_scan_bwd.cu; everything is in an
-// anonymous namespace, one copy per library.
+// no library links libcuda), and the SSD backward kernels' prefix sums,
+// release flags and transposed ldmatrix.  Included by flash_attention.cu,
+// flash_attention_bwd.cu, ssd_scan_bwd.cu and ssd_wide_bwd.cu; everything
+// is in an anonymous namespace, one copy per library.
 //
 // Tiles are 128B-swizzled boxes of 64 bf16 columns (128 B rows, 1024 B
 // swizzle atoms, so a tile's base is 1024 B aligned); a head dim over 64 is
@@ -95,6 +96,59 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
 // 0 is __syncthreads).
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// Inclusive prefix sums of x[0], x[stride], ... (n <= 256 values) into
+// out, by `count` threads under the named barrier `bar`: sequential within
+// blocks of 16, each block offset by the prefix of the earlier blocks'
+// totals (the plain versions' `blocked_cumsum` association; tot and carry
+// hold n / 16 values).  Ends with a barrier.
+constexpr int kCumBlock = 16;
+__device__ void chunk_cumsum(const float* x, long long stride, int n,
+                             float* out, float* tot, float* carry, int tid,
+                             int count, int bar) {
+  const int nb = (n + kCumBlock - 1) / kCumBlock;
+  for (int i = tid; i < n; i += count) out[i] = x[i * stride];
+  named_sync(bar, count);
+  for (int blk = tid; blk < nb; blk += count) {
+    float s = 0.f;
+    for (int i = blk * kCumBlock; i < min(n, (blk + 1) * kCumBlock); ++i) {
+      s += out[i];
+      out[i] = s;
+    }
+    tot[blk] = s;
+  }
+  named_sync(bar, count);
+  if (tid == 0 && nb > 1) {
+    float s = 0.f;
+    for (int b = 0; b < nb; ++b) carry[b] = s += tot[b];
+  }
+  named_sync(bar, count);
+  for (int i = kCumBlock + tid; i < n; i += count)
+    out[i] += carry[i / kCumBlock - 1];
+  named_sync(bar, count);
+}
+
+// A flag in global memory that hands a state from one CTA to another.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// Four transposed 8x8 b16 matrices from shared memory (lane l: the row
+// address of matrix l / 8, row l % 8).
+__device__ __forceinline__ void ldsm4_t(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
 // wgmma shared-memory descriptor, 128B swizzle: start address, leading

@@ -596,55 +596,6 @@ struct TcArgs {
                                      // broadcast (head, batch coordinate 0)
 };
 
-// Inclusive prefix sums of x[0], x[stride], ... (n <= kMaxChunk values)
-// into out, by `count` threads under the named barrier `bar`, in
-// blocked_cumsum's association.  Ends with a barrier.
-__device__ void chunk_cumsum(const float* x, long long stride, int n,
-                             float* out, float* tot, float* carry, int tid,
-                             int count, int bar) {
-  const int nb = (n + kScanBlock - 1) / kScanBlock;
-  for (int i = tid; i < n; i += count) out[i] = x[i * stride];
-  named_sync(bar, count);
-  for (int blk = tid; blk < nb; blk += count) {
-    float s = 0.f;
-    for (int i = blk * kScanBlock; i < min(n, (blk + 1) * kScanBlock); ++i) {
-      s += out[i];
-      out[i] = s;
-    }
-    tot[blk] = s;
-  }
-  named_sync(bar, count);
-  if (tid == 0 && nb > 1) {
-    float s = 0.f;
-    for (int b = 0; b < nb; ++b) carry[b] = s += tot[b];
-  }
-  named_sync(bar, count);
-  for (int i = kScanBlock + tid; i < n; i += count)
-    out[i] += carry[i / kScanBlock - 1];
-  named_sync(bar, count);
-}
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;\n"
-               :: "l"(p), "r"(v) : "memory");
-}
-
-// Four transposed 8x8 b16 matrices from shared memory (lane l: the row
-// address of matrix l / 8, row l % 8).
-__device__ __forceinline__ void ldsm4_t(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
 // acc[32] (+)= X Y^T, 64 x 64 over 64 columns: X and Y 64-row tiles, both
 // read K-major; `add` = false overwrites acc.
 __device__ __forceinline__ void mm_nt(float* acc, uint32_t x, uint32_t y,

@@ -29,7 +29,10 @@ mLSTM divides by go to the second backward kernel, ``ssd_wide_bwd``
 (``kernels/csrc/ssd_wide_bwd.cu``): the normaliser is the scan of ``v =
 1``, so its gradient is that of one more column of v, all ones, whose
 output gradient is ``dden``; dq, dk and da take it in with the other
-columns and dv of that column is dropped.  ``ssd_scan_bwd`` routes a call
+columns and dv of that column is dropped.  The bf16 kernels take it as a
+rank-1 term instead: dden added to the score tile, and the N-vectors n
+(the scan of the decayed k) and dn (of the decayed q times dden) carried
+beside the states.  ``ssd_scan_bwd`` routes a call
 to it (``ssd_scan_bwd.launches`` counts the narrow kernel,
 ``ssd_wide_bwd.launches`` the wide one); ``SSDScanNormFn`` is the
 normalised scan's ``autograd.Function`` (backward ``(do, dden)``).
@@ -219,7 +222,7 @@ def ssd_wide_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``dden``) on CUDA tensors, the plain version on the CPU.
     ``ssd_wide_bwd.launches`` counts its launches (one per call, which
     runs three kernels in order on the stream: the states, dq / dk / dv,
-    da)."""
+    da; bf16 on the tensor cores, float32 on the CUDA cores)."""
     _check_bwd(q, k, v, a, do, chunk, dden, "ssd_wide_bwd")
     dev = v.device
     if dev.type == "cpu":
@@ -235,7 +238,8 @@ def ssd_wide_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _wide_bwd_launch(q, k, v, a, do, c, dden):
     """``ssd_wide_bwd``'s launch on CUDA tensors that its callers have
-    checked, with the chunk ``c`` already cut to the sequence."""
+    checked (``_beyond``), with the chunk ``c`` already cut to the
+    sequence; bf16 inputs TMA cannot read are copied by ``aligned16``."""
     dev = v.device
     three = v.dim() == 3
     q4, k4, v4, a3, do4 = (
@@ -244,23 +248,33 @@ def _wide_bwd_launch(q, k, v, a, do, c, dden):
     d3 = None if dden is None else _as_4d(dden.to(v.dtype), three)
     B, L, H, N = q4.shape
     P = v4.shape[-1]
+    bf16 = v.dtype == torch.bfloat16
+    if bf16:                 # the tensor-core kernels read by TMA
+        q4, k4, v4, do4 = (aligned16(t) for t in (q4, k4, v4, do4))
     lib = _wide_lib()
     dq = torch.empty((B, L, H, N), dtype=v.dtype, device=dev)
     dk = torch.empty((B, L, H, N), dtype=v.dtype, device=dev)
     dv = torch.empty((B, L, H, P), dtype=v.dtype, device=dev)
     da = torch.empty((B, L, H), dtype=torch.float32, device=dev)
-    ws = torch.empty((lib.ssd_wide_bwd_ws_floats(B, L, H, N, P, c,
-                                                 int(d3 is not None)),),
-                     dtype=torch.float32, device=dev)
+    ws = torch.empty((lib.ssd_wide_bwd_ws_floats(
+        B, L, H, N, P, c, int(d3 is not None), _DTYPES[v.dtype]),),
+        dtype=torch.float32, device=dev)
+    # bf16: the states launch's ticket counter and ready flags (zeroed)
+    sync = (torch.zeros((lib.ssd_wide_bwd_sync_ints(B, L, H, N, P, c),),
+                        dtype=torch.int32, device=dev) if bf16 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssd_wide_bwd_launch(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), do4.data_ptr(),
             a3.data_ptr(), None if d3 is None else d3.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), da.data_ptr(),
-            ws.data_ptr(), _DTYPES[v.dtype], B, L, H, N, P, c,
+            ws.data_ptr(), None if sync is None else sync.data_ptr(),
+            _DTYPES[v.dtype], B, L, H, N, P, c,
             _strides(q4), _strides(k4), _strides(v4), _strides(do4),
             _strides(a3), None if d3 is None else _strides(d3), stream)
+    if err == _ERR_TENSOR_MAP:
+        raise RuntimeError("ssd_wide_bwd: cuTensorMapEncodeTiled refused "
+                           "the TMA maps of q, k, v or dO")
     if err != 0:
         raise RuntimeError(f"ssd_wide_bwd launch failed: CUDA error {err}")
     ssd_wide_bwd.launches += 1
@@ -372,9 +386,11 @@ def _wide_lib() -> ctypes.CDLL:
         p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(
             ctypes.c_longlong)
         lib.ssd_wide_bwd_launch.argtypes = (
-            [p] * 11 + [i] * 7 + [s] * 6 + [p])
+            [p] * 12 + [i] * 7 + [s] * 6 + [p])
         lib.ssd_wide_bwd_launch.restype = i
-        lib.ssd_wide_bwd_ws_floats.argtypes = [i] * 7
+        lib.ssd_wide_bwd_ws_floats.argtypes = [i] * 8
         lib.ssd_wide_bwd_ws_floats.restype = ctypes.c_longlong
+        lib.ssd_wide_bwd_sync_ints.argtypes = [i] * 6
+        lib.ssd_wide_bwd_sync_ints.restype = ctypes.c_longlong
         _WIDE_LIB = lib
     return _WIDE_LIB

@@ -42,6 +42,7 @@ def test_library_path_ignores_headers_it_does_not_include(tmp_path):
 
 
 def test_port_sources_include_the_shared_hopper_header():
-    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan_bwd"):
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan_bwd",
+                 "ssd_wide_bwd"):
         assert "hopper.cuh" in [f.name for f in
                                 build._sources(build.CSRC / f"{name}.cu")]

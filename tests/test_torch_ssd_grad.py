@@ -17,7 +17,11 @@ gradient required) give those gradients; with the normaliser (the
 mLSTM's ``norm=True``) ``SSDScanNormFn`` gives those of ``jax.vjp`` of
 the reference's two ``gla_chunked`` calls (numerator and ``v = 1``), and
 the plain normaliser backward those of autograd through
-``ssd_scan_plain(norm=True)``; on the card (the ``meta`` device stands
+``ssd_scan_plain(norm=True)``; the bf16 wide kernel's form of the
+normaliser (a rank-1 term: dden added to the score tile, the N-vectors n
+and dn carried beside the states), written as a small plain function,
+gives the extra column's gradients; every bf16 shape the backward
+kernels admit reaches the wide kernels as they take it; on the card (the ``meta`` device stands
 in here) a grad-requiring call beyond both backward kernels (bf16 N or P
 over 256, float32 over 128) raises, as does a direct kernel call.  The
 ``cuda``-marked cases hold the CUDA kernels (``ssd_scan_bwd`` and, for
@@ -30,9 +34,11 @@ import pytest
 import torch
 
 from repro_torch.kernels import aligned16
+from repro_torch.kernels.scar_eval.kernel import blocked_cumsum
 from repro_torch.kernels.ssd_scan import (SSDScanFn, scan, ssd_scan,
                                           ssd_scan_bwd, ssd_scan_bwd_plain,
                                           ssd_scan_plain, ssd_wide_bwd)
+from repro_torch.kernels.ssd_scan import grad as G
 from repro_torch.models import layers as TL
 
 REL = 2e-5
@@ -249,6 +255,106 @@ def test_plain_normaliser_backward_matches_autograd(case):
         close(g, w)
 
 
+def rank1_normaliser(q, k, a, dden, chunk):
+    """The normaliser's share of ``(dq, dk, da)`` as the bf16 wide kernel
+    forms it, in float32 ([B, L, H, .] inputs): per chunk, with the gate
+    ``exp(cum_t - cum_s)`` on s <= t, the score tile gains dden_t (so
+    dden_t gated times k_s for dq, times q_t for dk); n_in, the chain of
+    the decayed k, adds ``exp(cum_t) dden_t n_in`` to dq_t; dn_out, the
+    reverse chain of ``q_t exp(cum_t) dden_t``, adds ``exp(total - cum_s)
+    dn_out`` to dk_s; da the reverse sum of their row dots."""
+    qf, kf = (t.float().transpose(1, 2) for t in (q, k))
+    af, df = a.float().transpose(1, 2), dden.float().transpose(1, 2)
+    B, H, L, N = qf.shape
+    c = min(chunk, L)
+    nc = L // c
+
+    def part(t, i):
+        return t[:, :, i * c:(i + 1) * c]
+
+    cums = [blocked_cumsum(part(af, i).movedim(-1, 0)).movedim(0, -1)
+            for i in range(nc)]
+    n_in, n = [], qf.new_zeros((B, H, N))
+    for i in range(nc):
+        n_in.append(n)
+        cum, total = cums[i], cums[i][..., -1:]
+        n = n * torch.exp(total) + (part(kf, i) * torch.exp(
+            total - cum)[..., None]).sum(2)
+    dn_out, dn = [None] * nc, qf.new_zeros((B, H, N))
+    for i in reversed(range(nc)):
+        dn_out[i] = dn
+        cum, total = cums[i], cums[i][..., -1:]
+        dn = dn * torch.exp(total) + (
+            part(qf, i) * (torch.exp(cum) * part(df, i))[..., None]).sum(2)
+    tril = torch.ones((c, c), dtype=torch.bool).tril()
+    dqs, dks = [], []
+    for i in range(nc):
+        cum, total = cums[i], cums[i][..., -1:]
+        rel = cum[..., :, None] - cum[..., None, :]
+        gate = torch.where(tril, torch.exp(torch.where(tril, rel, 0.0)), 0.0)
+        g_dd = part(df, i)[..., :, None] * gate               # [t, s]
+        dqs.append(g_dd @ part(kf, i) + (torch.exp(cum) * part(df, i))[
+            ..., None] * n_in[i][..., None, :])
+        dks.append(g_dd.transpose(-1, -2) @ part(qf, i)
+                   + torch.exp(total - cum)[..., None]
+                   * dn_out[i][..., None, :])
+    dq, dk = (torch.cat(t, dim=2) for t in (dqs, dks))
+    r = (qf * dq).sum(-1) - (kf * dk).sum(-1)
+    da = torch.flip(torch.cumsum(torch.flip(r, [-1]), -1), [-1])
+    return dq.transpose(1, 2), dk.transpose(1, 2), da.transpose(1, 2)
+
+
+@pytest.mark.parametrize("case", [(2, 64, 3, 8, 5, 16, False, False),
+                                  (1, 96, 2, 16, 16, 32, False, True),
+                                  (1, 200, 2, 48, 80, 100, False, False),
+                                  (2, 64, 1, 64, 16, 64, False, True)])
+def test_rank1_normaliser_matches_the_extra_column(case):
+    """The numerator's gradients plus the rank-1 normaliser terms give
+    ``ssd_scan_bwd_plain(..., dden=)`` (v with a column of ones, dO with
+    the column dden): dq, dk and da within 1e-5 of the largest entry, dv
+    the numerator's alone."""
+    B, L, H, N, P, c, _, slow = case
+    q, k, v, do, a = (torch.tensor(x) for x in inputs(16, B, L, H, N, P,
+                                                      False, slow))
+    dden = torch.tensor(np.random.default_rng(17).standard_normal(
+        a.shape).astype(np.float32))
+    want = ssd_scan_bwd_plain(q, k, v, a, do, chunk=c, dden=dden)
+    num = ssd_scan_bwd_plain(q, k, v, a, do, chunk=c)
+    terms = rank1_normaliser(q, k, a, dden, c)
+    got = (num[0] + terms[0], num[1] + terms[1], num[2], num[3] + terms[2])
+    for g_, w in zip(got, want):
+        assert g_.shape == w.shape
+        assert (g_ - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+def test_every_admitted_bf16_shape_meets_the_wide_kernels_needs():
+    """Every bf16 shape the backward kernels admit (``_beyond``: N and P
+    multiples of 16 up to 256, chunks up to 256 rows) reaches the bf16
+    ``ssd_wide_bwd`` launch as its library takes it (``tc_ok``: N and P
+    multiples of 16; after ``aligned16``, 16 B aligned pointers, strides
+    multiples of 8 elements, a contiguous last dimension), also for q, k
+    and v as views of one projection at an offset TMA cannot read and dO
+    head-major; ``_beyond`` refuses shapes off that grid."""
+    for N in range(16, 257, 16):
+        for P in range(16, 257, 16):
+            for c in (16, 100, 256):
+                assert G._beyond(N, P, c, torch.bfloat16) == ""
+                B, L, H, W = 1, c, 1, 2 * N + P + 4
+                buf = torch.arange(L * W, dtype=torch.bfloat16).reshape(
+                    B, L, H, W)
+                views = (buf[..., 4:4 + N], buf[..., 4 + N:4 + 2 * N],
+                         buf[..., 4 + 2 * N:W],
+                         torch.ones((B, H, L, P), dtype=torch.bfloat16
+                                    ).transpose(1, 2))
+                for t in views:
+                    got = aligned16(t)
+                    assert torch.equal(got, t)
+                    assert got.data_ptr() % 16 == 0 and got.stride(-1) == 1
+                    assert all(s % 8 == 0 for s in got.stride()[:-1])
+    for N, P, c in ((40, 16, 16), (16, 272, 16), (16, 16, 512)):
+        assert G._beyond(N, P, c, torch.bfloat16)
+
+
 def meta(*shape, grad=False):
     return torch.empty(shape, device="meta", requires_grad=grad)
 
@@ -361,24 +467,56 @@ def test_cuda_kernel_matches_plain(case, bf16):
             assert (g - w).abs().max() <= 2e-5 * w.abs().max()
 
 
+def mlstm_views(q, k, v, do, dtype, offset):
+    """q, k and v as column slices of one [B, L, H, 2 N + P + offset]
+    projection starting ``offset`` elements in, and dO head-major
+    ([B, H, L, P] transposed): the layouts an mLSTM's fused projection and
+    autograd hand the backward."""
+    B, L, H, N = q.shape
+    P = v.shape[-1]
+    buf = torch.zeros((B, L, H, 2 * N + P + offset), dtype=dtype,
+                      device="cuda")
+    views = []
+    for x, at in ((q, offset), (k, offset + N), (v, offset + 2 * N)):
+        view = buf[..., at:at + x.shape[-1]]
+        view.copy_(torch.tensor(x))
+        views.append(view)
+    tdo = torch.tensor(do).to("cuda", dtype).transpose(1, 2).contiguous(
+        ).transpose(1, 2)
+    return (*views, tdo)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case, norm, bf16", [
     ((1, 64, 2, 16, 16, 16, False, False), True, False),
     ((2, 256, 3, 128, 96, 128, False, True), True, False),
     ((1, 512, 2, 128, 64, 256, False, False), False, True),
-    ((4, 1024, 4, 256, 256, 256, False, False), True, True)])
+    ((4, 1024, 4, 256, 256, 256, False, False), True, True),
+    ((2, 1024, 2, 256, 256, 256, False, True), True, True),
+    ((2, 256, 3, 48, 80, 128, False, False), True, True),
+    ((1, 200, 2, 80, 48, 100, False, True), False, True),
+    ((2, 64, 2, 32, 16, 16, False, False), True, True),
+    ((2, 512, 4, 256, 256, 256, "views", False), True, True),
+    ((1, 256, 2, 64, 128, 128, "odd views", True), True, True)])
 def test_cuda_wide_kernel_matches_plain(case, norm, bf16):
-    """``ssd_wide_bwd`` (xLSTM's widths and the normaliser, the last case
-    xlstm-350m's training shape) against the plain version: bf16 dq, dk,
-    dv within 2e-2 and da, and float32, within 2e-5 of the largest entry;
-    a second call gives the same bits."""
+    """``ssd_wide_bwd`` (xLSTM's widths and the normaliser, the fourth case
+    xlstm-350m's training shape, the fifth its slow decay a = -0.01 U[0,
+    1); N and P off multiples of 64; a chunk of 100 rows; the mLSTM's
+    strided views, at an offset TMA reads and at one ``aligned16`` copies)
+    against the plain version: bf16 dq, dk, dv within 2e-2 and da, and
+    float32, within 2e-5 of the largest entry; a second call gives the
+    same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel runs only on the card)")
     dtype = torch.bfloat16 if bf16 else torch.float32
-    B, L, H, N, P, c, _, slow = case
+    B, L, H, N, P, c, views, slow = case
     q, k, v, do, a = inputs(10, B, L, H, N, P, False, slow)
-    tq, tk, tv, tdo = (torch.tensor(x).to("cuda", dtype)
-                       for x in (q, k, v, do))
+    if views:
+        tq, tk, tv, tdo = mlstm_views(q, k, v, do, dtype,
+                                      4 if views == "odd views" else 0)
+    else:
+        tq, tk, tv, tdo = (torch.tensor(x).to("cuda", dtype)
+                           for x in (q, k, v, do))
     ta = torch.tensor(a).cuda()
     dden = (torch.tensor(np.random.default_rng(11).standard_normal(
         a.shape).astype(np.float32)).to("cuda", dtype) if norm else None)
