@@ -17,8 +17,9 @@ realizes three models on a pod, and serves the MoE and xLSTM models at
 full width; then trains zamba2-2.7b at full width, with the attention and
 SSD backward kernels, xlstm-350m at full width, with the wide scan's
 backward and the sLSTM recurrence kernels, and qwen2-moe-a2.7b at its
-published widths with the depth cut.  It imports neither JAX nor the
-reference package.  Phases, each printed as it runs:
+published widths with the depth cut; then runs the port sharded over two
+ranks that share the card.  It imports neither JAX nor the reference
+package.  Phases, each printed as it runs:
 
 1. card: ``nvidia-smi`` name, power limit and SM clock, library versions,
    kernel builds (one ``nvcc`` per source, all eight at once)
@@ -55,15 +56,19 @@ reference package.  Phases, each printed as it runs:
    normaliser in the same launch, ``flash_attention`` at head_dim 128
    (qwen2-moe-a2.7b's MHA [4, 1024, 16, 128], minitron-8b's GQA [4, 1024,
    32, 128] over 8 kv heads): each output within 2e-2 of the largest plain
-   output, times, bounds, SDPA for attention
+   output, times, bounds, SDPA for attention; then phase 16's shapes of a
+   rank, each held the same way: ``flash_attention`` on a tp = 2 rank's
+   heads (qwen2-moe-a2.7b [4, 1024, 8, 128] over 8, minitron-8b [4, 1024,
+   16, 128] over 4) and ``ssd_scan`` on a dp = 2 rank's two rows of
+   xlstm-350m's batch (contiguous and as the mLSTM's strided views)
 2f. xLSTM's training kernels: ``ssd_wide_bwd`` (the SSD scan's backward
    for N, P up to 256 and the mLSTM's normaliser; bf16 on ``wgmma``)
    against ``ssd_scan_bwd_plain``, and ``slstm`` / ``slstm_bwd`` (the
    sLSTM recurrence, forward and backward) against ``slstm_scan_plain`` /
    ``slstm_scan_bwd_plain``, over sweeps (float32 and bf16; N and P of 48
    and 80; at xlstm-350m's shape slow decay and the mLSTM's strided
-   views; a decode step, a batch over two clusters, xlstm-350m's training
-   shapes last), each output within 2e-2 (bf16) or 2e-5 (float32) of its
+   views; a decode step, a batch over two clusters, a dp = 2 rank's two
+   rows of xlstm-350m's batch, xlstm-350m's training shapes last), each output within 2e-2 (bf16) or 2e-5 (float32) of its
    largest plain entry and a second call the same bits; times at
    xlstm-350m's shapes beside the bound and the plain version, device
    times and each launch's part profiled in a new process
@@ -174,8 +179,8 @@ reference package.  Phases, each printed as it runs:
    host) opens the phase
 14. training (before the summary): ``flash_attention_bwd`` and
    ``ssd_scan_bwd`` against ``attention_bwd_plain`` / ``ssd_scan_bwd_plain``
-   over sweeps (zamba2-2.7b's training shapes, float32 at small shapes,
-   GQA at head_dim 128, slow-decay SSD; bf16 elementwise within 2e-2,
+   over sweeps (zamba2-2.7b's training shapes, minitron-8b's at tp = 2,
+   float32 at small shapes, GQA at head_dim 128, slow-decay SSD; bf16 elementwise within 2e-2,
    float32 within 2e-5 of the largest plain gradient; the bf16 attention
    backward fed the forward kernel's row log-sum-exp), each call repeated
    and held to the same bits, the share of bf16 outputs bit-equal to the
@@ -199,10 +204,37 @@ reference package.  Phases, each printed as it runs:
    and (h) qwen2-moe-a2.7b at its published widths with the depth cut to
    the first of 3 and 2 layers that fits (attention on
    ``flash_attention`` and its backward at head_dim 128)
+16. distributed (after phase 14): two ranks spawned on the card
+   (``launch.mesh.spawn``; gloo on CUDA tensors, since NCCL refuses two
+   ranks on one device; NCCL where each rank has a card), gloo's CUDA
+   probe (``distributed.collectives.probe_gloo_cuda``), then on each rank
+   (a) minitron-8b and qwen2-moe-a2.7b served at tp = 2 at full width and
+   depth (batch 4, prompt 1024, 32 greedy tokens, bf16; 32 / 24
+   ``flash_attention`` launches a prefill on the rank's heads, none in
+   decode; the same tokens on both ranks), each then prefilled in float32
+   and held within 1e-3 of the largest logit of the one-rank float32
+   prefill of the same seeded weights; (b) minitron-8b at its published
+   widths cut to 2 layers trained at tp = 2 (every leaf's gradient
+   nonzero and finite; the first step's loss within ``DIST_LOSS_REL`` and
+   each leaf's gradient norm within ``DIST_LEAF_REL`` of a one-rank
+   ``loss_and_grads`` on the same weights, which rank 0 runs after both
+   ranks free theirs; three AdamW steps on one batch, losses finite and
+   falling); (c) xlstm-350m at full width and depth at dp = 2 with ZeRO-1
+   (batch 4 x 1024, three AdamW steps on one batch: each loss within
+   ``DIST_LOSS_REL`` and the first grad norm within ``DIST_GNORM_REL`` of
+   the one-rank run's, and the loss falling by at least ten times
+   ``DIST_LOSS_REL``, so that parameters that do not move, or gradients
+   not averaged over the ranks, fail); (d) ``compressed_psum`` of a seeded 2^20-element vector (within
+   0.02 of the exact sum, each element within one quantisation step of the
+   same call on CPU tensors).  Per rank and part: wall, prefill s, decode
+   tokens/s, peak GiB, collectives (calls, bytes, and those staged through
+   the host) a prefill, a decode step and a train step; two ranks on one
+   card are correctness runs, not scaling figures
 8. summary: a JSON line of the portfolio, multimodel, serving, sync
    witness, VLM and training numbers,
    then one of per-kernel numbers (``launches_by_path`` includes the
-   online, portfolio, realized, served, VLM and trained runs; ``shapes``
+   online, portfolio, realized, served, VLM and trained runs and phase
+   16's rank 0; ``shapes``
    the new models' kernel shapes of phase 2e and the VLM's self and cross
    calls of phase 15; the backward kernels' launches, and xLSTM's three
    kernels', are those of the three timed full-width steps of zamba2 and
@@ -252,6 +284,13 @@ SERVE_ARGV = ["--arch", "zamba2-2.7b", "--batch", "4", "--prompt-len",
 XLSTM_SSD = (4, 1024, 4, 256, 256)
 ATTN_D128 = {"qwen2-moe-a2.7b": (4, 1024, 16, 16, 128),
              "minitron-8b": (4, 1024, 32, 8, 128)}
+# phase 16's shapes of a rank: the attention of a tensor-parallel rank at
+# tp = 2 (half the query and KV heads; minitron-8b's 16 over 4 is also its
+# tp = 2 training shape), the mLSTM scan of a data-parallel rank at dp = 2
+# (two of the batch's four rows)
+ATTN_TP2 = {"qwen2-moe-a2.7b": (4, 1024, 8, 8, 128),
+            "minitron-8b": (4, 1024, 16, 4, 128)}
+XLSTM_SSD_DP2 = (2, 1024, 4, 256, 256)
 # the models served at full width (phases 11 and 12), batch 4, prompt 1024:
 # each kernel's launches per prefill (one per layer of its kind)
 NEW_SERVE = {"qwen2-moe-a2.7b": {"flash_attention": 24, "ssd_scan": 0,
@@ -1486,6 +1525,38 @@ def new_shapes_phase(g, dev, smi) -> dict:
                     lambda: flash_attention(q, k, v, causal=True)),
                 smi, f"{arch}'s shape")}
         del q, k, v, out, ref
+    rec["flash_attention_tp2"] = {}
+    for arch, (B, S, Hq, Hkv, D) in ATTN_TP2.items():
+        q = randn((B, S, Hq, D), g, bf, dev)
+        k = randn((B, S, Hkv, D), g, bf, dev)
+        v = randn((B, S, Hkv, D), g, bf, dev)
+        out = flash_attention(q, k, v, causal=True)
+        ref = attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = of_max(out, ref, f"flash_attention at {arch}'s tp = 2 shape")
+        rec["flash_attention_tp2"][arch] = {"shape": [B, S, Hq, Hkv, D],
+                                            "max_abs_err": err}
+        print(f"flash_attention {arch} at a tp = 2 rank's heads "
+              f"q {(B, S, Hq, D)} over {Hkv} KV heads: max |kernel - "
+              f"plain| {err!r} (within 2e-2 of max |plain|)")
+        del q, k, v, out, ref
+    B, L, H, N, P = XLSTM_SSD_DP2
+    rec["ssd_scan_dp2"] = {}
+    for kind in ("", "views"):
+        q, k, v, a, _, _ = wide_bwd_inputs(g, dev, B, L, H, N, P, False, bf,
+                                           kind)
+        num, den = ssd_scan(q, k, v, a, chunk=256, norm=True)
+        p_num, p_den = ssd_scan_plain(q, k, v, a, chunk=256, norm=True)
+        torch.cuda.synchronize()
+        what = f"ssd_scan at a dp = 2 rank's batch {(B, L, H, N, P)}" + (
+            f" ({kind})" if kind else "")
+        err = max(of_max(num, p_num, what),
+                  of_max(den, p_den, f"{what}, the normaliser"))
+        rec["ssd_scan_dp2"][kind or "contiguous"] = err
+        print(f"{what}, chunk 256, with the normaliser: max |kernel - "
+              f"plain| {err!r} (output and normaliser, each within 2e-2 of "
+              "max |plain|)")
+        del q, k, v, a, num, den, p_num, p_den
     torch.cuda.empty_cache()
     return rec
 
@@ -1497,18 +1568,21 @@ def new_shapes_phase(g, dev, smi) -> dict:
 # xlstm-350m's training shape (its mLSTM's scan with the normaliser; its
 # sLSTM over batch 4 x 1024), an L = 1 case is a decode step, 9 batch rows
 # take two clusters a head; N and P of 48 and 80 are multiples of 16 but
-# not of the bf16 kernels' 64-column boxes
+# not of the bf16 kernels' 64-column boxes; the B = 2 cases are a dp = 2
+# rank's half of xlstm-350m's training batch (phase 16)
 WIDE_BWD_CASES = ((1, 64, 2, 16, 16, 16, True, False, ""),
                   (2, 256, 3, 128, 96, 128, True, False, ""),
                   (1, 512, 2, 128, 64, 256, False, True, ""),
                   (2, 256, 3, 256, 256, 256, True, True, ""),
                   (2, 256, 3, 48, 80, 128, True, True, ""),
+                  (2, 1024, 4, 256, 256, 256, True, True, "views"),
+                  (2, 1024, 4, 256, 256, 256, True, True, ""),
                   (4, 1024, 4, 256, 256, 256, True, True, "slow"),
                   (4, 1024, 4, 256, 256, 256, True, True, "views"),
                   (4, 1024, 4, 256, 256, 256, True, True, ""))
 SLSTM_CASES = ((2, 16, 4, 16, False), (3, 64, 2, 256, False),
                (9, 32, 2, 64, True), (4, 1, 4, 256, True),
-               (4, 1024, 4, 256, True))
+               (2, 1024, 4, 256, True), (4, 1024, 4, 256, True))
 PROFILE_XLSTM_ARG = "--profile-xlstm-kernels"
 
 
@@ -2362,8 +2436,11 @@ def vlm_phase(dev, smi) -> dict:
 # Hkv, D, causal, bf16?) and (B, L, H, N, P, chunk, q and k broadcast,
 # slow decay, bf16?); the first of each is zamba2-2.7b's training shape
 # (its shared attention; its Mamba-2 scan), the slow-decay SSD cases are
-# phase 2d's; float32 at small shapes, GQA at head_dim 128
+# phase 2d's; float32 at small shapes, GQA at head_dim 128; the second
+# flash case is minitron-8b's training shape at tp = 2 (a rank's 16 query
+# heads over 4 KV heads, phase 16)
 FLASH_BWD_CASES = ((4, 1024, 32, 32, 80, True, True),
+                   (4, 1024, 16, 4, 128, True, True),
                    (2, 256, 8, 2, 128, True, True),
                    (2, 256, 8, 2, 128, True, False),
                    (2, 100, 4, 4, 64, False, False),
@@ -2939,6 +3016,438 @@ def training_phase(dev, smi) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 14 took {out['phase_s']:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: tensor / data parallel execution, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 2
+DIST_SERVE = {"minitron-8b": 32, "qwen2-moe-a2.7b": 24}   # flash a prefill
+DIST_GEN = 32
+DIST_TP_TRAIN_ARCH = "minitron-8b"
+# the published widths, the depth cut to what fits two ranks on one card:
+# AdamW's functional update holds the old and new parameters and moments
+# and a leaf's float32 temporaries (the 2 GiB embedding's), so 8 layers
+# (1.75 B parameters a rank) and 4 (1.40 B) ran out of memory with 37.0
+# and 35.6 GiB allocated on a rank; 2 layers are 1.23 B a rank
+DIST_TP_TRAIN_LAYERS = 2
+# a sharded training run against the one-rank run of the same weights
+# (bf16): each loss, relative; the first step's gradient norm of each leaf
+# (tp = 2) and its global norm (dp = 2), relative.  A gradient
+# scaled by tp, or not averaged over the data ranks, is off by tens of
+# percent
+DIST_LOSS_REL = 1e-3
+DIST_LEAF_REL = 2e-2
+DIST_GNORM_REL = 1e-2
+DIST_PSUM_N = 2 ** 20
+DIST_WALL_S = 900
+
+
+def _dist_sync(dev) -> None:
+    torch.cuda.synchronize(dev)
+    torch.distributed.barrier()
+
+
+def _coll_delta(fn):
+    """``fn()``'s result and the collectives it made (calls, bytes,
+    staged through the host, by operation)."""
+    from repro_torch.distributed import collectives as coll
+    coll.reset_stats()
+    out = fn()
+    return out, coll.stats()
+
+
+def _dist_parallel(cfg, shape, batch):
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.launch.mesh import RankMesh, make_mesh
+    return tpl.make_parallel(cfg, RankMesh(make_mesh(
+        shape, ("data", "model"))), batch)
+
+
+def _dist_params(cfg, dims, par, dev, dtype):
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.models import init_params
+    return init_params(
+        cfg, dims, generator=torch.Generator(device=dev).manual_seed(0),
+        dtype=dtype, shard=None if par is None else (
+            lambda path, tree: tpl.shard_params(cfg, tree, par, path)))
+
+
+def dist_serve(arch: str, dev) -> dict:
+    """(a) ``arch`` at full width and depth at tp = 2: bf16 prefill and 31
+    greedy decode steps (launches, times, peak memory, collectives a
+    prefill and a decode step), then a float32 prefill of the same seeded
+    weights; rank 0 then runs the one-rank float32 prefill of those
+    weights alone (the other rank waits) and holds the two."""
+    from repro_torch.models import ModelDims, get_arch
+    from repro_torch.models.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.testing import synth_batch
+    cfg = get_arch(arch)
+    dims = ModelDims.create(cfg, 2)
+    check(dims == dataclasses.replace(ModelDims.create(cfg), tp=2),
+          f"{arch} pads at tp = 2: {dims}")
+    par = _dist_parallel(cfg, (1, DIST_WORLD), 4)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_all = time.perf_counter()
+    out = {}
+    with torch.inference_mode():
+        params = _dist_params(cfg, dims, par, dev, torch.bfloat16)
+        batch = synth_batch(cfg, batch=4, seq=1024, seed=0, device=dev)
+        batch.pop("labels")
+        prefill = make_prefill_step(cfg, dims, 1024 + DIST_GEN, par=par)
+        decode = make_decode_step(cfg, dims, par=par)
+        zero_lm_counts()
+        _dist_sync(dev)
+        t0 = time.perf_counter()
+        (logits, cache), out["coll_prefill"] = _coll_delta(
+            lambda: prefill(params, batch))
+        _dist_sync(dev)
+        out["prefill_s"] = time.perf_counter() - t0
+        out["launches_prefill"] = lm_counts()
+        check(out["launches_prefill"]["flash_attention"] == DIST_SERVE[arch],
+              f"{arch} tp = 2 prefill: {out['launches_prefill']}")
+        tokens = [logits.argmax(-1)[:, None]]
+        zero_lm_counts()
+        t0 = time.perf_counter()
+        for i in range(DIST_GEN - 1):
+            (lg, cache), stats = _coll_delta(lambda: decode(
+                params, tokens[-1], cache, 1024 + i))
+            tokens.append(lg.argmax(-1)[:, None])
+            if i == 0:
+                out["coll_decode_step"] = stats
+        _dist_sync(dev)
+        out["decode_tok_s"] = 4 * (DIST_GEN - 1) / (time.perf_counter() - t0)
+        out["launches_decode"] = lm_counts()
+        check(not any(out["launches_decode"].values()),
+              f"{arch} decode launched {out['launches_decode']}")
+        out["tokens"] = torch.cat(tokens, 1).tolist()
+        out["peak_gib_bf16"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        del params, cache, logits
+        torch.cuda.empty_cache()
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        params = _dist_params(f32, dims, par, dev, torch.float32)
+        last, cache = make_prefill_step(f32, dims, 1024, par=par)(params,
+                                                                  batch)
+        last = last.float().cpu()
+        del params, cache
+        torch.cuda.empty_cache()
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if torch.distributed.get_rank() == 0:
+            one = ModelDims.create(f32)
+            params = _dist_params(f32, one, None, dev, torch.float32)
+            ref, cache = make_prefill_step(f32, one, 1024)(params, batch)
+            ref = ref.float().cpu()
+            del params, cache
+            torch.cuda.empty_cache()
+            agree = logit_agreement(last, ref)
+            del agree["plain_top2_gap"]
+            out["float32_vs_one_rank"] = agree
+            check(agree["max_abs"] <= 1e-3 * agree["max_logit"]
+                  and agree["top1"] == 1.0,
+                  f"{arch} tp = 2 float32 prefill against one rank: {agree}")
+    _dist_sync(dev)
+    out["wall_s"] = time.perf_counter() - t_all
+    return out
+
+
+def _leaf_grad_norms(grads, par) -> dict:
+    """Each leaf's whole gradient norm ``{path: float}`` from the rank's
+    shards (squares summed over the tensor-parallel axis where the leaf's
+    spec shards it; a replicated leaf's own norm)."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.optim.tree import tree_flatten_with_paths
+
+    if par is None:
+        return {p: float(torch.linalg.vector_norm(g.float()))
+                for p, g in tree_flatten_with_paths(grads)}
+
+    def norm(g, spec):
+        sq = torch.sum(torch.square(g.float()))
+        if any(par.axis_for(e).size > 1 for e in spec if e is not None):
+            coll.all_reduce(sq, par.tp.group)
+        return torch.sqrt(sq)
+    return {p: float(t) for p, t in tree_flatten_with_paths(
+        shd.tree_map_specs(norm, grads, shd.param_specs(par.cfg, grads)))}
+
+
+def dist_train_tp(dev) -> dict:
+    """(b) minitron-8b at its published widths, depth cut to
+    ``DIST_TP_TRAIN_LAYERS``, tp = 2: every leaf's gradient nonzero and
+    finite, then three AdamW steps on one batch (losses finite and
+    falling), step time, peak memory, collectives and launches a step;
+    last, rank 0 runs ``loss_and_grads`` on one rank with the same seeded
+    weights of the model padded to tp = 2 (the other rank has freed its
+    memory and waits) and holds the first step's loss and each leaf's
+    gradient norm against it."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.models import ModelDims, get_arch
+    from repro_torch.models.steps import (batch_to_device, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.tree import tree_flatten_with_paths
+    cfg = dataclasses.replace(get_arch(DIST_TP_TRAIN_ARCH),
+                              n_layers=DIST_TP_TRAIN_LAYERS)
+    dims = ModelDims.create(cfg, 2)
+    par = _dist_parallel(cfg, (1, DIST_WORLD), TRAIN_BATCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_all = time.perf_counter()
+    params = _dist_params(cfg, dims, par, dev, torch.bfloat16)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+    state, _ = tpl.init_opt_state(opt, params, par)
+    batch = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0).batch_at(0)
+    loss0, grads = loss_and_grads(cfg, dims, params,
+                                  batch_to_device(batch, dev), remat=True,
+                                  par=par)
+    bad = [p for p, g in tree_flatten_with_paths(grads)
+           if not (bool(torch.isfinite(g.float()).all())
+                   and bool((g != 0).any()))]
+    check(not bad, f"tp = 2 training: zero or non-finite gradients {bad}")
+    loss0, norms = float(loss0), _leaf_grad_norms(grads, par)
+    del grads
+    step = make_train_step(cfg, dims, opt, remat=True, device=dev, par=par)
+    out = {"layers": DIST_TP_TRAIN_LAYERS, "losses": [], "grad_norms": [],
+           "step_s": []}
+    for i in range(TRAIN_TIMED):
+        zero_lm_counts()
+        _dist_sync(dev)
+        t0 = time.perf_counter()
+        (params, state, m), stats = _coll_delta(
+            lambda: step(params, state, batch))
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        out["step_s"].append(time.perf_counter() - t0)
+        out["coll_train_step"] = stats
+        out["launches_step"] = lm_counts()
+    losses = out["losses"]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"tp = 2 training losses {losses}")
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+    check(all(out["launches_step"][k] == v for k, v in want.items()),
+          f"tp = 2 training launches {out['launches_step']}")
+    out["params_per_rank"] = sum(
+        t.numel() for _, t in tree_flatten_with_paths(params))
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del params, state
+    torch.cuda.empty_cache()
+    _dist_sync(dev)
+    out["wall_s"] = time.perf_counter() - t_all
+    if torch.distributed.get_rank() == 0:
+        params = _dist_params(cfg, dims, None, dev, torch.bfloat16)
+        ref_loss, grads = loss_and_grads(cfg, dims, params,
+                                         batch_to_device(batch, dev),
+                                         remat=True)
+        ref = _leaf_grad_norms(grads, None)
+        del params, grads
+        torch.cuda.empty_cache()
+        check(ref.keys() == norms.keys(),
+              f"tp = 2 gradient leaves {sorted(norms)} against one rank's "
+              f"{sorted(ref)}")
+        leaf_rel = {k: abs(norms[k] - ref[k]) / ref[k] for k in ref}
+        worst = max(leaf_rel, key=leaf_rel.get)
+        out["one_rank"] = {"loss": float(ref_loss),
+                           "loss_rel": abs(loss0 - float(ref_loss))
+                           / abs(float(ref_loss)),
+                           "leaf_norm_rel_max": leaf_rel[worst],
+                           "leaf_norm_rel_worst": worst}
+        check(out["one_rank"]["loss_rel"] <= DIST_LOSS_REL
+              and leaf_rel[worst] <= DIST_LEAF_REL,
+              f"tp = 2 first step (loss {loss0}) against one rank: "
+              f"{out['one_rank']}; leaf norms {norms} against {ref}")
+    _dist_sync(dev)
+    return out
+
+
+def _xlstm_losses(cfg, dims, par, dev, batch) -> tuple[list, list, dict,
+                                                        dict]:
+    """Three AdamW steps of xlstm-350m on ``batch`` (lr 3e-3 from the
+    first step, so that the loss moves: at 1e-3 it fell 0.97% in three
+    steps on the card): losses, grad norms, the last step's collectives
+    and launches."""
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw
+    opt = AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=100)
+    params = _dist_params(cfg, dims, par, dev, torch.bfloat16)
+    state = (adamw.init_state(opt, params) if par is None
+             else tpl.init_opt_state(opt, params, par)[0])
+    step = make_train_step(cfg, dims, opt, remat=True, device=dev, par=par)
+    losses, gnorms, stats, launches = [], [], {}, {}
+    for _ in range(TRAIN_TIMED):
+        zero_lm_counts()
+        (params, state, m), stats = _coll_delta(
+            lambda: step(params, state, batch))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        launches = lm_counts()
+    del params, state
+    torch.cuda.empty_cache()
+    return losses, gnorms, stats, launches
+
+
+def dist_train_dp(dev) -> dict:
+    """(c) xlstm-350m at full width and depth, dp = 2 with ZeRO-1 (batch
+    4 x 1024, two rows a rank), three steps on one batch: each loss within
+    ``DIST_LOSS_REL`` and the first step's grad norm within
+    ``DIST_GNORM_REL`` of the one-rank run's (rank 0 runs it after, the
+    other rank waits), and the loss falling by at least ten times
+    ``DIST_LOSS_REL``.  Later grad norms are printed, not held: bf16
+    parameters that AdamW has moved part on rounding (a 1.0 norm scale
+    does not take a 1e-3 step), which moves the norm far more than the
+    loss."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import ModelDims, get_arch
+    cfg = get_arch(XLSTM_ARCH)
+    dims = ModelDims.create(cfg)
+    par = _dist_parallel(cfg, (DIST_WORLD, 1), TRAIN_BATCH)
+    batch = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0).batch_at(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    losses, gnorms, stats, launches = _xlstm_losses(cfg, dims, par, dev,
+                                                    batch)
+    _dist_sync(dev)
+    out = {"losses": losses, "grad_norms": gnorms, "coll_train_step": stats,
+           "launches_step": launches, "wall_s": time.perf_counter() - t0,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    check(all(launches[k] > 0 for k in ("ssd_scan", "ssd_wide_bwd", "slstm",
+                                        "slstm_bwd")),
+          f"dp = 2 xLSTM step launches {launches}")
+    fall = (losses[0] - losses[-1]) / losses[0]
+    out["loss_fall_rel"] = fall
+    check(fall >= 10 * DIST_LOSS_REL,
+          f"dp = 2 losses {losses} fell {fall} relative, want at least "
+          f"{10 * DIST_LOSS_REL}")
+    if torch.distributed.get_rank() == 0:
+        one, one_g, _, _ = _xlstm_losses(cfg, dims, None, dev, batch)
+        out["one_rank_losses"], out["one_rank_grad_norms"] = one, one_g
+        out["max_rel"] = max(abs(a - b) / abs(b) for a, b in zip(losses, one))
+        out["grad_norm_first_rel"] = abs(gnorms[0] - one_g[0]) / one_g[0]
+        check(out["max_rel"] <= DIST_LOSS_REL
+              and out["grad_norm_first_rel"] <= DIST_GNORM_REL,
+              f"dp = 2 losses {losses}, grad norms {gnorms} against one "
+              f"rank's {one}, {one_g}")
+    _dist_sync(dev)
+    return out
+
+
+def dist_psum(dev) -> dict:
+    """(d) ``compressed_psum`` of a seeded 2^20-element float32 vector over
+    the two ranks on the card: within 0.02 of the exact sum, and each
+    element within one quantisation step of the same call on CPU tensors
+    (the chunk's largest entry over 127)."""
+    from repro_torch.distributed.compress import compressed_psum
+    from repro_torch.launch.mesh import RankMesh, make_mesh
+    mesh = RankMesh(make_mesh((DIST_WORLD,), ("pod",)))
+    x = np.random.default_rng(0).standard_normal(DIST_PSUM_N).astype(
+        np.float32)
+    _dist_sync(dev)
+    t0 = time.perf_counter()
+    (got, stats) = _coll_delta(lambda: compressed_psum(
+        torch.from_numpy(x).to(dev), mesh))
+    got = got.cpu().numpy()
+    ms = (time.perf_counter() - t0) * 1e3
+    host = compressed_psum(torch.from_numpy(x), mesh).numpy()
+    exact = x.astype(np.float64) * DIST_WORLD
+    rel = float(np.abs(got - exact).max() / np.abs(exact).max())
+    chunks = np.abs(host.reshape(DIST_WORLD, -1)).max(axis=1) / 127.0
+    step = np.repeat(chunks, DIST_PSUM_N // DIST_WORLD)
+    off = float((np.abs(got - host) / step).max())
+    check(rel < 0.02 and off <= 1.0 + 1e-6,
+          f"compressed_psum on the card: {rel} of exact, {off} steps off "
+          "the CPU run")
+    return {"rel_to_exact": rel, "steps_off_cpu": off,
+            "bit_equal_share_cpu": float((got == host).mean()), "ms": ms,
+            "coll": stats}
+
+
+def dist_rank(rank: int) -> dict:
+    """Phase 16's rank (a ``launch.mesh.spawn`` process): the backend and
+    gloo's CUDA probe, then (a) to (d), each part's numbers with its wall
+    time."""
+    from repro_torch.distributed import collectives as coll
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank, "backend": coll.backend(),
+           "gloo_cuda_ops": sorted(coll.GLOO_CUDA_OPS)}
+    if out["backend"] == "gloo":
+        out["gloo_cuda_probe"] = coll.probe_gloo_cuda(dev)
+    for arch in DIST_SERVE:
+        out[f"serve {arch} tp2"] = dist_serve(arch, dev)
+    out["train minitron tp2"] = dist_train_tp(dev)
+    out["train xlstm dp2"] = dist_train_dp(dev)
+    out["compressed_psum"] = dist_psum(dev)
+    return out
+
+
+def dist_launches(dist: dict, name: str) -> dict:
+    """Phase 16's launches of LM kernel ``name`` on rank 0, by path (none
+    for the scheduler's kernels, which phase 16 does not run)."""
+    if name not in lm_counts():
+        return {}
+    r = dist["ranks"][0]
+    out = {}
+    for arch in DIST_SERVE:
+        part = r[f"serve {arch} tp2"]
+        out[f"serve_{arch}_tp2_prefill_rank0"] = part["launches_prefill"][
+            name]
+        out[f"serve_{arch}_tp2_decode_31_steps_rank0"] = part[
+            "launches_decode"][name]
+    out[f"train_{DIST_TP_TRAIN_ARCH}_{DIST_TP_TRAIN_LAYERS}_layers_tp2_"
+        "step_rank0"] = r["train minitron tp2"]["launches_step"][name]
+    out["train_xlstm-350m_dp2_step_rank0"] = r["train xlstm dp2"][
+        "launches_step"][name]
+    return {k: v for k, v in out.items() if v}
+
+
+def distributed_phase(smi: str) -> dict:
+    """Phase 16: ``DIST_WORLD`` spawned ranks on the card (gloo: NCCL
+    refuses two ranks on one device; NCCL where each rank has a card),
+    (a)-(d) on each; the parent checks that every rank ended with the same
+    tokens, losses and grad norms and prints each rank's numbers.  Correctness runs
+    of two ranks sharing one card, not scaling figures."""
+    from repro_torch.launch.mesh import backend_for, spawn
+    torch.cuda.empty_cache()
+    backend = backend_for(torch.device("cuda"), DIST_WORLD)
+    t0 = time.perf_counter()
+    ranks = spawn(dist_rank, DIST_WORLD, timeout_s=DIST_WALL_S,
+                  backend=backend)
+    wall = time.perf_counter() - t0
+    for arch in DIST_SERVE:
+        key = f"serve {arch} tp2"
+        check(all(r[key]["tokens"] == ranks[0][key]["tokens"]
+                  for r in ranks), f"{key}: ranks' tokens differ")
+    # a gradient not summed over the ranks shows as grad norms that differ
+    for key in ("train minitron tp2", "train xlstm dp2"):
+        for m in ("losses", "grad_norms"):
+            check(all(r[key][m] == ranks[0][key][m] for r in ranks),
+                  f"{key}: ranks' {m} differ "
+                  f"{[r[key][m] for r in ranks]}")
+    staged = collections.Counter()
+    for r in ranks:
+        for part in r.values():
+            for key, st in (part.items() if isinstance(part, dict) else ()):
+                if key.startswith("coll"):
+                    staged.update({op: v["staged"] for op, v in st.items()
+                                   if v.get("staged")})
+    staged = dict(staged)
+    print(f"  {smi}; {DIST_WORLD} ranks share the card "
+          f"(correctness runs, not scaling figures); backend "
+          f"{ranks[0]['backend']}, gloo CUDA probe "
+          f"{ranks[0].get('gloo_cuda_probe')}; staged through the host: "
+          f"{staged or 'nothing'}; phase wall {wall:.1f} s")
+    for r in ranks:
+        print(f"  rank {r['rank']}: " + json.dumps(
+            {k: v for k, v in r.items() if k not in ("rank",)}))
+    return {"backend": ranks[0]["backend"], "wall_s": wall,
+            "ranks": ranks, "staged": staged}
 
 
 def main() -> None:
@@ -3748,14 +4257,21 @@ def main() -> None:
           "reference's steps, zamba2-2.7b at full width, the train driver")
     trained = training_phase(dev, smi)
 
+    phase("16 distributed: two ranks on the card, minitron-8b and "
+          "qwen2-moe-a2.7b served at tp = 2, minitron-8b trained at tp = 2, "
+          "xlstm-350m at dp = 2 with ZeRO-1, compressed_psum")
+    dist = distributed_phase(smi)
+
     phase("8 summary")
-    print(json.dumps({"portfolio": portfolio, "multimodel": pod,
+    print(json.dumps({"distributed": {k: v for k, v in dist.items()
+                                      if k != "ranks"},
+                      "portfolio": portfolio, "multimodel": pod,
                       "serve": served, "sync_witness": witness,
                       "vlm": {k: v for k, v in vlm.items()
                               if k != "kernels"},
                       "training": {k: v for k, v in trained.items()
                                    if k != "kernels"}}))
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "scar_eval", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scar_eval.cu",
         "replaces": "src/repro/kernels/scar_eval/kernel.py:64",
@@ -3808,6 +4324,8 @@ def main() -> None:
                 vlm["launches"]["flash_attention"],
             "vlm_reduced_f32": vlm["reduced_f32_launches"]},
         "shapes": {**new_shapes["flash_attention"],
+                   **{f"{a} tp=2": r for a, r in new_shapes[
+                       "flash_attention_tp2"].items()},
                    **{f"{VLM_ARCH} {k}": r
                       for k, r in vlm["kernels"].items()}},
     }, {
@@ -3824,7 +4342,9 @@ def main() -> None:
                for a in POD_ARCHS},
             **{f"serve_{a}": served[a]["launches_per_prefill"]["ssd_scan"]
                for a in NEW_SERVE}},
-        "shapes": new_shapes["ssd_scan"],
+        "shapes": {**new_shapes["ssd_scan"], "xlstm-350m dp=2": {
+            "shape": list(XLSTM_SSD_DP2), "max_abs_err": new_shapes[
+                "ssd_scan_dp2"]}},
     }, *({
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -3878,7 +4398,10 @@ def main() -> None:
         ("slstm_bwd", "slstm", "src/repro/models/blocks.py:333 "
          "(_slstm_cell's lax.scan, differentiated by jax.grad; no TPU "
          "kernel)", "the reverse recurrence on the same clusters, dr one "
-         "batched product")))]}))
+         "batched product")))]
+    for k in kernels:
+        k["launches_by_path"].update(dist_launches(dist, k["name"]))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

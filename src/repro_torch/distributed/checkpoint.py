@@ -18,8 +18,12 @@ and lists of tensors (``optim.tree``); leaves are named by their paths.
 * **kept**: the newest ``keep`` steps stay, older ones are removed.
 * **async**: ``save_async`` copies the tree to the host, then serialises on
   a background thread.
-* ``restore`` takes ``device=`` where the reference takes shardings: the
-  port runs on one device.
+* ``restore`` takes ``device=`` where the reference takes shardings.
+* **elastic** (``save_sharded`` / ``restore_sharded``): a sharded run
+  saves whole leaves in the layout above, gathered leaf by leaf (rank 0
+  writes); every rank of the resuming run reads whole leaves and cuts its
+  own blocks by the specs of its mesh, so a run saved at one mesh resumes
+  at another.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ import torch
 
 from repro_torch.optim.tree import tree_flatten_with_paths, tree_unflatten
 
-__all__ = ["list_steps", "restore", "save", "save_async"]
+__all__ = ["list_steps", "restore", "restore_sharded", "save", "save_async",
+           "save_sharded"]
 
 _BF16 = "bfloat16"
 
@@ -152,3 +157,34 @@ def restore(ckpt_dir: str, like, device=None,
             leaves = [t.to(device) for t in leaves]
         return tree_unflatten(like, leaves), s
     raise FileNotFoundError(f"no valid checkpoint under {ckpt_dir}")
+
+
+def save_sharded(ckpt_dir: str, step: int, tree, specs, par,
+                 keep: int = 3) -> Optional[str]:
+    """Gather ``tree`` (the rank's blocks under ``specs``, a tree of
+    ``sharding.P``) leaf by leaf over ``par``'s mesh and write the whole
+    leaves from the mesh's first rank; every rank of the mesh must call.
+    Returns the path on the writing rank, None on the others."""
+    import torch.distributed as dist
+    from . import tensor_parallel as tpl
+    whole = tpl.gather_tree(tree, specs, par)
+    path = None
+    if par.mesh.coords is not None and not any(par.mesh.coords.values()):
+        path = save(ckpt_dir, step, whole, keep)
+    group = par.mesh.all.group
+    if group is not None:
+        dist.barrier(group=group)
+    return path
+
+
+def restore_sharded(ckpt_dir: str, like, specs, par, device=None,
+                    step: Optional[int] = None) -> tuple[Any, int]:
+    """The newest valid checkpoint's whole leaves cut to this rank's
+    blocks under ``specs`` (of the resuming mesh), on ``device``."""
+    from . import tensor_parallel as tpl
+    whole, s = restore(ckpt_dir, like, step=step)
+    local = tpl.shard_tree(whole, specs, par)
+    if device is not None:
+        from repro_torch.optim.tree import tree_map
+        local = tree_map(lambda t: t.to(device), local)
+    return local, s

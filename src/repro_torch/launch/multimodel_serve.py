@@ -8,8 +8,11 @@ scheduler, realize window 0's placements and run a prefill of each
 The pod is the reference example's 4x2 ``het_sides`` grid under its search
 settings (``n_splits=0``, ``max_nodes_per_model=4``); the requests are
 minitron-8b, qwen2-moe-a2.7b and xlstm-350m at batch 4, sequence 64.  The
-reference builds a sub-mesh per placement on 8 emulated host devices; on
-one card every placement runs at tp = 1 (``multimodel.realize``).
+reference builds a sub-mesh per placement on 8 emulated host devices;
+``--mesh`` does the same on 8 launched ranks, one a chip of the 4x2 pod
+(``torchrun --nproc-per-node 8 -m repro_torch.launch.multimodel_serve
+--mesh --reduced``); without it every placement runs on the one device at
+tp = 1 (``multimodel.realize``).
 ``--reduced`` takes the reference's reduced configs (the example's
 setting); without it the models are built at full width.  ``--device``
 picks where planning and serving run (the current CUDA device by default,
@@ -34,10 +37,21 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the current CUDA device)")
+                    help="torch device (default: the current CUDA device; "
+                    "under --mesh each rank's card)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="realize on the launched ranks, one a chip")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import init_ranks, make_mesh
+        device = init_ranks(args.device)
+        mesh = make_mesh((4, 2), ("row", "col"))
+        if torch.distributed.get_world_size() != mesh.size:
+            raise ValueError("--mesh realizes the 4x2 pod on 8 ranks")
+    else:
+        device = resolve_device(args.device)
     reqs = [ServeRequest(a, batch=b, seq=s) for a, b, s in REQUESTS]
     pod = plan(reqs, rows=4, cols=2, pattern="het_sides",
                cfg=SearchConfig(metric="edp", n_splits=0,
@@ -50,8 +64,11 @@ def main(argv=None) -> dict:
             continue
         # one model at a time, released before the next is built
         one = dataclasses.replace(pod, placements=[pl_])
-        (dev, prefill), = realize(one, reqs, device=device,
-                                  reduced_archs=args.reduced).values()
+        built = realize(one, reqs, device=device,
+                        reduced_archs=args.reduced, mesh=mesh)
+        if not built:
+            continue          # not on this rank's chips
+        (dev, prefill), = built.values()
         last, _ = prefill()
         logits[pl_.arch] = last
         finite = bool(torch.isfinite(last.float()).all())
@@ -59,7 +76,7 @@ def main(argv=None) -> dict:
               f"template={pl_.template} -> prefill logits "
               f"{tuple(last.shape)} on {dev} finite={finite}")
         del prefill
-        if dev.type == "cuda":
+        if device.type == "cuda":
             torch.cuda.empty_cache()
     print("multi-model serving placement realized and executed.")
     return {"plan": pod, "logits": logits}

@@ -46,6 +46,9 @@ class BlockCtx:
     n_kv_pad: int = 0
     expert_pad: int = 1
     max_cache_len: int = 0
+    # the tensor-parallel axis (``launch.mesh.Axis``) at tp > 1: the
+    # counts above are then the rank's, its weights the rank's shards
+    tp: Optional[object] = None
 
 
 def _attn_dims(cfg: ArchConfig, ctx: BlockCtx) -> AttnDims:
@@ -102,19 +105,19 @@ def attn_block_apply(p: Params, x: torch.Tensor, ctx: BlockCtx,
         p["attn"], h, _attn_dims(cfg, ctx), causal=not cfg.encoder_only,
         theta=cfg.rope_theta, positions=ctx.positions,
         q_chunk=cfg.attn_q_chunk, cache=self_cache,
-        cache_index=ctx.cache_index)
+        cache_index=ctx.cache_index, tp=ctx.tp)
     x = x + out
     new_cache = {"self": new_self} if new_self is not None else None
     if kind == BlockKind.CROSS_ATTN:
         x = _cross_attn(p, x, ctx, cache, new_cache)
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind == BlockKind.MOE:
-        y = moe_apply(p["moe"], h, _moe_dims(cfg, ctx))
+        y = moe_apply(p["moe"], h, _moe_dims(cfg, ctx), tp=ctx.tp)
         if cfg.moe.dense_residual:
-            y = y + mlp_apply(p["dense_mlp"], h, "swiglu")
+            y = y + mlp_apply(p["dense_mlp"], h, "swiglu", tp=ctx.tp)
         x = x + y
     elif cfg.mlp != MLPKind.NONE:
-        x = x + mlp_apply(p["mlp"], h, cfg.mlp.value)
+        x = x + mlp_apply(p["mlp"], h, cfg.mlp.value, tp=ctx.tp)
     return x, new_cache
 
 
@@ -149,7 +152,7 @@ def _cross_attn(p: Params, x: torch.Tensor, ctx: BlockCtx,
                                                             dims.hd)
     xout, _ = attn_apply(p["xattn"], h, dims, causal=False, theta=0.0,
                          positions=ctx.positions, q_chunk=cfg.attn_q_chunk,
-                         kv=(ck, cv))
+                         kv=(ck, cv), tp=ctx.tp)
     promoted = torch.promote_types(x.dtype, xout.dtype)
     if promoted != x.dtype:
         raise TypeError(

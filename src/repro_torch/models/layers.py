@@ -5,6 +5,13 @@ Plain functions over dictionaries of tensors, in the reference's layouts
 carry over from the JAX package as they are (``models.convert``).  Every
 ``*_init`` draws from an explicit ``torch.Generator`` on the target device.
 
+Under tensor parallelism (``tp``, a ``launch.mesh.Axis``; None at tp =
+1) attention, the MLP and the MoE take the rank's shards of their weights
+(heads, ``d_ff`` columns, experts) and run between the Megatron
+operators of ``distributed.tensor_parallel``: ``copy_to`` on the input of
+the column-parallel products, ``reduce_from`` on the row-parallel
+output, where the reference's sharding constraint returns to replicated.
+
 Two layer functions run the port's CUDA kernels on CUDA tensors:
 
 * ``sdpa_chunked`` (prefill and training attention) launches
@@ -195,7 +202,7 @@ def attn_apply(p: Params, x: torch.Tensor, dims: AttnDims, *, causal: bool,
                theta: float, positions: torch.Tensor, q_chunk: int = 0,
                kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
                cache: Optional[Params] = None,
-               cache_index: Optional[int] = None
+               cache_index: Optional[int] = None, tp=None
                ) -> tuple[torch.Tensor, Optional[Params]]:
     """Self- or cross-attention with an optional KV cache.
 
@@ -208,14 +215,17 @@ def attn_apply(p: Params, x: torch.Tensor, dims: AttnDims, *, causal: bool,
       keys and values are written into the cache in place at
       ``cache_index``, and x attends over the cache up to
       ``cache_index + S``.
-    Returns (out, the cache or None).
+    Returns (out, the cache or None).  Under ``tp``, ``dims`` holds the
+    rank's head counts (and ``kv`` its heads).
     """
     B, S, _ = x.shape
+    x = _tp().copy_to(x, tp) if tp is not None else x
     q = dense(p["wq"], x).reshape(B, S, dims.n_q, dims.hd)
     if kv is not None:
         q = rope(q, positions, theta) if theta > 0 else q
         out = sdpa_chunked(q, *kv, causal=False, q_chunk=q_chunk or S)
-        return dense(p["wo"], out.reshape(B, S, dims.n_q * dims.hd)), None
+        return _row_out(p["wo"], out.reshape(B, S, dims.n_q * dims.hd),
+                        tp), None
     k = dense(p["wk"], x).reshape(B, S, dims.n_kv, dims.hd)
     v = dense(p["wv"], x).reshape(B, S, dims.n_kv, dims.hd)
     if theta > 0:
@@ -231,7 +241,18 @@ def attn_apply(p: Params, x: torch.Tensor, dims: AttnDims, *, causal: bool,
     else:
         out = sdpa_chunked(q, k, v, causal=causal, q_chunk=q_chunk or S)
     out = out.reshape(B, S, dims.n_q * dims.hd)
-    return dense(p["wo"], out), cache
+    return _row_out(p["wo"], out, tp), cache
+
+
+def _tp():
+    from repro_torch.distributed import tensor_parallel
+    return tensor_parallel
+
+
+def _row_out(p: Params, h: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel product; under ``tp`` the partial sums added up."""
+    y = dense(p, h)
+    return _tp().reduce_from(y, tp) if tp is not None else y
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +269,16 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, kind: str,
             "wo": dense_init(gen, d_ff, d, dtype)}
 
 
-def mlp_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+def mlp_apply(p: Params, x: torch.Tensor, kind: str, tp=None
+              ) -> torch.Tensor:
+    """The MLP; under ``tp`` on the rank's ``d_ff`` columns."""
+    if tp is None:
+        return _mlp_partial(p, x, kind)
+    return _tp().reduce_from(_mlp_partial(p, _tp().copy_to(x, tp), kind),
+                             tp)
+
+
+def _mlp_partial(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     h = dense(p["wi"], x)
     if kind == "swiglu":
         h = silu(dense(p["wg"], x)) * h
@@ -314,7 +344,8 @@ def router_top_k(logits: torch.Tensor, k: int
     return vals[..., :k], idx[..., :k]
 
 
-def moe_apply(p: Params, x: torch.Tensor, dims: MoEDims) -> torch.Tensor:
+def moe_apply(p: Params, x: torch.Tensor, dims: MoEDims, tp=None
+              ) -> torch.Tensor:
     """Top-k capacity-based MoE over flattened tokens.
 
     Tokens go in groups of ``group_size``; each group one-hot dispatches
@@ -323,6 +354,14 @@ def moe_apply(p: Params, x: torch.Tensor, dims: MoEDims) -> torch.Tensor:
     A (token, choice) past its expert's capacity in the group (counted in
     token order, choices in rank order) is dropped: the token falls
     through to the residual for it.  The shared experts see every token.
+
+    Under ``tp`` the router runs whole on every rank (replicated, as in
+    the reference); the rank runs its block of the experts (the experts
+    over the model axis) or every expert on its ``d_ff`` columns (the FSDP
+    layout at a data axis of 1), and its shared experts' columns; the
+    partial outputs are added up once.  The routing weights enter the
+    rank's share through ``copy_to``, so the router's gradient sums every
+    rank's experts.
     """
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
@@ -338,6 +377,9 @@ def moe_apply(p: Params, x: torch.Tensor, dims: MoEDims) -> torch.Tensor:
     weights, sel = router_top_k(logits, k)                    # [T, k]
     weights = torch.softmax(weights, dim=-1)
 
+    if tp is not None:
+        xt = _tp().copy_to(xt, tp)
+        weights = _tp().copy_to(weights, tp)
     sel_g = sel.reshape(G, g, k)
     w_g = weights.reshape(G, g, k)
     x_g = xt.reshape(G, g, d)
@@ -352,6 +394,11 @@ def moe_apply(p: Params, x: torch.Tensor, dims: MoEDims) -> torch.Tensor:
     slot = F.one_hot(slot_idx + 1, cap + 1)[..., 1:].float()  # [.., E, cap]
     dispatch = (onehot[..., None] * slot).sum(dim=2)          # [G, g, E, cap]
     combine = (w_g[..., None, None] * onehot[..., None] * slot).sum(dim=2)
+    e_local = p["wi"].shape[0]
+    if e_local != E:          # this rank's block of the experts
+        lo = tp.rank * e_local
+        dispatch = dispatch[:, :, lo:lo + e_local]
+        combine = combine[:, :, lo:lo + e_local]
 
     xs = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), x_g)
     h = torch.einsum("gecd,edf->gecf", xs, p["wi"].to(x.dtype))
@@ -361,8 +408,9 @@ def moe_apply(p: Params, x: torch.Tensor, dims: MoEDims) -> torch.Tensor:
     out = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ys)
     out = out.reshape(B, S, d)
     if dims.n_shared:
-        out = out + mlp_apply(p["shared"], x, "swiglu")
-    return out
+        out = out + _mlp_partial(p["shared"], xt.reshape(B, S, d),
+                                 "swiglu")
+    return _tp().reduce_from(out, tp) if tp is not None else out
 
 
 # ---------------------------------------------------------------------------

@@ -8,12 +8,25 @@ it returns new parameter and state trees and leaves its inputs as they
 are, so fault recovery is "restore the trees, continue".  Its metrics
 (loss, grad_norm, step) are device tensors; reading them is the caller's
 one sync.
+
+The train, prefill and decode makers take ``par`` (a rank's
+``distributed.tensor_parallel.Parallel``) for a sharded cell: the steps
+are then given the global batch and take the rank's rows; the parameters
+are the rank's shards.  Prefill and decode return the global batch's logits over the whole vocab on every
+rank (the cache stays the rank's); the train step sums the gradients over
+the batch axes, clips by the global norm over the tensor-parallel shards,
+and updates under ZeRO-1: each data rank updates its block of every
+parameter (``sharding.zero1_specs``) with the moments it keeps, and the
+blocks are gathered.  Loss, grad norm and step are the same on every rank.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.launch.platform import device_upload, resolve_device
 from repro_torch.optim import adamw
 from repro_torch.optim.tree import tree_leaves, tree_map, tree_unflatten
@@ -41,14 +54,15 @@ def _indexed(device: torch.device) -> torch.device:
 
 
 def loss_and_grads(cfg: ArchConfig, dims: ModelDims, params, batch: dict,
-                   remat: bool = True, remat_policy: str = "nothing"):
+                   remat: bool = True, remat_policy: str = "nothing",
+                   par=None):
     """``(loss, grads)`` of ``loss_fn`` at ``params`` (the reference's
     ``jax.value_and_grad``): grads a tree like ``params``, zeros for a
     leaf the loss does not reach.  ``batch`` must be on the parameters'
     device (``batch_to_device``)."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     loss = loss_fn(cfg, dims, tree_unflatten(params, leaves), batch,
-                   remat=remat, remat_policy=remat_policy)
+                   remat=remat, remat_policy=remat_policy, par=par)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
@@ -57,7 +71,7 @@ def loss_and_grads(cfg: ArchConfig, dims: ModelDims, params, batch: dict,
 
 def make_train_step(cfg: ArchConfig, dims: ModelDims, opt: adamw.AdamWConfig,
                     remat: bool = True, accum_steps: int = 1,
-                    remat_policy: str = "nothing", device=None):
+                    remat_policy: str = "nothing", device=None, par=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt, metrics).
 
     ``accum_steps`` > 1 splits the batch into microbatches, one backward
@@ -73,13 +87,16 @@ def make_train_step(cfg: ArchConfig, dims: ModelDims, opt: adamw.AdamWConfig,
 
     def grads_of(params, batch):
         return loss_and_grads(cfg, dims, params, batch, remat=remat,
-                              remat_policy=remat_policy)
+                              remat_policy=remat_policy, par=par)
 
     def train_step(params, opt_state, batch):
         first = tree_leaves(params)[0]
         if _indexed(first.device) != device:
             raise ValueError(f"train_step runs on {device}; the parameters "
                              f"are on {first.device}")
+        if par is not None:
+            batch = {k: tpl.local_rows(v, par, accum_steps)
+                     for k, v in batch.items()}
         batch = batch_to_device(batch, device)
         if accum_steps == 1:
             loss, grads = grads_of(params, batch)
@@ -98,11 +115,35 @@ def make_train_step(cfg: ArchConfig, dims: ModelDims, opt: adamw.AdamWConfig,
             grads = tree_map(lambda g, p: (g / accum_steps).to(p.dtype), acc,
                              params)
             loss = torch.stack(losses).mean()
+        if par is not None:
+            return _sharded_update(params, opt_state, grads, loss)
         new_params, new_state = adamw.apply_updates(opt, params, grads,
                                                     opt_state)
         metrics = {"loss": loss, "grad_norm": adamw.global_norm(grads),
                    "step": new_state["step"]}
         return new_params, new_state, metrics
+
+    specs = {}
+
+    def _sharded_update(params, opt_state, grads, loss):
+        if not specs:
+            specs["p"] = shd.param_specs(cfg, params)
+            specs["z"] = shd.zero1_specs(specs["p"], params, par.data.size)
+        grads = tpl.reduce_grads(grads, par)
+        if par.dp.size > 1:
+            loss = coll.all_reduce(loss.clone(), par.dp.group)
+        gnorm = tpl.grad_norm(grads, specs["p"], par)
+        z = specs["z"]
+        new_view, new_state = adamw.apply_updates(
+            opt, shd.tree_map_specs(
+                lambda t, s: tpl.zero_view(t, s, par), params, z),
+            shd.tree_map_specs(lambda t, s: tpl.zero_view(t, s, par), grads,
+                               z), opt_state, gnorm=gnorm)
+        new_params = shd.tree_map_specs(
+            lambda t, s, p: tpl.zero_gather(t, s, par, p), new_view, z,
+            params)
+        return new_params, new_state, {"loss": loss, "grad_norm": gnorm,
+                                       "step": new_state["step"]}
 
     return train_step
 
@@ -119,19 +160,34 @@ def make_eval_step(cfg: ArchConfig, dims: ModelDims, device=None):
     return eval_step
 
 
-def make_prefill_step(cfg: ArchConfig, dims: ModelDims, max_cache_len: int):
+def _rows(batch: dict, par) -> dict:
+    return {k: tpl.local_rows(v, par) if v is not None else None
+            for k, v in batch.items()}
+
+
+def make_prefill_step(cfg: ArchConfig, dims: ModelDims, max_cache_len: int,
+                      par=None):
     def prefill_step(params, batch):
-        return prefill(cfg, dims, params, batch, max_cache_len)
+        if par is None:
+            return prefill(cfg, dims, params, batch, max_cache_len)
+        logits, cache = prefill(cfg, dims, params, _rows(batch, par),
+                                max_cache_len, par=par)
+        return tpl.gather_rows(logits, par), cache
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig, dims: ModelDims):
+def make_decode_step(cfg: ArchConfig, dims: ModelDims, par=None):
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
 
     def serve_step(params, tokens, cache, index: int, cross_ctx=None):
-        return decode_step(cfg, dims, params, tokens, cache, index,
-                           cross_ctx=cross_ctx)
+        if par is None:
+            return decode_step(cfg, dims, params, tokens, cache, index,
+                               cross_ctx=cross_ctx)
+        rows = _rows({"t": tokens, "c": cross_ctx}, par)
+        logits, cache = decode_step(cfg, dims, params, rows["t"], cache,
+                                    index, cross_ctx=rows["c"], par=par)
+        return tpl.gather_rows(logits, par), cache
 
     return serve_step
 

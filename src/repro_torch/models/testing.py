@@ -69,7 +69,8 @@ def synth_batch(cfg: ArchConfig, batch: int = 2, seq: int = 32,
 
 
 def numpy_tree(cfg: ArchConfig, seed: int = 0,
-               tie_router: bool = False) -> dict:
+               tie_router: bool = False,
+               dims: Optional[ModelDims] = None) -> dict:
     """Seeded float32 weights in the JAX package's parameter layout.
 
     The tree ``repro.models.init_params`` returns (per pattern position the
@@ -82,10 +83,13 @@ def numpy_tree(cfg: ArchConfig, seed: int = 0,
     (tanh 0.46 to 0.76): the reference initialises it to 0, where the cross
     branch adds nothing and a parity test would check none of it.
     ``tie_router`` copies router column 0 into column 1, so experts 0 and 1 tie
-    on every token's router logits.
+    on every token's router logits.  ``dims``: the padded counts of
+    ``ModelDims.create(cfg, tp)`` (heads, KV heads, experts, vocab; default
+    tp = 1, the unpadded model), the padded entries drawn like the rest.
     """
     rng = np.random.default_rng(seed)
     d, hd = cfg.d_model, cfg.hd
+    dims = dims or ModelDims.create(cfg)
 
     def normal(shape, scale):
         return (rng.standard_normal(shape) * scale).astype(np.float32)
@@ -105,8 +109,8 @@ def numpy_tree(cfg: ArchConfig, seed: int = 0,
 
     def moe_layer():
         m = cfg.moe
-        E, f = m.n_experts, m.expert_d_ff
-        p = {"router": normal((d, E), 1.0 / math.sqrt(d)),
+        E, f = dims.expert_pad, m.expert_d_ff
+        p = {"router": normal((d, m.n_experts), 1.0 / math.sqrt(d)),
              "wi": normal((E, d, f), 1.0 / math.sqrt(d)),
              "wg": normal((E, d, f), 1.0 / math.sqrt(d)),
              "wo": normal((E, f, d), 1.0 / math.sqrt(f))}
@@ -117,10 +121,10 @@ def numpy_tree(cfg: ArchConfig, seed: int = 0,
         return p
 
     def attn():
-        return {"wq": dense(d, cfg.n_heads * hd, cfg.qkv_bias),
-                "wk": dense(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-                "wv": dense(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-                "wo": dense(cfg.n_heads * hd, d)}
+        return {"wq": dense(d, dims.n_q_pad * hd, cfg.qkv_bias),
+                "wk": dense(d, dims.n_kv_pad * hd, cfg.qkv_bias),
+                "wv": dense(d, dims.n_kv_pad * hd, cfg.qkv_bias),
+                "wo": dense(dims.n_q_pad * hd, d)}
 
     def attn_block(kind=BlockKind.ATTN):
         p = {"ln1": norm(d), "ln2": norm(d), "attn": attn()}
@@ -181,12 +185,12 @@ def numpy_tree(cfg: ArchConfig, seed: int = 0,
             layers[f"p{pi}"] = {}
         else:
             raise KeyError(kind)
-    tree = {"embed": normal((cfg.vocab, d), 0.02), "layers": layers,
+    tree = {"embed": normal((dims.vocab_pad, d), 0.02), "layers": layers,
             "final_ln": norm(d)}
     if BlockKind.SHARED_ATTN in cfg.block_pattern:
         tree["shared_attn"] = attn_block()
     if not cfg.tie_embeddings:
-        tree["lm_head"] = dense(d, cfg.vocab)
+        tree["lm_head"] = dense(d, dims.vocab_pad)
     return tree
 
 

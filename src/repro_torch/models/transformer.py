@@ -5,8 +5,14 @@ Parameters are plain dictionaries of tensors.  Where the reference stacks
 each pattern position's parameters over the super-block axis and runs the
 stack under ``jax.lax.scan``, the port keeps one dictionary per layer
 (``params["layers"][super_block][position]``) and runs the super-blocks in a
-Python loop.  The port runs at tp=1 on one card: no padding of heads,
-vocab or experts, no sharding.
+Python loop.  ``ModelDims.create(cfg, tp)`` pads query heads, KV heads,
+vocab and experts to the tensor-parallel degree as the reference does
+(exact at tp = 1).  Every entry point takes ``par``, a rank's
+``distributed.tensor_parallel.Parallel``: the batch it is given is then the
+rank's rows, the parameters its shards (``init_params(shard=...)``), and
+the blocks run on the rank's heads, ``d_ff`` columns, experts and vocab
+columns with the Megatron collectives between them; ``par=None`` is the
+one-device path.
 
 Caches mirror the layer list (``cache[super_block][position]``).  Prefill
 and decode write the attention KV caches in place and replace each Mamba-2
@@ -37,32 +43,49 @@ from .layers import dense_init, rmsnorm, rmsnorm_init
 Params = dict
 
 
+def _pad_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelDims:
-    """Head, vocab and expert counts of the stack (exact: the port runs at
-    tp=1, where the reference pads nothing: ``expert_pad`` is the expert
-    count of an MoE model, 1 otherwise)."""
+    """Head, vocab and expert counts of the stack, padded to the
+    tensor-parallel degree ``tp`` (exact at tp = 1; ``expert_pad`` is 1
+    without MoE)."""
     n_q_pad: int
     n_kv_pad: int
     vocab_pad: int
     expert_pad: int = 1
+    tp: int = 1
 
     @staticmethod
-    def create(cfg: ArchConfig) -> "ModelDims":
-        return ModelDims(n_q_pad=cfg.n_heads, n_kv_pad=cfg.n_kv_heads,
-                         vocab_pad=cfg.vocab,
-                         expert_pad=cfg.moe.n_experts if cfg.moe else 1)
+    def create(cfg: ArchConfig, tp: int = 1) -> "ModelDims":
+        """The reference's padding: query heads, vocab and experts to a
+        multiple of tp; KV heads likewise, and to tp itself where tp
+        exceeds them (each rank keeps a KV head of its own)."""
+        n_kv = cfg.n_kv_heads if cfg.n_kv_heads % tp == 0 else _pad_to(
+            cfg.n_kv_heads, tp)
+        if tp > cfg.n_kv_heads:
+            n_kv = tp
+        return ModelDims(n_q_pad=_pad_to(cfg.n_heads, tp), n_kv_pad=n_kv,
+                         vocab_pad=_pad_to(cfg.vocab, tp),
+                         expert_pad=(_pad_to(cfg.moe.n_experts, tp)
+                                     if cfg.moe else 1), tp=tp)
 
 
 def make_ctx(cfg: ArchConfig, dims: ModelDims, mode: str,
              positions: torch.Tensor, cache_index: Optional[int] = None,
              cross_ctx: Optional[torch.Tensor] = None,
-             max_cache_len: int = 0) -> BlockCtx:
+             max_cache_len: int = 0, par=None) -> BlockCtx:
+    """The blocks' context; with ``par`` at tp > 1 the head counts are the
+    rank's (the padded counts over tp) and ``tp`` its axis."""
+    tp = par.tp_axis if par is not None else None
+    n = tp.size if tp is not None else 1
     return BlockCtx(cfg=cfg, mode=mode, positions=positions,
                     cache_index=cache_index, cross_ctx=cross_ctx,
-                    n_q_pad=dims.n_q_pad,
-                    n_kv_pad=dims.n_kv_pad, expert_pad=dims.expert_pad,
-                    max_cache_len=max_cache_len)
+                    n_q_pad=dims.n_q_pad // n,
+                    n_kv_pad=dims.n_kv_pad // n, expert_pad=dims.expert_pad,
+                    max_cache_len=max_cache_len, tp=tp)
 
 
 def _dtype(dtype) -> torch.dtype:
@@ -76,7 +99,7 @@ def _dtype(dtype) -> torch.dtype:
 
 def init_params(cfg: ArchConfig, dims: ModelDims, *,
                 generator: torch.Generator,
-                dtype=torch.bfloat16) -> Params:
+                dtype=torch.bfloat16, shard=None) -> Params:
     """Random weights drawn from ``generator``, on the generator's device.
 
     Draws are made on the device (a CUDA generator for the card), in the
@@ -84,26 +107,34 @@ def init_params(cfg: ArchConfig, dims: ModelDims, *,
     the same seed gives other weights (``models.convert`` carries the
     reference's own).  Mamba-2's ``A_log``, ``D`` and ``dt_bias`` are
     float32 whatever ``dtype`` is, as in the reference.
+
+    ``shard(path, subtree)``, where given, cuts each layer, the embedding,
+    the final norm and the head as soon as it is drawn (the whole model
+    never lies on one rank); the draws are those of the unsharded call.
     """
     dtype = _dtype(dtype)
     dev = generator.device
     ctx = make_ctx(cfg, dims, "full", torch.zeros((1,), dtype=torch.long))
     pattern = cfg.block_pattern
-    layers = [[block_init(generator, cfg, ctx, dtype, kind)
-               for kind in pattern] for _ in range(cfg.n_super_blocks)]
+    cut = shard if shard is not None else (lambda path, tree: tree)
+    layers = [[cut(("layers", si, pi),
+                   block_init(generator, cfg, ctx, dtype, kind))
+               for pi, kind in enumerate(pattern)]
+              for si in range(cfg.n_super_blocks)]
     params: Params = {
-        "embed": (torch.randn((dims.vocab_pad, cfg.d_model),
-                              generator=generator, device=dev)
-                  * 0.02).to(dtype),
+        "embed": cut(("embed",), (torch.randn(
+            (dims.vocab_pad, cfg.d_model), generator=generator, device=dev)
+            * 0.02).to(dtype)),
         "layers": layers,
-        "final_ln": rmsnorm_init(cfg.d_model, dtype, dev),
+        "final_ln": cut(("final_ln",),
+                        rmsnorm_init(cfg.d_model, dtype, dev)),
     }
     if BlockKind.SHARED_ATTN in pattern:
-        params["shared_attn"] = block_init(generator, cfg, ctx, dtype,
-                                           BlockKind.ATTN)
+        params["shared_attn"] = cut(("shared_attn",), block_init(
+            generator, cfg, ctx, dtype, BlockKind.ATTN))
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(generator, cfg.d_model,
-                                       dims.vocab_pad, dtype)
+        params["lm_head"] = cut(("lm_head",), dense_init(
+            generator, cfg.d_model, dims.vocab_pad, dtype))
     return params
 
 
@@ -111,12 +142,18 @@ def init_params(cfg: ArchConfig, dims: ModelDims, *,
 # forward (full sequence: prefill) and the training loss
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ArchConfig, params: Params, batch: dict
-           ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _embed(cfg: ArchConfig, params: Params, batch: dict, dims=None,
+           tp=None) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The stack's input in the model's type, and the batch's
-    ``cross_ctx`` (the VLM's context, in its own type) or None."""
+    ``cross_ctx`` (the VLM's context, in its own type) or None.  ``tp``:
+    the rank's block of the embedding (``tensor_parallel.embed_lookup``)."""
     if cfg.frontend_stub and "frames" in batch:
         x = batch["frames"]
+    elif tp is not None:
+        from repro_torch.distributed import tensor_parallel as tpl
+        x = tpl.embed_lookup(batch["tokens"], params["embed"],
+                             cfg.tie_embeddings, tp, dims.vocab_pad,
+                             cfg.d_model)
     else:
         # a gather; its backward sums repeated tokens in a fixed order on
         # the card (a sort, not float atomics), so training reruns bit for
@@ -126,10 +163,15 @@ def _embed(cfg: ArchConfig, params: Params, batch: dict
             batch.get("cross_ctx"))
 
 
-def _logits(cfg: ArchConfig, params: Params, x: torch.Tensor
-            ) -> torch.Tensor:
+def _logits(cfg: ArchConfig, params: Params, x: torch.Tensor, dims=None,
+            tp=None) -> torch.Tensor:
+    """Logits over the whole (padded) vocab; under ``tp`` each rank's
+    vocab columns, gathered."""
     x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    if tp is not None:
+        from repro_torch.distributed import tensor_parallel as tpl
+        return tpl.gather_last(tpl.logits(x, w, tp), tp, dims.vocab_pad)
     return x @ w.to(x.dtype)
 
 
@@ -196,24 +238,27 @@ def _run_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
 
 
 def forward(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
-            return_cache: bool = False, max_cache_len: int = 0
-            ) -> tuple[torch.Tensor, Optional[list]]:
+            return_cache: bool = False, max_cache_len: int = 0, par=None,
+            last_only: bool = False) -> tuple[torch.Tensor, Optional[list]]:
     """Full-sequence forward.  batch: tokens [B, S] (or frames [B, S, d]),
     and cross_ctx [B, Tctx, d] for a VLM.  Returns (logits [B, S, vocab],
-    the filled cache or None)."""
-    x, cross = _embed(cfg, params, batch)
+    the filled cache or None); ``last_only``: the last position's logits
+    alone ([B, 1, vocab])."""
+    tp = par.tp_axis if par is not None else None
+    x, cross = _embed(cfg, params, batch, dims, tp)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :]
     ctx = make_ctx(cfg, dims, "full", positions, cross_ctx=cross,
-                   max_cache_len=max_cache_len or S)
+                   max_cache_len=max_cache_len or S, par=par)
     cache = None
     if return_cache:
         cache = init_cache(cfg, dims, B, max_cache_len or S, x.dtype,
-                           x.device)
+                           x.device, par=par)
         # prefill fills positions [0, S) of the attention caches
         ctx = dataclasses.replace(ctx, cache_index=0)
     x, cache = _run_stack(cfg, params, x, ctx, cache)
-    return _logits(cfg, params, x), cache
+    return _logits(cfg, params, x[:, -1:] if last_only else x, dims,
+                   tp), cache
 
 
 def _chunk_loss(xc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor
@@ -227,9 +272,20 @@ def _chunk_loss(xc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor
     return ((lse - ll) * mask).sum(), mask.sum()
 
 
+def _chunk_loss_tp(xc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor,
+                   tp, vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_chunk_loss`` from the rank's vocab columns
+    (``tensor_parallel.cross_entropy_terms``)."""
+    from repro_torch.distributed import tensor_parallel as tpl
+    terms = tpl.cross_entropy_terms(tpl.logits(xc, w, tp).float(), lc, tp,
+                                    vocab)
+    mask = (lc >= 0).float()
+    return (terms * mask).sum(), mask.sum()
+
+
 def loss_fn(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
             remat: bool = True, loss_chunk: int = 512,
-            remat_policy: str = "nothing") -> torch.Tensor:
+            remat_policy: str = "nothing", par=None) -> torch.Tensor:
     """Cross-entropy with sequence-chunked, recomputed logits (the
     reference's ``loss_fn``).
 
@@ -238,12 +294,18 @@ def loss_fn(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
     each chunk of ``loss_chunk`` positions forms its float32 logits inside a
     checkpoint, so the backward recomputes them and at most ``B x loss_chunk x
     vocab`` logits live at a time.  Returns the mean over labels >= 0.
+
+    With ``par`` the batch is the rank's rows and the loss its share of
+    the global mean (its rows' sum over the global count of labels), so
+    that the shares, and their gradients, sum over the batch axes to the
+    global mean's (``tensor_parallel.reduce_grads``).
     """
-    x, cross = _embed(cfg, params, batch)
+    tp = par.tp_axis if par is not None else None
+    x, cross = _embed(cfg, params, batch, dims, tp)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :]
     ctx = make_ctx(cfg, dims, "full", positions, cross_ctx=cross,
-                   max_cache_len=S)
+                   max_cache_len=S, par=par)
     x, _ = _run_stack(cfg, params, x, ctx, None, remat=remat,
                       remat_policy=remat_policy)
     x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
@@ -252,11 +314,20 @@ def loss_fn(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
     c = min(loss_chunk, S)
     if S % c:
         c = S
-    sums = [ckpt.checkpoint(_chunk_loss, x[:, i:i + c], labels[:, i:i + c],
-                            w, use_reentrant=False)
-            for i in range(0, S, c)]
+    if tp is None:
+        sums = [ckpt.checkpoint(_chunk_loss, x[:, i:i + c],
+                                labels[:, i:i + c], w, use_reentrant=False)
+                for i in range(0, S, c)]
+    else:
+        sums = [ckpt.checkpoint(_chunk_loss_tp, x[:, i:i + c],
+                                labels[:, i:i + c], w, tp, dims.vocab_pad,
+                                use_reentrant=False)
+                for i in range(0, S, c)]
     total = torch.stack([t for t, _ in sums]).sum()
     n = torch.stack([m for _, m in sums]).sum()
+    if par is not None and par.dp.size > 1:
+        from repro_torch.distributed import collectives
+        n = collectives.all_reduce(n.detach().clone(), par.dp.group)
     return total / torch.clamp_min(n, 1.0)
 
 
@@ -265,36 +336,40 @@ def loss_fn(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, dims: ModelDims, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> list:
-    """Zeroed caches, one per layer (``[super_block][position]``)."""
+               dtype=torch.bfloat16, device=None, par=None) -> list:
+    """Zeroed caches, one per layer (``[super_block][position]``); with
+    ``par``, of the rank's KV heads (``batch`` is the rank's rows)."""
     ctx = make_ctx(cfg, dims, "full", torch.zeros((1,), dtype=torch.long),
-                   max_cache_len=max_len)
+                   max_cache_len=max_len, par=par)
     return [[block_cache(cfg, ctx, batch, _dtype(dtype), kind, device)
              for kind in cfg.block_pattern]
             for _ in range(cfg.n_super_blocks)]
 
 
 def prefill(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
-            max_cache_len: int) -> tuple[torch.Tensor, list]:
-    """Run the prompt, return (last-token logits, filled cache)."""
+            max_cache_len: int, par=None) -> tuple[torch.Tensor, list]:
+    """Run the prompt, return (last-token logits, filled cache); with
+    ``par`` only the last position's logits are formed."""
     logits, cache = forward(cfg, dims, params, batch, return_cache=True,
-                            max_cache_len=max_cache_len)
+                            max_cache_len=max_cache_len, par=par,
+                            last_only=par is not None)
     return logits[:, -1], cache
 
 
 def decode_step(cfg: ArchConfig, dims: ModelDims, params: Params,
                 tokens: torch.Tensor, cache: list, index: int,
-                cross_ctx: Optional[torch.Tensor] = None
+                cross_ctx: Optional[torch.Tensor] = None, par=None
                 ) -> tuple[torch.Tensor, list]:
     """One autoregressive step.  tokens: [B, 1]; index: the position (a
     Python int).  A VLM's cross blocks read the context's keys and values
     from the cache prefill filled; ``cross_ctx`` is read only by a cache
     without them, as in the reference."""
+    tp = par.tp_axis if par is not None else None
     x, cross = _embed(cfg, params, {"tokens": tokens,
-                                    "cross_ctx": cross_ctx})
+                                    "cross_ctx": cross_ctx}, dims, tp)
     positions = torch.full((x.shape[0], 1), index, dtype=torch.long,
                            device=x.device)
     ctx = make_ctx(cfg, dims, "decode", positions, cache_index=index,
-                   cross_ctx=cross)
+                   cross_ctx=cross, par=par)
     x, cache = _run_stack(cfg, params, x, ctx, cache)
-    return _logits(cfg, params, x)[:, 0], cache
+    return _logits(cfg, params, x, dims, tp)[:, 0], cache

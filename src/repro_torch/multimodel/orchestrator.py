@@ -14,11 +14,13 @@ Pipeline, as in the reference:
      ``TPU_NPE``, ``tpu_chip_classes``: the reference's pod model, copied
      bit for bit so that plans match; they are the cost model's inputs,
      not this card's numbers);
-  3. ``realize``: on one H100 there is no sub-mesh to build, so every
-     placement of a window runs on the one card at tp = 1, with seeded
-     weights (or weights carried across from the JAX package as numpy
-     trees), and its prefill function runs there.  Sub-meshes across
-     several devices wait for the port of ``distributed/``.
+  3. ``realize``: each placement of a window gets the ranks at its
+     chips' coordinates of ``mesh`` (the pod's rows x columns over the
+     launched ranks) as a ``(data, model)`` sub-mesh, tensor parallel over
+     all of them where the arch is ``tp``-style and its heads divide, else
+     data parallel, with seeded weights (or weights carried across from the
+     JAX package as numpy trees), and its prefill function runs there.
+     Without ``mesh`` every placement runs on the one device at tp = 1.
 """
 from __future__ import annotations
 
@@ -36,8 +38,8 @@ from repro_torch.models import ModelDims, get_arch, init_params
 from repro_torch.models.config import ArchConfig
 
 __all__ = ["TPU_NPE", "TPU_PKG", "ModelPlacement", "PodPlan", "ServeRequest",
-           "arch_to_workload", "make_pod_mcm", "plan", "realize",
-           "tpu_chip_classes"]
+           "arch_to_workload", "make_pod_mcm", "placement_tp", "plan",
+           "realize", "tpu_chip_classes"]
 
 # The reference's v5e-flavoured package constants for the pod-as-MCM cost
 # model (inputs of the cost model, not measurements of this card).
@@ -140,13 +142,31 @@ def plan(requests: list[ServeRequest], rows: int = 16, cols: int = 16,
     return PodPlan(outcome=out, placements=placements, rows=rows, cols=cols)
 
 
+def placement_tp(cfg: ArchConfig, n: int) -> int:
+    """The reference's TP degree of a placement on n chips: n where the
+    arch is ``tp``-style and n divides its heads, else 1."""
+    from repro_torch.distributed.sharding import style_for
+    return n if (cfg.n_heads % n == 0 and style_for(cfg) == "tp") else 1
+
+
 def realize(plan_: PodPlan, requests: list[ServeRequest],
             device: Optional[torch.device | str] = None, window: int = 0,
             reduced_archs: bool = False, *,
             weights: Optional[dict] = None,
-            dtype: Optional[str] = None) -> dict:
+            dtype: Optional[str] = None, mesh=None) -> dict:
     """Build each model placed in ``window`` on ``device`` (None: the
     card) at tp = 1 and return ``{arch: (device, prefill_fn)}``.
+
+    With ``mesh`` (a ``launch.mesh.MeshSpec`` of the launched ranks whose
+    ``devices`` lay out as the pod's rows x columns; every rank calls):
+    each placement on n chips gets the ranks at its chips as a ``(data,
+    model)`` sub-mesh, ``(1, n)`` at ``tp = placement_tp(cfg, n)`` = n,
+    else ``(n, 1)`` with the batch ``max(batch, n)``, as the reference
+    builds it; a numpy tree in ``weights`` must be at
+    ``ModelDims.create(cfg, tp)``'s padded shapes.  Returns
+    ``{arch: (sub-mesh MeshSpec, prefill_fn)}`` for this rank's placements;
+    ``prefill_fn`` gives the whole batch's last-token logits on every rank
+    of the placement.
 
     Models are at full width unless ``reduced_archs`` (the reference's
     ``models.testing.reduced``).  Weights are drawn on the device from a
@@ -163,7 +183,11 @@ def realize(plan_: PodPlan, requests: list[ServeRequest],
     from repro_torch.models.steps import make_prefill_step
     from repro_torch.models.testing import reduced, synth_batch
 
-    dev = resolve_device(device)
+    if mesh is not None:
+        from repro_torch.launch.mesh import rank_device
+        dev = rank_device(device)
+    else:
+        dev = resolve_device(device)
     out = {}
     for pl_ in plan_.placements:
         if pl_.window != window:
@@ -174,24 +198,55 @@ def realize(plan_: PodPlan, requests: list[ServeRequest],
             cfg = reduced(cfg)
         if dtype is not None:
             cfg = dataclasses.replace(cfg, dtype=dtype)
-        dims = ModelDims.create(cfg)
+        par, where, batch_size = None, dev, req.batch
+        if mesh is not None:
+            par, batch_size = _sub_mesh(cfg, plan_, pl_, mesh, req.batch)
+            if not par.member:
+                continue
+            where = par.mesh.spec
+        dims = ModelDims.create(cfg, par.tp.size if par else 1)
+        shard = None if par is None else (
+            lambda path, tree, _c=cfg, _p=par: _tp().shard_params(
+                _c, tree, _p, path))
         with torch.inference_mode():
             if weights is not None and pl_.arch in weights:
                 params = params_from_numpy(cfg, weights[pl_.arch],
                                            device=dev, dtype=cfg.dtype)
+                if shard is not None:
+                    params = shard((), params)
             else:
                 params = init_params(cfg, dims, generator=torch.Generator(
-                    device=dev).manual_seed(0), dtype=cfg.dtype)
-        step = make_prefill_step(cfg, dims, max_cache_len=req.seq)
+                    device=dev).manual_seed(0), dtype=cfg.dtype,
+                    shard=shard)
+        step = make_prefill_step(cfg, dims, max_cache_len=req.seq, par=par)
 
         def prefill_fn(batch=None, _cfg=cfg, _req=req, _params=params,
-                       _step=step):
+                       _step=step, _b=batch_size):
             if batch is None:
-                batch = synth_batch(_cfg, batch=_req.batch, seq=_req.seq,
+                batch = synth_batch(_cfg, batch=_b, seq=_req.seq,
                                     seed=0, device=dev)
                 batch.pop("labels", None)
             with torch.inference_mode():
                 return _step(_params, batch)
 
-        out[pl_.arch] = (dev, prefill_fn)
+        out[pl_.arch] = (where, prefill_fn)
     return out
+
+
+def _tp():
+    from repro_torch.distributed import tensor_parallel
+    return tensor_parallel
+
+
+def _sub_mesh(cfg: ArchConfig, plan_: PodPlan, pl_: ModelPlacement, mesh,
+              batch: int):
+    """The placement's ``Parallel`` (built on every rank) and its batch."""
+    from repro_torch.launch.mesh import RankMesh, make_mesh
+    grid = mesh.devices.reshape(plan_.rows, plan_.cols)
+    ranks = tuple(int(grid[divmod(c, plan_.cols)]) for c in pl_.chips)
+    n = len(ranks)
+    tp = placement_tp(cfg, n)
+    if tp == 1:
+        batch = max(batch, n)
+    spec = make_mesh((n // tp, tp), ("data", "model"), ranks)
+    return _tp().make_parallel(cfg, RankMesh(spec), batch), batch

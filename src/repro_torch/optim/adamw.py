@@ -60,11 +60,14 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
-                  state: dict) -> tuple[Any, dict]:
-    """One AdamW step: ``(new params, new state)``."""
+                  state: dict, gnorm: torch.Tensor = None
+                  ) -> tuple[Any, dict]:
+    """One AdamW step: ``(new params, new state)``.  ``gnorm``: the
+    clipping norm where ``grads`` are blocks of the gradient (sharded
+    runs); default ``global_norm(grads)``."""
     step = state["step"] + 1
     lr = schedule(cfg, state["step"])
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
     bc1 = 1.0 - cfg.b1 ** step.float()
     bc2 = 1.0 - cfg.b2 ** step.float()
