@@ -291,6 +291,10 @@ ATTN_D128 = {"qwen2-moe-a2.7b": (4, 1024, 16, 16, 128),
 ATTN_TP2 = {"qwen2-moe-a2.7b": (4, 1024, 8, 8, 128),
             "minitron-8b": (4, 1024, 16, 4, 128)}
 XLSTM_SSD_DP2 = (2, 1024, 4, 256, 256)
+# and the attention of an FSDP rank at data = 2 (phase 16 (e)): qwen2.5-32b's
+# 40 query heads over 8 KV heads on two of the batch's four rows, its
+# serving and its training shape
+ATTN_FSDP = {"qwen2.5-32b": (2, 1024, 40, 8, 128)}
 # the models served at full width (phases 11 and 12), batch 4, prompt 1024:
 # each kernel's launches per prefill (one per layer of its kind)
 NEW_SERVE = {"qwen2-moe-a2.7b": {"flash_attention": 24, "ssd_scan": 0,
@@ -1540,6 +1544,25 @@ def new_shapes_phase(g, dev, smi) -> dict:
               f"q {(B, S, Hq, D)} over {Hkv} KV heads: max |kernel - "
               f"plain| {err!r} (within 2e-2 of max |plain|)")
         del q, k, v, out, ref
+    rec["flash_attention_fsdp"] = {}
+    for arch, (B, S, Hq, Hkv, D) in ATTN_FSDP.items():
+        q = randn((B, S, Hq, D), g, bf, dev)
+        k = randn((B, S, Hkv, D), g, bf, dev)
+        v = randn((B, S, Hkv, D), g, bf, dev)
+        out = flash_attention(q, k, v, causal=True)
+        ref = attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = of_max(out, ref, f"flash_attention at {arch}'s data = 2 shape")
+        print(f"flash_attention {arch} at a data = 2 rank's rows q "
+              f"{(B, S, Hq, D)} over {Hkv} KV heads: max |kernel - plain| "
+              f"{err!r} (within 2e-2 of max |plain|)")
+        rec["flash_attention_fsdp"][arch] = {
+            "shape": [B, S, Hq, Hkv, D], "max_abs_err": err,
+            **flash_call_record(q, k, v, {"causal": True},
+                                profiled_device_ms(lambda: flash_attention(
+                                    q, k, v, causal=True)),
+                                smi, f"{arch}'s data = 2 shape")}
+        del q, k, v, out, ref
     B, L, H, N, P = XLSTM_SSD_DP2
     rec["ssd_scan_dp2"] = {}
     for kind in ("", "views"):
@@ -2438,9 +2461,12 @@ def vlm_phase(dev, smi) -> dict:
 # (its shared attention; its Mamba-2 scan), the slow-decay SSD cases are
 # phase 2d's; float32 at small shapes, GQA at head_dim 128; the second
 # flash case is minitron-8b's training shape at tp = 2 (a rank's 16 query
-# heads over 4 KV heads, phase 16)
+# heads over 4 KV heads, phase 16); the third is qwen2.5-32b's training
+# shape at data = 2 (a rank's two of four rows, 40 query heads over 8 KV
+# heads, phase 16 (e))
 FLASH_BWD_CASES = ((4, 1024, 32, 32, 80, True, True),
                    (4, 1024, 16, 4, 128, True, True),
+                   (2, 1024, 40, 8, 128, True, True),
                    (2, 256, 8, 2, 128, True, True),
                    (2, 256, 8, 2, 128, True, False),
                    (2, 100, 4, 4, 64, False, False),
@@ -2623,6 +2649,35 @@ def profile_backward_kernels() -> None:
     print(json.dumps(out))
 
 
+def fsdp_bwd_record(q, k, v, o, do, lse, err, smi) -> dict:
+    """``flash_attention_bwd`` at an FSDP rank's training shape timed:
+    kernel and plain per call (CUDA events), the bound, and the backward
+    of ``F.scaled_dot_product_attention`` (``enable_gqa``) on the same
+    inputs."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_plain,
+                                                     flash_attention_bwd)
+    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse=lse))
+    plain_ms = cuda_ms(lambda: attention_bwd_plain(q, k, v, o, do), reps=5)
+    b_ms, b_by = flash_bwd_bound_ms(q, k, True)
+    lq, lk, lv = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    lout = torch.nn.functional.scaled_dot_product_attention(
+        lq, lk, lv, is_causal=True, enable_gqa=True)
+    ldo = do.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        lout, (lq, lk, lv), ldo, retain_graph=True))
+    del lout
+    print(f"flash_attention_bwd at qwen2.5-32b's data = 2 training shape "
+          f"(q {tuple(q.shape)} over k/v {tuple(k.shape)} bf16, causal): "
+          f"per call (CUDA events, median of 25) kernel {ms:.6f} ms, plain "
+          f"{plain_ms:.6f} ms; bound {b_ms:.6f} ms ({b_by}); the backward "
+          f"of F.scaled_dot_product_attention (enable_gqa) {lib_ms:.6f} ms; "
+          f"on {smi}")
+    return {"shape": list(q.shape[:3]) + [k.shape[2], q.shape[3]],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
 def backward_kernels_phase(g, dev, smi) -> dict:
     """Phase 14a-b: both backward kernels against their plain versions over
     the sweeps, then times at zamba2-2.7b's training shapes."""
@@ -2662,6 +2717,9 @@ def backward_kernels_phase(g, dev, smi) -> dict:
             out["flash_attention_bwd"] = {"args": (q, k, v, o, do, lse),
                                           "max_abs_err": err,
                                           "bit_equal_share": share}
+        if (B, S, Hq, Hkv, D) in ATTN_FSDP.values() and bf:
+            out["flash_attention_bwd_fsdp"] = fsdp_bwd_record(
+                q, k, v, o, do, lse, err, smi)
     for B, L, H, N, P, c, bc, slow, bf in SSD_BWD_CASES:
         dt = torch.bfloat16 if bf else torch.float32
         hq = 1 if bc else H
@@ -3042,6 +3100,22 @@ DIST_LEAF_REL = 2e-2
 DIST_GNORM_REL = 1e-2
 DIST_PSUM_N = 2 ** 20
 DIST_WALL_S = 900
+# (e) qwen2.5-32b at its published widths on a 2 x 1 mesh (data 2, model
+# 1: only FSDP shards it).  Gloo stages each gather through the host at
+# about 0.5 GiB/s (tp = 2 prefills above, on an H100 80GB) and a bf16
+# layer is 0.98 GB, so a forward costs about a second a layer: serving (a
+# bf16 prefill, FSDP_GEN - 1 decode steps, a float32 prefill) is cut to
+# FSDP_SERVE_LAYERS of 64 layers; training to FSDP_TRAIN_LAYERS, the most
+# that fits two ranks' AdamW state beside the whole embedding and head
+# each rank keeps at model = 1 (1.56 B parameters): 2 layers took 36.0 GiB
+# a rank, which fit two ranks alone (scripts/dist_phase_check.py) but ran
+# out of memory beside this script's own process, 78.45 of 79.18 GiB in
+# use on an H100 80GB
+FSDP_ARCH = "qwen2.5-32b"
+FSDP_SERVE_LAYERS = 6
+FSDP_TRAIN_LAYERS = 1
+FSDP_GEN = 4
+FSDP_LOGIT_REL = 5e-5
 
 
 def _dist_sync(dev) -> None:
@@ -3366,7 +3440,291 @@ def dist_psum(dev) -> dict:
             "coll": stats}
 
 
-def dist_rank(rank: int) -> dict:
+def _fsdp_want(params, pspecs, par) -> dict:
+    """The FSDP all-gathers one forward makes, as the code predicts them:
+    one a layer leaf whose spec shards it over 'data', of its block's
+    bytes."""
+    from repro_torch.distributed import sharding as shd
+    want = {"calls": 0, "bytes": 0}
+
+    def one(t, s):
+        if par.fsdp_leaf(s):
+            want["calls"] += 1
+            want["bytes"] += t.numel() * t.element_size()
+    shd.tree_map_specs(one, params["layers"], pspecs["layers"])
+    return want
+
+
+def _held_bytes(tree, pspecs, par) -> dict:
+    """Bytes of ``tree`` (parameters or a moment, like them) this rank
+    holds: its layer leaves sharded over 'data' beside what the rank
+    would hold of them without FSDP, its other layer leaves, and the rest
+    (embedding, head, final norm)."""
+    from repro_torch.distributed import sharding as shd
+    out = {"layers_fsdp": 0, "layers_fsdp_unsharded": 0, "layers_other": 0,
+           "rest": 0}
+
+    def layer(t, s):
+        n = t.numel() * t.element_size()
+        if par.fsdp_leaf(s):
+            out["layers_fsdp"] += n
+            out["layers_fsdp_unsharded"] += n * par.fsdp.size
+        else:
+            out["layers_other"] += n
+
+    def rest(t, s):
+        out["rest"] += t.numel() * t.element_size()
+    shd.tree_map_specs(layer, tree["layers"], pspecs["layers"])
+    shd.tree_map_specs(rest, {k: v for k, v in tree.items()
+                              if k != "layers"},
+                       {k: v for k, v in pspecs.items() if k != "layers"})
+    return out
+
+
+def _fsdp_calls(stats: dict, want: dict, passes: int, what: str) -> dict:
+    """The FSDP all-gathers and reduce-scatters of a run against
+    ``passes`` times the predicted gathers (a training step gathers in
+    the forward and again in the backward's recomputation, and reduces
+    each gradient once)."""
+    got = {op: stats.get(f"fsdp_{op}", {}).get("calls", 0)
+           for op in ("all_gather", "all_reduce")}
+    check(got["all_gather"] == passes * want["calls"],
+          f"{what}: {got['all_gather']} FSDP all-gathers, the code predicts "
+          f"{passes} x {want['calls']}")
+    if passes > 1:
+        check(got["all_reduce"] == want["calls"],
+              f"{what}: {got['all_reduce']} FSDP reduce-scatters, want "
+              f"{want['calls']}")
+    return {"calls": got, "gather_bytes": stats.get(
+        "fsdp_all_gather", {}).get("bytes", 0),
+        "predicted_gathers": passes * want["calls"],
+        "predicted_gather_bytes": passes * want["bytes"]}
+
+
+def _top2(logits) -> list:
+    """Each row's two largest logits (exact ties show as equal pairs)."""
+    return logits.float().topk(2, dim=-1).values.cpu().tolist()
+
+
+def _greedy(prefill, decode, params, batch, gen: int):
+    """Greedy tokens ``[B, gen]`` and each step's rows' top two logits,
+    with the collectives of the prefill and of the first decode step."""
+    (logits, cache), c_pre = _coll_delta(lambda: prefill(params, batch))
+    tokens, top2, c_dec = [logits.argmax(-1)[:, None]], [_top2(logits)], {}
+    for i in range(gen - 1):
+        (lg, cache), stats = _coll_delta(lambda: decode(
+            params, tokens[-1], cache, batch["tokens"].shape[1] + i))
+        tokens.append(lg.argmax(-1)[:, None])
+        top2.append(_top2(lg))
+        c_dec = c_dec or stats
+    return torch.cat(tokens, 1).tolist(), top2, c_pre, c_dec
+
+
+def _tokens_agree(got, want, top2_got, top2_want) -> dict:
+    """Rows whose greedy tokens part, and whether each parts first at a
+    step where either run's top two logits of that row are exactly
+    equal."""
+    parted = {}
+    for b, (x, y) in enumerate(zip(got, want)):
+        if x != y:
+            t = next(i for i, (u, w) in enumerate(zip(x, y)) if u != w)
+            parted[b] = {"step": t, "tied": top2_got[t][b][0] == top2_got[
+                t][b][1] or top2_want[t][b][0] == top2_want[t][b][1]}
+    return parted
+
+
+def dist_fsdp_serve(dev) -> dict:
+    """(e) qwen2.5-32b at its published widths, ``FSDP_SERVE_LAYERS``
+    layers, on data = 2: bf16 prefill of batch 4 x 1 024 (two rows a rank)
+    and ``FSDP_GEN`` greedy tokens, then a float32 prefill of the same
+    seeded weights; each rank's held bytes, peak memory and FSDP gathers
+    against the predicted count.  Rank 0 then runs the same cut model on
+    one rank, unsharded (the other rank has freed its memory and waits):
+    float32 logits within ``FSDP_LOGIT_REL`` of their largest, bf16
+    tokens equal except on an exactly tied row."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import ModelDims, get_arch
+    from repro_torch.models.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.testing import synth_batch
+    cfg = dataclasses.replace(get_arch(FSDP_ARCH),
+                              n_layers=FSDP_SERVE_LAYERS)
+    dims = ModelDims.create(cfg)
+    par = _dist_parallel(cfg, (DIST_WORLD, 1), 4)
+    check(par.fsdp.size == DIST_WORLD and par.tp.size == 1
+          and par.dp.size == DIST_WORLD,
+          f"{FSDP_ARCH} on {DIST_WORLD} x 1: fsdp {par.fsdp.size}, tp "
+          f"{par.tp.size}, batch axes {par.dp_names}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_all = time.perf_counter()
+    out = {"layers": FSDP_SERVE_LAYERS}
+    with torch.inference_mode():
+        params = _dist_params(cfg, dims, par, dev, torch.bfloat16)
+        pspecs = shd.param_specs(cfg, params)
+        want = _fsdp_want(params, pspecs, par)
+        out["held"] = held = _held_bytes(params, pspecs, par)
+        embed = params["embed"]
+        check(held["layers_fsdp"] * DIST_WORLD
+              == held["layers_fsdp_unsharded"]
+              and tuple(embed.shape) == (dims.vocab_pad, cfg.d_model),
+              f"{FSDP_ARCH} held: {held}, embedding {tuple(embed.shape)}")
+        batch = synth_batch(cfg, batch=4, seq=1024, seed=0, device=dev)
+        batch.pop("labels")
+        prefill = make_prefill_step(cfg, dims, 1024 + FSDP_GEN, par=par)
+        decode = make_decode_step(cfg, dims, par=par)
+        zero_lm_counts()
+        _dist_sync(dev)
+        t0 = time.perf_counter()
+        tokens, top2, c_pre, c_dec = _greedy(prefill, decode, params, batch,
+                                             FSDP_GEN)
+        _dist_sync(dev)
+        out["serve_s"] = time.perf_counter() - t0
+        out["launches_serve"] = lm_counts()
+        check(out["launches_serve"]["flash_attention"] == cfg.n_layers,
+              f"{FSDP_ARCH} data = 2 serving: {out['launches_serve']}, "
+              f"want one flash_attention a layer")
+        out["gathers_prefill"] = _fsdp_calls(c_pre, want, 1, "prefill")
+        out["gathers_decode_step"] = _fsdp_calls(c_dec, want, 1,
+                                                 "decode step")
+        out["coll_prefill"], out["coll_decode_step"] = c_pre, c_dec
+        out["tokens"] = tokens
+        out["peak_gib_bf16"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        del params, prefill, decode
+        torch.cuda.empty_cache()
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        params = _dist_params(f32, dims, par, dev, torch.float32)
+        t0 = time.perf_counter()
+        last, cache = make_prefill_step(f32, dims, 1024, par=par)(params,
+                                                                  batch)
+        last = last.float().cpu()
+        out["prefill_f32_s"] = time.perf_counter() - t0
+        del params, cache
+        torch.cuda.empty_cache()
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        _dist_sync(dev)
+        if torch.distributed.get_rank() == 0:
+            params = _dist_params(cfg, dims, None, dev, torch.bfloat16)
+            one_tokens, one_top2, _, _ = _greedy(
+                make_prefill_step(cfg, dims, 1024 + FSDP_GEN),
+                make_decode_step(cfg, dims), params, batch, FSDP_GEN)
+            del params
+            torch.cuda.empty_cache()
+            parted = _tokens_agree(tokens, one_tokens, top2, one_top2)
+            out["bf16_vs_one_rank"] = {"tokens": one_tokens,
+                                       "parted": parted}
+            check(all(p["tied"] for p in parted.values()),
+                  f"{FSDP_ARCH} data = 2 bf16 tokens {tokens} against one "
+                  f"rank's {one_tokens}: rows {parted} part off a tie")
+            params = _dist_params(f32, dims, None, dev, torch.float32)
+            ref, cache = make_prefill_step(f32, dims, 1024)(params, batch)
+            ref = ref.float().cpu()
+            del params, cache
+            torch.cuda.empty_cache()
+            agree = logit_agreement(last, ref)
+            del agree["plain_top2_gap"]
+            out["float32_vs_one_rank"] = agree
+            check(agree["max_abs"] <= FSDP_LOGIT_REL * agree["max_logit"],
+                  f"{FSDP_ARCH} data = 2 float32 prefill against one rank: "
+                  f"{agree}")
+    _dist_sync(dev)
+    out["wall_s"] = time.perf_counter() - t_all
+    return out
+
+
+def dist_fsdp_train(dev) -> dict:
+    """(e) qwen2.5-32b at its published widths, ``FSDP_TRAIN_LAYERS``
+    layers, on data = 2, batch 4 x 1 024 (two rows a rank): every leaf's
+    gradient nonzero and finite, then one bf16 AdamW step (time, peak
+    memory, held bytes of parameters and moments, FSDP gathers and
+    reduce-scatters against the predicted counts, launches); rank 0 then
+    runs ``loss_and_grads`` on one rank with the same seeded weights (the
+    other rank waits) and holds the step's loss within ``DIST_LOSS_REL``
+    and its grad norm within ``DIST_GNORM_REL``."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.models import ModelDims, get_arch
+    from repro_torch.models.steps import (batch_to_device, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.optim.tree import tree_flatten_with_paths
+    cfg = dataclasses.replace(get_arch(FSDP_ARCH),
+                              n_layers=FSDP_TRAIN_LAYERS)
+    dims = ModelDims.create(cfg)
+    par = _dist_parallel(cfg, (DIST_WORLD, 1), TRAIN_BATCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_all = time.perf_counter()
+    params = _dist_params(cfg, dims, par, dev, torch.bfloat16)
+    pspecs = shd.param_specs(cfg, params)
+    want = _fsdp_want(params, pspecs, par)
+    batch = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0).batch_at(0)
+    rows = batch_to_device({k: tpl.local_rows(v, par)
+                            for k, v in batch.items()}, dev)
+    (_, grads), c_grads = _coll_delta(lambda: loss_and_grads(
+        cfg, dims, params, rows, remat=True, par=par))
+    bad = [p for p, g in tree_flatten_with_paths(grads)
+           if not (bool(torch.isfinite(g.float()).all())
+                   and bool((g != 0).any()))]
+    check(not bad, f"data = 2 training: zero or non-finite gradients {bad}")
+    out = {"layers": FSDP_TRAIN_LAYERS,
+           "gathers_grads": _fsdp_calls(c_grads, want, 2, "loss_and_grads")}
+    del grads, rows
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+    state, _ = tpl.init_opt_state(opt, params, par)
+    step = make_train_step(cfg, dims, opt, remat=True, device=dev, par=par)
+    zero_lm_counts()
+    _dist_sync(dev)
+    t0 = time.perf_counter()
+    (params, state, m), c_step = _coll_delta(lambda: step(params, state,
+                                                          batch))
+    out["loss"], out["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
+    _dist_sync(dev)
+    out["step_s"] = time.perf_counter() - t0
+    out["launches_step"] = lm_counts()
+    check(out["launches_step"]["flash_attention"] == 2 * cfg.n_layers
+          and out["launches_step"]["flash_attention_bwd"] == cfg.n_layers,
+          f"data = 2 training launches {out['launches_step']}")
+    out["gathers_step"] = _fsdp_calls(c_step, want, 2, "train step")
+    out["coll_train_step"] = c_step
+    out["held"] = _held_bytes(params, pspecs, par)
+    out["held_moments"] = {k: _held_bytes(state[k], pspecs, par)
+                           for k in ("mu", "nu")}
+    # each FSDP leaf's moments are its parameter block's shape, no less
+    cut = []
+    shd.tree_map_specs(lambda p, s, mu, nu: cut.append(
+        tuple(p.shape) != tuple(mu.shape) or tuple(p.shape) != tuple(
+            nu.shape)) if par.fsdp_leaf(s) else None,
+        params, pspecs, state["mu"], state["nu"])
+    check(len(cut) == want["calls"] and not any(cut),
+          f"data = 2 training: {sum(cut)} of {len(cut)} FSDP leaves' "
+          "moments are not their parameter block's shape")
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del params, state, m, step
+    torch.cuda.empty_cache()
+    _dist_sync(dev)
+    out["wall_s"] = time.perf_counter() - t_all
+    if torch.distributed.get_rank() == 0:
+        params = _dist_params(cfg, dims, None, dev, torch.bfloat16)
+        ref_loss, grads = loss_and_grads(cfg, dims, params,
+                                         batch_to_device(batch, dev),
+                                         remat=True)
+        ref_loss, ref_norm = float(ref_loss), float(adamw.global_norm(grads))
+        del params, grads
+        torch.cuda.empty_cache()
+        out["one_rank"] = {
+            "loss": ref_loss, "grad_norm": ref_norm,
+            "loss_rel": abs(out["loss"] - ref_loss) / abs(ref_loss),
+            "grad_norm_rel": abs(out["grad_norm"] - ref_norm) / ref_norm}
+        check(out["one_rank"]["loss_rel"] <= DIST_LOSS_REL
+              and out["one_rank"]["grad_norm_rel"] <= DIST_GNORM_REL,
+              f"data = 2 first step (loss {out['loss']}, grad norm "
+              f"{out['grad_norm']}) against one rank: {out['one_rank']}")
+    _dist_sync(dev)
+    return out
+
+
+def dist_rank(rank: int, parts: str = "abcde") -> dict:
     """Phase 16's rank (a ``launch.mesh.spawn`` process): the backend and
     gloo's CUDA probe, then (a) to (d), each part's numbers with its wall
     time."""
@@ -3379,11 +3737,18 @@ def dist_rank(rank: int) -> dict:
            "gloo_cuda_ops": sorted(coll.GLOO_CUDA_OPS)}
     if out["backend"] == "gloo":
         out["gloo_cuda_probe"] = coll.probe_gloo_cuda(dev)
-    for arch in DIST_SERVE:
-        out[f"serve {arch} tp2"] = dist_serve(arch, dev)
-    out["train minitron tp2"] = dist_train_tp(dev)
-    out["train xlstm dp2"] = dist_train_dp(dev)
-    out["compressed_psum"] = dist_psum(dev)
+    if "a" in parts:
+        for arch in DIST_SERVE:
+            out[f"serve {arch} tp2"] = dist_serve(arch, dev)
+    if "b" in parts:
+        out["train minitron tp2"] = dist_train_tp(dev)
+    if "c" in parts:
+        out["train xlstm dp2"] = dist_train_dp(dev)
+    if "d" in parts:
+        out["compressed_psum"] = dist_psum(dev)
+    if "e" in parts:
+        out[f"serve {FSDP_ARCH} data2"] = dist_fsdp_serve(dev)
+        out[f"train {FSDP_ARCH} data2"] = dist_fsdp_train(dev)
     return out
 
 
@@ -3395,38 +3760,55 @@ def dist_launches(dist: dict, name: str) -> dict:
     r = dist["ranks"][0]
     out = {}
     for arch in DIST_SERVE:
-        part = r[f"serve {arch} tp2"]
-        out[f"serve_{arch}_tp2_prefill_rank0"] = part["launches_prefill"][
-            name]
-        out[f"serve_{arch}_tp2_decode_31_steps_rank0"] = part[
-            "launches_decode"][name]
-    out[f"train_{DIST_TP_TRAIN_ARCH}_{DIST_TP_TRAIN_LAYERS}_layers_tp2_"
-        "step_rank0"] = r["train minitron tp2"]["launches_step"][name]
-    out["train_xlstm-350m_dp2_step_rank0"] = r["train xlstm dp2"][
-        "launches_step"][name]
+        part = r.get(f"serve {arch} tp2")
+        if part:
+            out[f"serve_{arch}_tp2_prefill_rank0"] = part[
+                "launches_prefill"][name]
+            out[f"serve_{arch}_tp2_decode_31_steps_rank0"] = part[
+                "launches_decode"][name]
+    if "train minitron tp2" in r:
+        out[f"train_{DIST_TP_TRAIN_ARCH}_{DIST_TP_TRAIN_LAYERS}_layers_tp2_"
+            "step_rank0"] = r["train minitron tp2"]["launches_step"][name]
+    if "train xlstm dp2" in r:
+        out["train_xlstm-350m_dp2_step_rank0"] = r["train xlstm dp2"][
+            "launches_step"][name]
+    if f"serve {FSDP_ARCH} data2" in r:
+        out[f"serve_{FSDP_ARCH}_{FSDP_SERVE_LAYERS}_layers_data2_prefill_"
+            f"and_{FSDP_GEN - 1}_decode_steps_rank0"] = r[
+            f"serve {FSDP_ARCH} data2"]["launches_serve"][name]
+        out[f"train_{FSDP_ARCH}_{FSDP_TRAIN_LAYERS}_layers_data2_step_"
+            "rank0"] = r[f"train {FSDP_ARCH} data2"]["launches_step"][name]
     return {k: v for k, v in out.items() if v}
 
 
-def distributed_phase(smi: str) -> dict:
+def distributed_phase(smi: str, parts: str = "abcde") -> dict:
     """Phase 16: ``DIST_WORLD`` spawned ranks on the card (gloo: NCCL
     refuses two ranks on one device; NCCL where each rank has a card),
-    (a)-(d) on each; the parent checks that every rank ended with the same
-    tokens, losses and grad norms and prints each rank's numbers.  Correctness runs
-    of two ranks sharing one card, not scaling figures."""
+    ``parts`` of (a)-(e) on each; the parent checks that every rank ended
+    with the same tokens, losses and grad norms and prints each rank's
+    numbers.  Correctness runs of two ranks sharing one card, not scaling
+    figures."""
     from repro_torch.launch.mesh import backend_for, spawn
     torch.cuda.empty_cache()
+    gib = 2 ** 30
+    print(f"  this process holds {torch.cuda.memory_allocated() / gib:.3f} "
+          f"GiB allocated, {torch.cuda.memory_reserved() / gib:.3f} GiB "
+          "reserved of the card while the ranks run")
     backend = backend_for(torch.device("cuda"), DIST_WORLD)
     t0 = time.perf_counter()
-    ranks = spawn(dist_rank, DIST_WORLD, timeout_s=DIST_WALL_S,
+    ranks = spawn(dist_rank, DIST_WORLD, parts, timeout_s=DIST_WALL_S,
                   backend=backend)
     wall = time.perf_counter() - t0
-    for arch in DIST_SERVE:
-        key = f"serve {arch} tp2"
-        check(all(r[key]["tokens"] == ranks[0][key]["tokens"]
-                  for r in ranks), f"{key}: ranks' tokens differ")
+    for key in [f"serve {a} tp2" for a in DIST_SERVE] + [
+            f"serve {FSDP_ARCH} data2"]:
+        if key in ranks[0]:
+            check(all(r[key]["tokens"] == ranks[0][key]["tokens"]
+                      for r in ranks), f"{key}: ranks' tokens differ")
     # a gradient not summed over the ranks shows as grad norms that differ
-    for key in ("train minitron tp2", "train xlstm dp2"):
-        for m in ("losses", "grad_norms"):
+    for key, ms in (("train minitron tp2", ("losses", "grad_norms")),
+                    ("train xlstm dp2", ("losses", "grad_norms")),
+                    (f"train {FSDP_ARCH} data2", ("loss", "grad_norm"))):
+        for m in ms if key in ranks[0] else ():
             check(all(r[key][m] == ranks[0][key][m] for r in ranks),
                   f"{key}: ranks' {m} differ "
                   f"{[r[key][m] for r in ranks]}")
@@ -4326,6 +4708,8 @@ def main() -> None:
         "shapes": {**new_shapes["flash_attention"],
                    **{f"{a} tp=2": r for a, r in new_shapes[
                        "flash_attention_tp2"].items()},
+                   **{f"{a} data=2": r for a, r in new_shapes[
+                       "flash_attention_fsdp"].items()},
                    **{f"{VLM_ARCH} {k}": r
                       for k, r in vlm["kernels"].items()}},
     }, {
@@ -4352,6 +4736,9 @@ def main() -> None:
         "launches": trained["zamba2_full_width"]["launches_timed_steps"][
             name],
         **trained["kernels"][name],
+        **({"shapes": {"qwen2.5-32b data=2": trained["kernels"][
+            "flash_attention_bwd_fsdp"]}} if name == "flash_attention_bwd"
+           else {}),
         "launches_by_path": {
             "train_zamba2_step": trained["zamba2_full_width"][
                 "launches_per_step"][name],

@@ -6,11 +6,13 @@ Builds the LM kernels from ``src/repro_torch/kernels/csrc``, then runs
 NCCL where each rank has a card), gloo's CUDA probe, minitron-8b and
 qwen2-moe-a2.7b served at tp = 2 at full width (float32 prefills against
 one rank's), minitron-8b at its published widths trained at tp = 2 with
-its depth cut, xlstm-350m trained at dp = 2 with ZeRO-1 and
-``compressed_psum``, with the same checks and per-rank numbers as the
-full run, then each kernel's launches on rank 0 by path:
+its depth cut, xlstm-350m trained at dp = 2 with ZeRO-1,
+``compressed_psum``, and qwen2.5-32b served and trained at its published
+widths over data = 2 (FSDP, its depth cut), with the same checks and
+per-rank numbers as the full run, then each kernel's launches on rank 0
+by path; ``--parts`` picks some of the parts (a)-(e):
 
-    python scripts/dist_phase_check.py
+    python scripts/dist_phase_check.py [--parts e]
 
 ``chip_smoke.py`` is the full check.  Needs a CUDA device.
 """
@@ -29,7 +31,12 @@ import chip_smoke as cs  # noqa: E402  (puts src/ on the path)
 
 
 def main() -> None:
+    import argparse
     import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parts", default="abcde",
+                    help="phase 16's parts to run, of a to e")
+    args = ap.parse_args()
     from repro_torch.kernels import build
     if not torch.cuda.is_available():
         raise SystemExit("dist_phase_check: no CUDA device")
@@ -42,7 +49,7 @@ def main() -> None:
     build.build(["flash_attention", "ssd_scan", "flash_attention_bwd",
                  "ssd_scan_bwd", "ssd_wide_bwd", "slstm"])
     print(f"kernel build {time.perf_counter() - t0:.1f} s")
-    dist = cs.distributed_phase(smi)
+    dist = cs.distributed_phase(smi, args.parts)
     print(json.dumps({k: v for k, v in dist.items() if k != "ranks"}))
     for name in cs.lm_counts():
         print(name, cs.dist_launches(dist, name))

@@ -49,7 +49,8 @@ def _staged(op: str, t: torch.Tensor, group) -> bool:
 
 def stats() -> dict:
     """``{op: {"calls", "bytes", "staged"}}`` since the last reset (bytes:
-    what this rank hands the operation)."""
+    what this rank hands the operation); a call made with a ``label`` is
+    counted under the label instead of its operation's name."""
     return {op: dict(c) for op, c in _STATS.items()}
 
 
@@ -57,10 +58,11 @@ def reset_stats() -> None:
     _STATS.clear()
 
 
-def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+def all_reduce(t: torch.Tensor, group, op: str = "sum",
+               label: str = "all_reduce") -> torch.Tensor:
     """``t`` reduced over ``group`` in place (and returned)."""
     staged = _staged("all_reduce", t, group)
-    _count("all_reduce", t, staged)
+    _count(label, t, staged)
     if staged:
         host = t.cpu()
         dist.all_reduce(host, op=_OPS[op], group=group)
@@ -70,12 +72,13 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     return t
 
 
-def all_gather(t: torch.Tensor, axis) -> list[torch.Tensor]:
+def all_gather(t: torch.Tensor, axis,
+               label: str = "all_gather") -> list[torch.Tensor]:
     """Every rank's ``t`` (all of one shape) over ``axis`` (a
     ``launch.mesh.Axis``), in the axis's index order."""
     group = axis.group
     staged = _staged("all_gather", t, group)
-    _count("all_gather", t, staged)
+    _count(label, t, staged)
     src = t.contiguous().cpu() if staged else t.contiguous()
     out = [torch.empty_like(src) for _ in range(axis.size)]
     dist.all_gather(out, src, group=group)

@@ -33,7 +33,9 @@ __all__ = ["DP_STYLE_ARCHS", "FSDP_ARCHS", "LayerP", "P", "ShardingSpecs",
 
 DP_STYLE_ARCHS = {"xlstm-350m", "zamba2-2.7b"}
 # >=30 GB parameter archs: weights sharded 2D over (data x model), FSDP;
-# MoE experts shard E over 'data' and d_ff over 'model'.
+# MoE experts shard E over 'data' and d_ff over 'model'.  At a data axis
+# above 1 each super-block all-gathers its weights over 'data' before it
+# runs and reduce-scatters their gradients (``tensor_parallel.FSDP``).
 FSDP_ARCHS = {"arctic-480b", "llama-3.2-vision-90b", "command-r-35b",
               "qwen2.5-32b"}
 

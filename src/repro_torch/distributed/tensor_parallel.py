@@ -1,4 +1,5 @@
-"""Tensor and data parallel execution over a mesh of ranks.
+"""Tensor, data and fully sharded data parallel execution over a mesh of
+ranks.
 
 The reference sets partition specs on parameters and sharding constraints
 on activations, and XLA's GSPMD inserts the collectives; a sharded
@@ -7,9 +8,11 @@ The port runs the same partition by hand, so that its sharded run on N
 ranks computes that function too:
 
 * ``Parallel``: one rank's place in a cell: the tensor-parallel axis
-  (``model`` in the ``tp`` style), the batch axes (``sharding._dp_axes``)
-  and the ``data`` axis (ZeRO-1), each an ``launch.mesh.Axis`` with its
-  process group.
+  (``model`` in the ``tp`` style), the batch axes (``sharding._dp_axes``),
+  the ``data`` axis (ZeRO-1) and, for the FSDP archs
+  (``sharding.FSDP_ARCHS``), the ``data`` axis their layer weights are
+  sharded over (``fsdp``; size 1 for every other arch), each an
+  ``launch.mesh.Axis`` with its process group.
 * parameters and optimizer state are cut from whole leaves by their specs
   (``shard_params``, ``init_opt_state``, ``shard_tree``): a dimension of n
   over k ranks gives rank r the r-th block of ``ceil(n / k)`` (the last
@@ -24,16 +27,25 @@ ranks computes that function too:
   ``torch.distributed.nn.functional.all_reduce`` sums the gradient in its
   backward too, which after a row-parallel product would scale every
   upstream gradient by the TP degree;
+* FSDP's operator (``FSDP.gather``, an ``autograd.Function``): a layer
+  leaf's ``(data, model)`` block all-gathered over ``data`` into the
+  tp-rank's Megatron shard just before its super-block runs; backward,
+  the gradient summed over ``data`` and cut back to the block (a
+  reduce-scatter: gloo has none, so an all-reduce and a narrow).  Each
+  rank holds only its blocks between steps, and its optimizer moments are
+  those blocks' (``zero_specs``);
 * vocab-parallel embedding, logits and cross-entropy
   (``embed_lookup``, ``logits``, ``cross_entropy_terms``);
 * the data-parallel pieces: a rank's rows of a global batch
   (``local_rows``, accumulation-aware), rows gathered back
-  (``gather_rows``), gradients summed over the batch axes and the global
-  gradient norm over tensor-parallel shards (``reduce_grads``,
+  (``gather_rows``), gradients summed over the batch axes (an FSDP
+  leaf's over those other than ``data``, whose sum its reduce-scatter
+  made) and the global gradient norm over the shards (``reduce_grads``,
   ``grad_norm``).
 
-Collectives go through ``distributed.collectives`` (counted; staged
-through the host where gloo cannot take a CUDA tensor).
+Collectives go through ``distributed.collectives`` (counted, FSDP's under
+``fsdp_all_gather`` and ``fsdp_all_reduce``; staged through the host where
+gloo cannot take a CUDA tensor).
 """
 from __future__ import annotations
 
@@ -48,11 +60,11 @@ from repro_torch.optim.tree import tree_leaves
 from . import collectives as coll
 from . import sharding as shd
 
-__all__ = ["Parallel", "copy_to", "cross_entropy_terms", "embed_lookup",
-           "gather_leaf", "gather_rows", "gather_tree", "grad_norm",
-           "init_opt_state", "local_rows", "logits", "make_parallel",
-           "reduce_from", "reduce_grads", "shard_leaf", "shard_params",
-           "shard_tree", "split_sizes"]
+__all__ = ["FSDP", "Parallel", "copy_to", "cross_entropy_terms",
+           "embed_lookup", "gather_leaf", "gather_rows", "gather_tree",
+           "grad_norm", "init_opt_state", "local_rows", "logits",
+           "make_parallel", "reduce_from", "reduce_grads", "shard_leaf",
+           "shard_params", "shard_tree", "split_sizes", "zero_specs"]
 
 
 def split_sizes(n: int, k: int) -> list[int]:
@@ -76,6 +88,10 @@ class Parallel:
     tp: Axis                    # the model axis in the tp style, else 1
     dp: Axis                    # the batch axes (_dp_axes), jointly
     data: Axis                  # the data axis (ZeRO-1)
+    # the data axis an FSDP arch's layer weights are sharded over (size 1
+    # for every other arch), and the names of the batch axes
+    fsdp: Axis = dataclasses.field(default_factory=Axis)
+    dp_names: tuple = ()
 
     @property
     def member(self) -> bool:
@@ -93,25 +109,37 @@ class Parallel:
         return self.mesh.axes((entry,) if isinstance(entry, str)
                               else tuple(entry))
 
+    def fsdp_leaf(self, spec: shd.P) -> bool:
+        """Whether a parameter of ``spec`` is held as its block over the
+        FSDP axis (gathered before use, its gradient reduce-scattered)."""
+        return self.fsdp.size > 1 and "data" in shd.P(*spec).axes()
+
+    def fsdp_ctx(self, n_experts: int) -> Optional["FSDP"]:
+        """The blocks' FSDP context (``BlockCtx.fsdp``), or None where no
+        weight is sharded over ``data``; ``n_experts``: the padded expert
+        count (``ModelDims.expert_pad``)."""
+        if self.fsdp.size == 1:
+            return None
+        return FSDP(cfg=self.cfg, axis=self.fsdp,
+                    reduce="data" in self.dp_names, n_experts=n_experts)
+
 
 def make_parallel(cfg: ArchConfig, mesh: RankMesh, batch: int) -> Parallel:
     """The rank's ``Parallel`` for ``cfg`` at global batch ``batch`` on
-    ``mesh``.  The FSDP archs' weights are sharded over ``data`` as well
-    as ``model``; that needs a per-layer weight all-gather the port does
-    not run yet (ROADMAP.md), so a ``data`` axis above 1 raises for them."""
+    ``mesh``.  The FSDP archs' layer weights are sharded over ``data`` as
+    well as ``model``: at a ``data`` axis above 1 each super-block gathers
+    its weights over ``data`` before it runs (``FSDP``); at 1 FSDP is
+    tensor parallelism."""
     spec = mesh.spec
     style = shd.style_for(cfg)
     shape = dict(zip(spec.axis_names, spec.shape))
-    if cfg.name in shd.FSDP_ARCHS and shape.get("data", 1) > 1:
-        raise NotImplementedError(
-            f"{cfg.name} shards its weights over (data, model) (FSDP): a "
-            f"data axis of {shape['data']} needs the per-layer weight "
-            "all-gather, which the port does not run; use a mesh whose "
-            "data axis is 1, where FSDP is tensor parallelism")
     dp_axes = shd._dp_axes(spec.axis_names, batch, shape, style)
+    fsdp = (mesh.axis("data") if cfg.name in shd.FSDP_ARCHS
+            and style == "tp" else Axis())
     return Parallel(cfg=cfg, mesh=mesh,
                     tp=mesh.axis("model") if style == "tp" else Axis(),
-                    dp=mesh.axes(dp_axes), data=mesh.axis("data"))
+                    dp=mesh.axes(dp_axes), data=mesh.axis("data"),
+                    fsdp=fsdp, dp_names=tuple(dp_axes))
 
 
 # ---------------------------------------------------------------------------
@@ -170,16 +198,21 @@ def shard_params(cfg: ArchConfig, params: Any, par: Parallel,
     return shard_tree(params, shd.param_specs(cfg, params, prefix), par)
 
 
-def _gather_dim(t: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
+def _gather_dim(t: torch.Tensor, dim: int, axis: Axis,
+                sizes: Optional[list[int]] = None,
+                label: str = "all_gather") -> torch.Tensor:
     """Every rank's block of ``t`` along ``dim`` joined in rank order;
-    blocks may differ in length (``split_sizes``)."""
-    lens = torch.tensor([t.shape[dim]], dtype=torch.int64, device=t.device)
-    sizes = [int(s) for s in coll.all_gather(lens, axis)]
+    blocks may differ in length (``split_sizes``; gathered first unless
+    given)."""
+    if sizes is None:
+        lens = torch.tensor([t.shape[dim]], dtype=torch.int64,
+                            device=t.device)
+        sizes = [int(s) for s in coll.all_gather(lens, axis)]
     width = max(sizes)
     pad = list(t.shape)
     pad[dim] = width - t.shape[dim]
     src = torch.cat([t, t.new_zeros(pad)], dim) if pad[dim] else t
-    parts = coll.all_gather(src, axis)
+    parts = coll.all_gather(src, axis, label=label)
     return torch.cat([p.narrow(dim, 0, s) for p, s in zip(parts, sizes)],
                      dim)
 
@@ -215,12 +248,27 @@ def gather_tree(tree: Any, specs: Any, par: Parallel,
     return shd.tree_map_specs(one, tree, specs)
 
 
+def zero_specs(cfg: ArchConfig, params: Any, par: Parallel) -> Any:
+    """The cut of each leaf the rank's update works on: ZeRO-1's
+    (``sharding.zero1_specs``: 'data' on the largest free dimension),
+    except that an FSDP leaf (``Parallel.fsdp_leaf``) is already the
+    rank's block over 'data': ``P()``, nothing more to cut, its update
+    local."""
+    pspecs = shd.param_specs(cfg, params)
+    z = shd.zero1_specs(pspecs, params, par.data.size)
+    if par.fsdp.size == 1:
+        return z
+    return shd.tree_map_specs(
+        lambda zs, ps: shd.P() if par.fsdp_leaf(ps) else zs, z, pspecs)
+
+
 def init_opt_state(opt, params: Any, par: Parallel) -> tuple[dict, dict]:
-    """AdamW's state for the rank's parameters under ZeRO-1 (each moment
-    the rank's block of its ``zero1_specs`` spec: 'data' on the largest
-    free dimension), and the specs of the whole state
-    (``sharding.opt_state_specs``)."""
+    """AdamW's state for the rank's parameters (each moment the rank's
+    block of its ``zero_specs`` spec: ZeRO-1's, or an FSDP leaf's own
+    block), and the specs of the whole state
+    (``sharding.opt_state_specs``: what ``gather_tree`` joins)."""
     specs = shd.opt_state_specs(par.cfg, params, None, par.data.size)
+    local = zero_specs(par.cfg, params, par)
 
     def zeros(p, s):
         if _layer_owner(s, par) is False:
@@ -231,8 +279,7 @@ def init_opt_state(opt, params: Any, par: Parallel) -> tuple[dict, dict]:
                 shape[i] = _span(shape[i], par.data)[1]
         return torch.zeros(shape, dtype=opt.moment_dtype, device=p.device)
 
-    moments = [shd.tree_map_specs(zeros, params, specs[k])
-               for k in ("mu", "nu")]
+    moments = [shd.tree_map_specs(zeros, params, local) for _ in range(2)]
     step = torch.zeros((), dtype=torch.int32,
                        device=tree_leaves(params)[0].device)
     return {"mu": moments[0], "nu": moments[1], "step": step}, specs
@@ -240,8 +287,9 @@ def init_opt_state(opt, params: Any, par: Parallel) -> tuple[dict, dict]:
 
 def zero_view(t: torch.Tensor, zspec: shd.P, par: Parallel) -> torch.Tensor:
     """The rank's ZeRO-1 block of a (model-sharded) parameter or
-    gradient: a view along the spec's 'data' dimension (a ``LayerP``
-    leaf: whole on the rank that holds its layer, empty elsewhere)."""
+    gradient under its ``zero_specs`` spec: a view along the spec's 'data'
+    dimension (a ``LayerP`` leaf: whole on the rank that holds its layer,
+    empty elsewhere; an FSDP leaf, ``P()``: itself)."""
     owner = _layer_owner(zspec, par)
     if owner is not None:
         return t if owner else t.reshape(-1)[:0]
@@ -256,7 +304,8 @@ def zero_view(t: torch.Tensor, zspec: shd.P, par: Parallel) -> torch.Tensor:
 def zero_gather(t: torch.Tensor, zspec: shd.P, par: Parallel,
                 like: torch.Tensor) -> torch.Tensor:
     """A ZeRO-1 block's updated values from every data rank, joined into
-    a tensor like ``like`` (the rank's parameter)."""
+    a tensor like ``like`` (the rank's parameter; an FSDP leaf's update
+    is its own)."""
     owner = _layer_owner(zspec, par)
     if owner is not None:
         buf = t.contiguous() if owner else torch.empty_like(like)
@@ -264,8 +313,70 @@ def zero_gather(t: torch.Tensor, zspec: shd.P, par: Parallel,
     if par.data.size > 1:
         for i, entry in enumerate(zspec):
             if entry == "data":
-                return _gather_dim(t, i, par.data)
+                return _gather_dim(t, i, par.data,
+                                   split_sizes(like.shape[i], par.data.size))
     return t
+
+
+# ---------------------------------------------------------------------------
+# FSDP: a layer's weights gathered over 'data' as it runs
+# ---------------------------------------------------------------------------
+
+class _GatherFSDP(torch.autograd.Function):
+    """A leaf's blocks joined over the FSDP axis along ``dim``; backward,
+    the gradient summed over the axis (where it is a batch axis: each
+    rank's rows gave a share) and cut back to the rank's block."""
+
+    @staticmethod
+    def forward(ctx, w, axis: Axis, dim: int, sizes: tuple, reduce: bool):
+        ctx.args = (axis, dim, sum(sizes[:axis.rank]), sizes[axis.rank],
+                    reduce)
+        return _gather_dim(w, dim, axis, list(sizes),
+                           label="fsdp_all_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim, lo, n, reduce = ctx.args
+        if reduce:
+            g = coll.all_reduce(
+                g.clone(memory_format=torch.contiguous_format), axis.group,
+                label="fsdp_all_reduce")
+        return g.narrow(dim, lo, n).contiguous(), None, None, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class FSDP:
+    """What a super-block needs to gather its weights over the FSDP axis
+    (``Parallel.fsdp_ctx``): the axis, whether it is a batch axis (the
+    backward sums over it), and the padded expert count.  The dimension
+    an FSDP spec puts on 'data' spans the model width, or a MoE's stacked
+    experts (``sharding._param_rule``)."""
+    cfg: ArchConfig
+    axis: Axis
+    reduce: bool
+    n_experts: int
+
+    def gather(self, layer: Any) -> Any:
+        """The tp-rank's Megatron shards of a super-block's parameters
+        (``params["layers"][i]``) from the rank's ``(data, model)``
+        blocks: one all-gather a leaf sharded over 'data', every other
+        leaf as it is."""
+        specs = shd.param_specs(self.cfg, layer, ("layers", "0"))
+
+        def one(path, t, spec):
+            if "data" not in spec.axes():
+                return t
+            dim = list(spec).index("data")
+            whole = (self.n_experts if path[-2] == "moe"
+                     else self.cfg.d_model)
+            sizes = split_sizes(whole, self.axis.size)
+            if t.shape[dim] != sizes[self.axis.rank]:
+                raise ValueError(
+                    f"{'/'.join(path)}: a block of {t.shape[dim]} along "
+                    f"dim {dim}, want {sizes[self.axis.rank]} of {whole}")
+            return _GatherFSDP.apply(t, self.axis, dim, tuple(sizes),
+                                     self.reduce)
+        return shd._map_paths(one, layer, specs)
 
 
 # ---------------------------------------------------------------------------
@@ -414,27 +525,43 @@ def _flat_reduce(tensors: list[torch.Tensor], axis: Axis) -> None:
             t.copy_(part.view_as(t))
 
 
-def reduce_grads(grads: Any, par: Parallel) -> Any:
+def reduce_grads(grads: Any, pspecs: Any, par: Parallel) -> Any:
     """Gradients summed over the batch axes (each rank's loss is its rows'
-    share of the global mean, so the sum is the global gradient)."""
-    if par.dp.size > 1:
-        _flat_reduce(tree_leaves(grads), par.dp)
+    share of the global mean, so the sum is the global gradient); an FSDP
+    leaf's (``Parallel.fsdp_leaf``) over the batch axes but 'data', which
+    its reduce-scatter has summed already."""
+    own: list[torch.Tensor] = []
+    rest: list[torch.Tensor] = []
+    shd.tree_map_specs(lambda g, s: (own if par.fsdp_leaf(s) else rest)
+                       .append(g), grads, pspecs)
+    if par.dp.size > 1 and rest:
+        _flat_reduce(rest, par.dp)
+    others = par.mesh.axes(tuple(n for n in par.dp_names if n != "data"))
+    if others.size > 1 and own:
+        _flat_reduce(own, others)
     return grads
 
 
 def grad_norm(grads: Any, pspecs: Any, par: Parallel) -> torch.Tensor:
     """The global L2 norm of gradients held as shards: squares of leaves
-    sharded over the tensor-parallel axis summed over it, replicated
-    leaves counted once."""
-    sharded, replicated = [], []
+    sharded over the tensor-parallel axis summed over it (an FSDP leaf's
+    over the FSDP axis first), replicated leaves counted once."""
+    sharded, fsdp, replicated = [], [], []
 
     def part(g, spec):
-        big = any(par.axis_for(e).size > 1 for e in spec if e is not None)
-        (sharded if big else replicated).append(
-            torch.sum(torch.square(g.float())))
+        sq = torch.sum(torch.square(g.float()))
+        if par.fsdp_leaf(spec):
+            fsdp.append(sq)
+        elif any(par.axis_for(e).size > 1 for e in spec if e is not None):
+            sharded.append(sq)
+        else:
+            replicated.append(sq)
     shd.tree_map_specs(part, grads, pspecs)
     total = sum(replicated, torch.zeros((), device=tree_leaves(
         grads)[0].device))
+    if fsdp:
+        sharded.append(coll.all_reduce(torch.stack(fsdp).sum(),
+                                       par.fsdp.group))
     if sharded:
         s = torch.stack(sharded).sum()
         if par.tp.size > 1:

@@ -26,7 +26,11 @@ generator seeded with ``--seed + 1``.
 The model is padded to ``tp`` = the mesh's model axis for ``tp``-style
 configs (1 for ``dp``-style ones), each rank draws every layer from the
 same seed and keeps its shards (``distributed.tensor_parallel``), takes its
-rows of the batch, and every rank ends with the same tokens.  Ranks with a
+rows of the batch, and every rank ends with the same tokens.  The FSDP
+archs (qwen2.5-32b, command-r-35b, arctic-480b, llama-3.2-vision-90b)
+keep each layer's weights as ``(data, model)`` blocks and gather a
+layer's over ``data`` as it runs, in the prefill and in every decode
+step; ``--mesh test`` on 8 ranks is ``data`` 2 x ``model`` 4.  Ranks with a
 card each run NCCL; ranks that share a card (or ``--device cpu``) gloo.
 Without ``--mesh`` the driver serves on one device.
 """

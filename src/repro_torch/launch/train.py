@@ -17,7 +17,10 @@ fetches the loss once per step (its one sync).
 --nproc-per-node N -m repro_torch.launch.train --mesh test ...``), as
 ``launch.serve`` serves: parameters padded and sharded in the ``tp`` style
 (replicated in the ``dp`` style), the batch over the mesh's batch axes,
-gradients summed over them and AdamW under ZeRO-1.  Checkpoints hold whole
+gradients summed over them and AdamW under ZeRO-1; the FSDP archs' layer
+weights and moments as ``(data, model)`` blocks, each layer's weights
+gathered over ``data`` in the forward and again in its recomputation, its
+gradients reduce-scattered.  Checkpoints hold whole
 leaves (``checkpoint.save_sharded``, written by the mesh's first rank,
 synchronously), so a run resumes on another mesh of the same model axis.
 """

@@ -49,6 +49,9 @@ class BlockCtx:
     # the tensor-parallel axis (``launch.mesh.Axis``) at tp > 1: the
     # counts above are then the rank's, its weights the rank's shards
     tp: Optional[object] = None
+    # an FSDP arch's data axis above 1 (``tensor_parallel.FSDP``): the
+    # stack gathers each super-block's weights over it before it runs
+    fsdp: Optional[object] = None
 
 
 def _attn_dims(cfg: ArchConfig, ctx: BlockCtx) -> AttnDims:

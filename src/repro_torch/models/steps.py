@@ -12,12 +12,16 @@ one sync.
 The train, prefill and decode makers take ``par`` (a rank's
 ``distributed.tensor_parallel.Parallel``) for a sharded cell: the steps
 are then given the global batch and take the rank's rows; the parameters
-are the rank's shards.  Prefill and decode return the global batch's logits over the whole vocab on every
-rank (the cache stays the rank's); the train step sums the gradients over
-the batch axes, clips by the global norm over the tensor-parallel shards,
-and updates under ZeRO-1: each data rank updates its block of every
-parameter (``sharding.zero1_specs``) with the moments it keeps, and the
-blocks are gathered.  Loss, grad norm and step are the same on every rank.
+are the rank's shards.  Prefill and decode return the global batch's
+logits over the whole vocab on every rank (the cache stays the rank's);
+the train step sums the gradients over the batch axes, clips by the
+global norm over the shards, and updates under ZeRO-1: each data rank
+updates its block of every parameter (``sharding.zero1_specs``) with the
+moments it keeps, and the blocks are gathered.  An FSDP arch's layer
+leaves at a ``data`` axis above 1 are already the rank's blocks: their
+gradients come reduce-scattered from the backward, and their update is
+local (``tensor_parallel.zero_specs``).  Loss, grad norm and step are the
+same on every rank.
 """
 from __future__ import annotations
 
@@ -128,8 +132,8 @@ def make_train_step(cfg: ArchConfig, dims: ModelDims, opt: adamw.AdamWConfig,
     def _sharded_update(params, opt_state, grads, loss):
         if not specs:
             specs["p"] = shd.param_specs(cfg, params)
-            specs["z"] = shd.zero1_specs(specs["p"], params, par.data.size)
-        grads = tpl.reduce_grads(grads, par)
+            specs["z"] = tpl.zero_specs(cfg, params, par)
+        grads = tpl.reduce_grads(grads, specs["p"], par)
         if par.dp.size > 1:
             loss = coll.all_reduce(loss.clone(), par.dp.group)
         gnorm = tpl.grad_norm(grads, specs["p"], par)

@@ -11,8 +11,11 @@ vocab and experts to the tensor-parallel degree as the reference does
 ``distributed.tensor_parallel.Parallel``: the batch it is given is then the
 rank's rows, the parameters its shards (``init_params(shard=...)``), and
 the blocks run on the rank's heads, ``d_ff`` columns, experts and vocab
-columns with the Megatron collectives between them; ``par=None`` is the
-one-device path.
+columns with the Megatron collectives between them; an FSDP arch at a
+``data`` axis above 1 holds each layer's weights as ``(data, model)``
+blocks, and the stack gathers a super-block's over ``data`` just before
+it runs and lets them go after (``tensor_parallel.FSDP``); ``par=None``
+is the one-device path.
 
 Caches mirror the layer list (``cache[super_block][position]``).  Prefill
 and decode write the attention KV caches in place and replace each Mamba-2
@@ -78,14 +81,17 @@ def make_ctx(cfg: ArchConfig, dims: ModelDims, mode: str,
              cross_ctx: Optional[torch.Tensor] = None,
              max_cache_len: int = 0, par=None) -> BlockCtx:
     """The blocks' context; with ``par`` at tp > 1 the head counts are the
-    rank's (the padded counts over tp) and ``tp`` its axis."""
+    rank's (the padded counts over tp) and ``tp`` its axis; ``fsdp`` the
+    FSDP axis's context where layer weights are sharded over ``data``."""
     tp = par.tp_axis if par is not None else None
     n = tp.size if tp is not None else 1
     return BlockCtx(cfg=cfg, mode=mode, positions=positions,
                     cache_index=cache_index, cross_ctx=cross_ctx,
                     n_q_pad=dims.n_q_pad // n,
                     n_kv_pad=dims.n_kv_pad // n, expert_pad=dims.expert_pad,
-                    max_cache_len=max_cache_len, tp=tp)
+                    max_cache_len=max_cache_len, tp=tp,
+                    fsdp=(par.fsdp_ctx(dims.expert_pad) if par is not None
+                          else None))
 
 
 def _dtype(dtype) -> torch.dtype:
@@ -209,14 +215,27 @@ def _run_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
     """Every super-block in order; each block's new cache replaces its
     entry of ``cache`` (attention caches are the same, updated, dicts).
     ``remat`` (training, no cache) recomputes each super-block in the
-    backward pass under ``REMAT_POLICIES[remat_policy]``."""
+    backward pass under ``REMAT_POLICIES[remat_policy]``.
+
+    Under ``ctx.fsdp`` a super-block's weights are gathered just before it
+    runs and dropped after it, so one super-block's gathered weights live
+    at a time (no prefetch); under ``remat`` the gather is inside the
+    recomputed function, so the backward gathers again and no gathered
+    weight is saved for it.  Without remat, autograd keeps each gathered
+    weight for its backward, as it keeps the activations."""
     shared = params.get("shared_attn")
+
+    def gathered(layer_params):
+        return layer_params if ctx.fsdp is None else ctx.fsdp.gather(
+            layer_params)
+
     if remat:
         if cache is not None:
             raise ValueError("remat applies to the cache-free training pass")
         context = REMAT_POLICIES[remat_policy]
 
         def super_block(x, layer_params):
+            layer_params = gathered(layer_params)
             for pi, kind in enumerate(cfg.block_pattern):
                 x, _ = block_apply(layer_params[pi], x, ctx, None, kind,
                                    shared=shared)
@@ -227,13 +246,15 @@ def _run_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
             x = ckpt.checkpoint(super_block, x, layer_params,
                                 use_reentrant=False, **kw)
         return x, None
-    for si, layer_params in enumerate(params["layers"]):
+    for si, shards in enumerate(params["layers"]):
+        layer_params = gathered(shards)
         for pi, kind in enumerate(cfg.block_pattern):
             c_in = cache[si][pi] if cache is not None else None
             x, c_out = block_apply(layer_params[pi], x, ctx, c_in, kind,
                                    shared=shared)
             if cache is not None:
                 cache[si][pi] = c_out
+        del layer_params    # before the next super-block's gather
     return x, cache
 
 

@@ -21,6 +21,10 @@ Pipeline, as in the reference:
      data parallel, with seeded weights (or weights carried across from the
      JAX package as numpy trees), and its prefill function runs there.
      Without ``mesh`` every placement runs on the one device at tp = 1.
+     A tensor-parallel sub-mesh is ``(1, n)``, so an FSDP arch placed
+     there has a ``data`` axis of 1, where FSDP is tensor parallelism; on
+     a data-parallel ``(n, 1)`` one it gathers each layer's weights over
+     ``data`` (``distributed.tensor_parallel.FSDP``).
 """
 from __future__ import annotations
 

@@ -328,13 +328,3 @@ def test_sharded_drivers_need_a_card_unless_given_the_cpu():
         with pytest.raises(RuntimeError, match="CUDA"):
             main(["--arch", "minitron-8b", "--smoke", "--mesh", "test"])
 
-
-def test_fsdp_archs_refuse_a_data_axis_above_one():
-    import types
-    from repro_torch.distributed.tensor_parallel import make_parallel
-    from repro_torch.launch.mesh import make_mesh
-    mesh = types.SimpleNamespace(spec=make_mesh((2, 2), ("data", "model")))
-    for name in ("arctic-480b", "llama-3.2-vision-90b", "command-r-35b",
-                 "qwen2.5-32b"):
-        with pytest.raises(NotImplementedError, match="all-gather"):
-            make_parallel(W.config(name, full_name=True), mesh, 4)
