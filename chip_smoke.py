@@ -230,11 +230,27 @@ package.  Phases, each printed as it runs:
    tokens/s, peak GiB, collectives (calls, bytes, and those staged through
    the host) a prefill, a decode step and a train step; two ranks on one
    card are correctness runs, not scaling figures
-8. summary: a JSON line of the portfolio, multimodel, serving, sync
-   witness, VLM and training numbers,
+17. dry-run tools (after phase 16): the hill-climb's three baseline cells
+   (qwen2.5-32b and arctic-480b ``train_4k``, minitron-8b ``decode_32k``),
+   minitron-8b ``prefill_32k`` and zamba2-2.7b ``long_500k``, rank 0 of
+   the 16x16 mesh traced on ``meta`` over a fake world
+   (``launch.dryrun.run_cell``): cost, collectives by group, the roofline
+   terms at the H100's figures and the bottleneck, analytic and traced
+   memory, trace time; xlstm-350m's ``decode_32k``, ``prefill_32k`` and
+   ``long_500k`` on a 1 x 1 mesh, each traced, then run on the card at
+   its own shapes with seeded weights where it fits (time, CUDA events,
+   median of 3; peak memory; ``slstm`` launches a call) beside its
+   roofline time, analytic total and traced peak, else reported as not
+   fitting; phase 14's two full-width training steps traced on ``meta``:
+   dot FLOPs with the recompute, ``hfu`` and ``mfu`` at phase 14's step
+   times.  ``python3 chip_smoke.py --dryrun-phase`` runs it alone
+   (training both models itself)
+8. summary: the script's wall time to here and phase 17's, a JSON line
+   of the portfolio, multimodel, serving, sync witness, VLM, training,
+   distributed and dry-run numbers,
    then one of per-kernel numbers (``launches_by_path`` includes the
    online, portfolio, realized, served, VLM and trained runs and phase
-   16's rank 0; ``shapes``
+   16's rank 0 and phase 17's card runs; ``shapes``
    the new models' kernel shapes of phase 2e and the VLM's self and cross
    calls of phase 15; the backward kernels' launches, and xLSTM's three
    kernels', are those of the three timed full-width steps of zamba2 and
@@ -1589,7 +1605,8 @@ def new_shapes_phase(g, dev, smi) -> dict:
 # -0.01 U[0, 1), "views" q, k and v as column slices of one projection and
 # dO head-major) and slstm cases (B, L, H, dh, bf16?); the last of each is
 # xlstm-350m's training shape (its mLSTM's scan with the normaliser; its
-# sLSTM over batch 4 x 1024), an L = 1 case is a decode step, 9 batch rows
+# sLSTM over batch 4 x 1024), the L = 1 cases are decode steps (B = 1 and
+# 128: xlstm-350m's long_500k and decode_32k steps, phase 17), 9 batch rows
 # take two clusters a head; N and P of 48 and 80 are multiples of 16 but
 # not of the bf16 kernels' 64-column boxes; the B = 2 cases are a dp = 2
 # rank's half of xlstm-350m's training batch (phase 16)
@@ -1605,6 +1622,7 @@ WIDE_BWD_CASES = ((1, 64, 2, 16, 16, 16, True, False, ""),
                   (4, 1024, 4, 256, 256, 256, True, True, ""))
 SLSTM_CASES = ((2, 16, 4, 16, False), (3, 64, 2, 256, False),
                (9, 32, 2, 64, True), (4, 1, 4, 256, True),
+               (1, 1, 4, 256, True), (128, 1, 4, 256, True),
                (2, 1024, 4, 256, True), (4, 1024, 4, 256, True))
 PROFILE_XLSTM_ARG = "--profile-xlstm-kernels"
 
@@ -3832,6 +3850,213 @@ def distributed_phase(smi: str, parts: str = "abcde") -> dict:
             "ranks": ranks, "staged": staged}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the dry-run tools (launch.cells, launch.dryrun, analysis.
+# roofline) on meta, and the cells the card can run
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARG = "--dryrun-phase"
+# (a): the hill-climb's three baseline cells, one prefill_32k cell and one
+# long_500k cell, rank 0 of the 16x16 mesh traced on meta
+DRYRUN_CELLS = (("qwen2.5-32b", "train_4k"), ("arctic-480b", "train_4k"),
+                ("minitron-8b", "decode_32k"), ("minitron-8b", "prefill_32k"),
+                ("zamba2-2.7b", "long_500k"))
+# (b): xlstm-350m's cells on a 1 x 1 mesh, run on the card where they fit
+DRYRUN_CARD_SHAPES = ("decode_32k", "prefill_32k", "long_500k")
+DRYRUN_REPS = 3
+
+
+def _dryrun_card_cell(cell, rec, dev, smi) -> dict:
+    """A cell of (b) run on the card at its own shapes with seeded bf16
+    weights through the kernels: ``cuda_ms``' median of ``DRYRUN_REPS``
+    calls (after its three warm-up calls), the card's peak memory over
+    them above what the process held before the cell, the LM kernels'
+    launches a call; each figure beside the record's roofline time,
+    analytic total and traced peak."""
+    from repro_torch.analysis import roofline
+    from repro_torch.launch.platform import device_fetch
+    from repro_torch.models import ModelDims, get_arch, init_params
+    from repro_torch.models.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import init_cache
+    cfg = get_arch(cell.arch)
+    dims = ModelDims.create(cfg)
+    g = torch.Generator(device=dev).manual_seed(17)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()    # the earlier phases' tensors
+    params = init_params(cfg, dims, generator=g)
+    B, S = cell.batch, cell.seq
+    if cell.kind == "decode":
+        cache = init_cache(cfg, dims, B, S, torch.bfloat16, dev)
+        tokens = torch.randint(0, cfg.vocab, (B, 1), generator=g, device=dev)
+        step = make_decode_step(cfg, dims)
+
+        def call():
+            return step(params, tokens, cache, S - 1)[0]
+    else:
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)
+        step = make_prefill_step(cfg, dims, S)
+
+        def call():
+            return step(params, {"tokens": tokens})[0]
+    calls = 3 + DRYRUN_REPS          # cuda_ms' warm-up calls and its own
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_lm_counts()
+        ms = cuda_ms(call, DRYRUN_REPS)
+        counts = {k: v // calls for k, v in lm_counts().items() if v}
+        logits = call()
+    peak = torch.cuda.max_memory_allocated() - held
+    finite, = device_fetch(torch.isfinite(logits.float()).all())
+    check(tuple(logits.shape) == (B, dims.vocab_pad) and bool(finite),
+          f"{cell.arch} {cell.shape} on the card: logits "
+          f"{tuple(logits.shape)}, finite {bool(finite)}")
+    check(dev.type != "cuda" or counts.get("slstm") == cfg.n_super_blocks,
+          f"{cell.arch} {cell.shape}: launches a call {counts}, want "
+          f"{cfg.n_super_blocks} slstm")
+    del params, logits
+    torch.cuda.empty_cache()
+    roof_s = roofline.terms(rec)["roofline_s"]
+    analytic = rec["analytic_memory"]["total"]
+    traced = rec["memory"]["peak_per_device"]
+    out = {"median_ms": ms, "peak_bytes": peak,
+           "roofline_s": roof_s, "over_roofline": ms / 1e3 / roof_s,
+           "analytic_total": analytic, "peak_over_analytic": peak / analytic,
+           "traced_peak": traced, "peak_over_traced": peak / traced,
+           "launches_per_call": counts}
+    print(f"17b {cell.arch} x {cell.shape} (batch {B}, {S} positions, bf16, "
+          f"seeded weights, 1 x 1) on the card: median {ms:.4f} ms of "
+          f"{DRYRUN_REPS} calls (CUDA events) = "
+          f"{out['over_roofline']:.2f} x the roofline's {roof_s * 1e3:.4f} "
+          f"ms; peak {peak / 2**30:.3f} GiB = {out['peak_over_analytic']:.3f}"
+          f" x the analytic {analytic / 2**30:.3f} GiB and "
+          f"{out['peak_over_traced']:.3f} x the traced {traced / 2**30:.3f} "
+          f"GiB; launches a call {counts}; on {smi}")
+    return out
+
+
+def _train_trace(name: str) -> dict:
+    """Phase 14's full-width training step (seeded bf16 weights, AdamW with
+    float32 moments, remat "nothing", batch 4 x 1024) traced on meta:
+    its dot FLOPs, recompute included, and its parameter count."""
+    from repro_torch.launch import cells, dryrun
+    from repro_torch.models import ModelDims, get_arch, make_train_step
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.optim.tree import tree_leaves
+    cfg = get_arch(name)
+    dims = ModelDims.create(cfg)
+    params = cells.param_shapes(cfg, dims)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=100)
+    step = make_train_step(cfg, dims, opt, remat=True,
+                           remat_policy="nothing", device=cells.META)
+    batch = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int64,
+                            device=cells.META) for k in ("tokens", "labels")}
+    t0 = time.perf_counter()
+    cost, _ = dryrun.trace(step, (params, adamw.init_state(opt, params),
+                                  batch))
+    return {"dot_flops": cost.dot_flops, "flops": cost.flops,
+            "params": sum(p.numel() for p in tree_leaves(params)),
+            "trace_s": time.perf_counter() - t0}
+
+
+def dryrun_phase(dev, smi, trained=None) -> dict:
+    """Phase 17: (a) ``DRYRUN_CELLS`` traced on meta as rank 0 of the
+    16x16 mesh (``launch.dryrun.run_cell``): cost, collectives by group,
+    the roofline terms at the card's figures, analytic memory, trace time;
+    (b) xlstm-350m's ``DRYRUN_CARD_SHAPES`` on a 1 x 1 mesh, each traced,
+    then run on the card at its own shapes where its traced peak and
+    analytic total fit the card (``_dryrun_card_cell``), else reported as
+    not fitting; (c) phase 14's two full-width training steps traced on
+    meta: their dot FLOPs, ``hfu`` (those FLOPs, recompute included, over
+    the step time at the bf16 peak) and ``mfu`` (6 N T over the same), at
+    phase 14's measured step time (``trained``; without it, as when the
+    phase runs alone, both steps are trained here as phase 14 trains
+    them)."""
+    from repro_torch.analysis import roofline
+    from repro_torch.launch import cells, dryrun
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    from repro_torch.models import get_arch
+    t_phase = time.perf_counter()
+    out = {"cells": {}, "card": {}, "training": {}, "launches": {}}
+    mesh = make_production_mesh()
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun.run_cell(cells.Cell(arch, shape), mesh,
+                              "single_pod_16x16")
+        terms = roofline.terms(rec)
+        check(rec["cost"]["dot_flops"] > 0 and terms["roofline_s"] > 0
+              and rec["memory"]["peak_per_device"] > 0
+              and math.isfinite(terms["roofline_s"]),
+              f"17a {arch} x {shape}: record {rec['cost']}, {terms}")
+        # a batch of one over replicated weights (zamba2's long_500k)
+        # needs none
+        check(rec["collectives"]["by_group"] != {} or cells.Cell(
+            arch, shape).batch == 1, f"17a {arch} x {shape}: no collective "
+            "on the 16x16 mesh")
+        out["cells"][f"{arch} {shape}"] = {
+            "cost": rec["cost"], "by_group": rec["collectives"]["by_group"],
+            "terms": terms, "analytic_memory": rec["analytic_memory"],
+            "memory": rec["memory"], "trace_s": rec["trace_s"]}
+        print(f"17a {arch} x {shape}, rank 0 of 16x16 traced on meta (the "
+              f"plain path): cost {rec['cost']}; collectives by group "
+              f"{rec['collectives']['by_group']}; roofline at the card's "
+              f"figures: compute {terms['compute_s']:.6g} s, memory "
+              f"{terms['memory_s']:.6g} s, collective "
+              f"{terms['collective_s']:.6g} s, bound by "
+              f"{terms['bottleneck']}; analytic memory "
+              f"{rec['analytic_memory']}; traced memory {rec['memory']}; "
+              f"trace {rec['trace_s']} s; figures of {smi}")
+    one = make_mesh((1, 1), ("data", "model"))
+    for shape in DRYRUN_CARD_SHAPES:
+        cell = cells.Cell(XLSTM_ARCH, shape)
+        rec = dryrun.run_cell(cell, one, "1x1")
+        am, traced = rec["analytic_memory"], rec["memory"]["peak_per_device"]
+        fits = am[dryrun.FIT_KEY] and traced < dryrun.CARD_MEMORY_BYTES
+        if not fits:
+            out["card"][shape] = {"fits": False, "analytic_total": am[
+                "total"], "traced_peak": traced}
+            print(f"17b {XLSTM_ARCH} x {shape} (1 x 1) does not fit the "
+                  f"card: traced peak {traced / 2**30:.3f} GiB, analytic "
+                  f"{am['total'] / 2**30:.3f} GiB, against "
+                  f"{dryrun.CARD_MEMORY_BYTES / 2**30:.3f} GiB; not run")
+            continue
+        out["card"][shape] = {"fits": True, **_dryrun_card_cell(
+            cell, rec, dev, smi)}
+        out["launches"][f"dryrun_{XLSTM_ARCH}_{shape}"] = out["card"][
+            shape]["launches_per_call"]
+    check(any(r["fits"] for r in out["card"].values()),
+          "17b: no xlstm-350m cell fits the card")
+    for name, key in ((TRAIN_ARCH, "zamba2_full_width"),
+                      (XLSTM_ARCH, "xlstm_full_width")):
+        if trained is None:
+            cfg = get_arch(name)
+            measured = full_width_training(
+                name, cfg, lambda cfg=cfg: training_setup(cfg, dev),
+                TRAIN_LAUNCHES if name == TRAIN_ARCH
+                else XLSTM_TRAIN_LAUNCHES, dev, smi, None)
+        else:
+            measured = trained[key]
+        step_s = measured["median_step_s"]
+        t = _train_trace(name)
+        check(t["params"] == measured["params"],
+              f"{name}: traced {t['params']} parameters, trained "
+              f"{measured['params']}")
+        six_nt = 6 * t["params"] * TRAIN_BATCH * TRAIN_SEQ
+        rec = {**t, "step_s": step_s, "six_nt": six_nt,
+               "hfu": t["dot_flops"] / (step_s * roofline.PEAK_FLOPS),
+               "mfu": six_nt / (step_s * roofline.PEAK_FLOPS)}
+        out["training"][name] = rec
+        print(f"17c {name} training step (batch {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}, remat 'nothing', phase 14's): traced dot FLOPs "
+              f"{t['dot_flops']:.6g} (recompute included; {t['flops']:.6g} "
+              f"FLOP in all), 6 N T {six_nt:.6g}; step {step_s:.4f} s: hfu "
+              f"{100 * rec['hfu']:.2f}%, mfu {100 * rec['mfu']:.2f}% of "
+              f"{roofline.PEAK_FLOPS / 1e12:.1f} TFLOP/s; trace "
+              f"{t['trace_s']:.1f} s; on {smi}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 17 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing to measure")
@@ -3847,6 +4072,7 @@ def main() -> None:
     if sys.argv[1:] == [PROFILE_XLSTM_STEP_ARG]:
         profile_xlstm_step()
         return
+    t_start = time.perf_counter()
     from repro_torch.kernels import build
     from repro_torch.kernels.scar_eval import (scar_eval,
                                                scar_eval_window_plain)
@@ -3883,6 +4109,9 @@ def main() -> None:
     for name, log in build.build_log.items():
         for line in log.strip().splitlines():
             print(f"  [{name}] {line}")
+    if sys.argv[1:] == [DRYRUN_ARG]:
+        print(json.dumps(dryrun_phase(dev, smi)))
+        return
 
     phase("2a kernel: scar_eval vs scar_eval_window_plain")
     rng = np.random.default_rng(0)
@@ -4644,9 +4873,15 @@ def main() -> None:
           "xlstm-350m at dp = 2 with ZeRO-1, compressed_psum")
     dist = distributed_phase(smi)
 
+    phase("17 dry-run tools: the 16x16 cells traced on meta, xlstm-350m's "
+          "cells on the card, phase 14's steps' hfu and mfu")
+    dry = dryrun_phase(dev, smi, trained)
+
     phase("8 summary")
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s to the "
+          f"summary (phase 17 {dry['phase_s']:.1f} s)")
     print(json.dumps({"distributed": {k: v for k, v in dist.items()
-                                      if k != "ranks"},
+                                      if k != "ranks"}, "dryrun": dry,
                       "portfolio": portfolio, "multimodel": pod,
                       "serve": served, "sync_witness": witness,
                       "vlm": {k: v for k, v in vlm.items()
@@ -4788,6 +5023,9 @@ def main() -> None:
          "batched product")))]
     for k in kernels:
         k["launches_by_path"].update(dist_launches(dist, k["name"]))
+        k["launches_by_path"].update({
+            path: counts[k["name"]] for path, counts in dry[
+                "launches"].items() if k["name"] in counts})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

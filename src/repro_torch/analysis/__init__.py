@@ -1,7 +1,7 @@
-"""Static analysis of the port: the ``scarlint`` linter (``analysis.lint``).
-
-The counterpart of ``repro.analysis``.  Its roofline and HLO-cost modules
-read the dry-run records that ``launch/dryrun.py`` writes, so they are
-ported with that tool.
+"""Analysis of the port (the counterpart of ``repro.analysis``): the
+``scarlint`` linter (``analysis.lint``), the cost of a traced program
+(``analysis.trace_cost``, the stand-in for the reference's ``hlo_cost``)
+and the roofline terms of a dry-run record (``analysis.roofline``), which
+``launch.dryrun`` and ``launch.hillclimb`` use.
 """
 from . import lint

@@ -17,6 +17,8 @@ import collections
 import torch
 import torch.distributed as dist
 
+from repro_torch import trace_hooks
+
 __all__ = ["GLOO_CUDA_OPS", "all_gather", "all_reduce", "backend",
            "broadcast", "reset_stats", "send_recv", "stats"]
 
@@ -35,11 +37,13 @@ def backend(group=None) -> str:
     return str(dist.get_backend(group))
 
 
-def _count(op: str, t: torch.Tensor, staged: bool) -> None:
-    s = _STATS[op]
+def _count(label: str, t: torch.Tensor, staged: bool, op: str,
+           group_size: int) -> None:
+    s = _STATS[label]
     s["calls"] += 1
     s["bytes"] += t.numel() * t.element_size()
     s["staged"] += int(staged)
+    trace_hooks.collective(op, t.numel() * t.element_size(), group_size)
 
 
 def _staged(op: str, t: torch.Tensor, group) -> bool:
@@ -62,7 +66,7 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum",
                label: str = "all_reduce") -> torch.Tensor:
     """``t`` reduced over ``group`` in place (and returned)."""
     staged = _staged("all_reduce", t, group)
-    _count(label, t, staged)
+    _count(label, t, staged, "all_reduce", dist.get_world_size(group))
     if staged:
         host = t.cpu()
         dist.all_reduce(host, op=_OPS[op], group=group)
@@ -78,7 +82,7 @@ def all_gather(t: torch.Tensor, axis,
     ``launch.mesh.Axis``), in the axis's index order."""
     group = axis.group
     staged = _staged("all_gather", t, group)
-    _count(label, t, staged)
+    _count(label, t, staged, "all_gather", axis.size)
     src = t.contiguous().cpu() if staged else t.contiguous()
     out = [torch.empty_like(src) for _ in range(axis.size)]
     dist.all_gather(out, src, group=group)
@@ -91,7 +95,7 @@ def broadcast(t: torch.Tensor, src: int, axis) -> torch.Tensor:
     """``t`` from the axis's rank ``src`` (its index), in place."""
     group = axis.group
     staged = _staged("broadcast", t, group)
-    _count("broadcast", t, staged)
+    _count("broadcast", t, staged, "broadcast", axis.size)
     if staged:
         host = t.cpu()
         dist.broadcast(host, group=group, src=axis.ranks[src])
@@ -107,7 +111,7 @@ def send_recv(send: torch.Tensor, recv: torch.Tensor, dst: int, src: int,
     from ``src`` (indices; one ring hop); returns ``recv``."""
     group = axis.group
     staged = _staged("send_recv", send, group)
-    _count("send_recv", send, staged)
+    _count("send_recv", send, staged, "send_recv", axis.size)
     s, r = (send.contiguous().cpu(), torch.empty(
         recv.shape, dtype=recv.dtype)) if staged else (send.contiguous(),
                                                         recv)

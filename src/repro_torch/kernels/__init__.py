@@ -10,6 +10,10 @@ wrappers raise, and the LM kernels' ``grad`` modules hold the
 (with ``flash_attention_bwd``), ``ssd_scan`` (with ``ssd_scan_bwd`` and,
 for wide heads and the mLSTM's normaliser, ``ssd_wide_bwd``) and
 ``slstm`` (the sLSTM recurrence, with ``slstm_bwd``).
+
+The LM kernels' wrappers take the plain version on the CPU and, inside a
+cost trace, on ``meta`` (``trace_hooks.plain_device``); a CUDA tensor never
+falls back.
 """
 import torch
 

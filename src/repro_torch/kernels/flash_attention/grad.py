@@ -36,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from ...trace_hooks import plain_device
 from .. import aligned16, needs_grad
 from ..build import load_library
 from .kernel import (_DTYPES, _ERR_TENSOR_MAP, LSE_ROWS, NEG_INF, _as_4d,
@@ -101,7 +102,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(do.shape)} must be shaped like q "
                          f"{tuple(q.shape)}")
     dev = q.device
-    if dev.type == "cpu":
+    if plain_device(q):
         return attention_bwd_plain(q, k, v, o, do, causal=causal,
                                    sm_scale=sm_scale)
     if dev.type != "cuda":
@@ -172,7 +173,7 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sm_scale: Optional[float]):
         lse = (lse_buffer(q) if q.dtype == torch.bfloat16
-               and q.device.type != "cpu" else None)
+               and not plain_device(q) else None)
         o = flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
                             lse=lse)
         ctx.save_for_backward(q, k, v, o)

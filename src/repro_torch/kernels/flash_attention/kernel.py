@@ -18,11 +18,12 @@ casts them to ``v``'s type.  float32 runs on the CUDA cores in float32
 throughout.  The plain version computes in float32.
 
 ``flash_attention`` launches the kernel for CUDA tensors and takes the
-plain version only for tensors on the CPU; a CUDA tensor never falls back.
-The kernel reads any batch, head and sequence strides (last dimension
-contiguous), so the model's activations and its KV cache go in as views;
-for bf16 (TMA) the pointers must be 16-byte aligned and head_dim and the
-strides multiples of 8 elements, else the wrapper raises.
+plain version only for tensors on the CPU or ``meta`` (a trace); a CUDA
+tensor never falls back.  The kernel reads any batch, head and sequence
+strides (last dimension contiguous), so the model's activations and its
+KV cache go in as views; for bf16 (TMA) the pointers must be 16-byte
+aligned and head_dim and the strides multiples of 8 elements, else the
+wrapper raises.
 
 Mixed types (``mixed``): float32 queries over bf16 keys and values, or the
 other way round, are what a float32 model's cross-attention over a bf16
@@ -40,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from ...trace_hooks import plain_device
 from .. import needs_grad
 from ..build import load_library
 
@@ -168,7 +170,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if lse is not None:
         _check_lse(q, lse)
     dev = q.device
-    if dev.type == "cpu":
+    if plain_device(q):
         return attention_plain(q, k, v, causal=causal, q_offset=q_offset,
                                kv_len=kv_len, sm_scale=sm_scale, lse=lse)
     if needs_grad(q, k, v):

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from ...trace_hooks import plain_device, recurrence
 from .. import needs_grad
 from .kernel import (_DTYPES, _beyond, _check, _lib, _softplus, slstm_scan)
 
@@ -53,17 +54,26 @@ def _dr(h0: torch.Tensor, ys: torch.Tensor, dgx: torch.Tensor
 def slstm_scan_bwd_plain(g, r, carry0, states, ys, dys, dcarry):
     """Plain torch version of the backward kernel: the reverse recurrence
     in float32, one position at a time.  ``(dgx, dr, dcarry0)``."""
+    if dys is None:
+        dys = torch.zeros_like(ys)
+    L = g.shape[1]
+    dgx = torch.empty_like(g)
+    dcarry0 = recurrence(lambda steps: _reverse(
+        g, r, carry0, states, dys, dcarry, dgx, range(L - steps, L)), L,
+        g.device)
+    return dgx, _dr(carry0[2], ys, dgx), dcarry0
+
+
+def _reverse(g, r, carry0, states, dys, dcarry, dgx, ts):
+    """The reverse recurrence over positions ``ts``, the last first, each
+    writing its row of ``dgx``: the gradient of the carry before them."""
     c0, n0, h0, m0 = carry0
     cs, ns, ms = states
     dt = h0.dtype
     dc, dn, dh1, dm = _zeros_for(dcarry, carry0)
     dc, dn, dm = dc.float(), dn.float(), dm.float()
     dhr = dh1.to(dt)
-    if dys is None:
-        dys = torch.zeros_like(ys)
-    L = g.shape[1]
-    dgx = torch.empty_like(g)
-    for t in reversed(range(L)):
+    for t in reversed(ts):
         dhf = (dys[:, t] + dhr).float()          # summed in h's type
         z, i, f, o = torch.chunk(g[:, t].float(), 4, dim=-1)
         cp, np_, mp = ((cs[:, t - 1], ns[:, t - 1], ms[:, t - 1]) if t
@@ -96,7 +106,7 @@ def slstm_scan_bwd_plain(g, r, carry0, states, ys, dys, dcarry):
         dgx[:, t] = dg
         dhr = torch.einsum("bhk,hdk->bhd", dg.to(dt), r)
         dc, dn, dm = dc2 * fp, dn2 * fp, dlfm
-    return dgx, _dr(h0, ys, dgx), (dc, dn, dhr, dm)
+    return dc, dn, dhr, dm
 
 
 def slstm_scan_bwd(g, r, carry0, states, ys, dys, dcarry):
@@ -107,7 +117,7 @@ def slstm_scan_bwd(g, r, carry0, states, ys, dys, dcarry):
     on the CPU.  ``slstm_scan_bwd.launches`` counts the kernel's launches
     (one per call; dr is a torch product after it)."""
     dev = g.device
-    if dev.type == "cpu":
+    if plain_device(g):
         return slstm_scan_bwd_plain(g, r, carry0, states, ys, dys, dcarry)
     if dev.type != "cuda":
         raise ValueError(f"slstm_scan_bwd: no kernel for {dev}")
@@ -171,7 +181,7 @@ def scan(gx: torch.Tensor, r: torch.Tensor, carry: tuple):
     note): ``(ys, carry')``."""
     if not needs_grad(gx, r, *carry):
         return slstm_scan(gx, r, carry)
-    if gx.device.type != "cpu":
+    if not plain_device(gx):
         _check(gx, r, carry)
         beyond = _beyond(gx, r, carry)
         if beyond:

@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from ...trace_hooks import plain_device, recurrence
 from .. import needs_grad
 from ..build import load_library
 
@@ -40,13 +41,12 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _slstm_cell(carry: tuple, gx: torch.Tensor, r: torch.Tensor
-                ) -> tuple[tuple, torch.Tensor]:
-    """One sLSTM step.  carry: (c, n, h, m), each [B, H, dh]; gx: [B, H,
-    4 dh]; r: [H, dh, 4 dh] in h's type."""
+def _cell_of_gates(carry: tuple, g: torch.Tensor
+                   ) -> tuple[tuple, torch.Tensor]:
+    """One sLSTM step from its gate inputs ``g = gx + h r``.  carry: (c, n,
+    h, m), each [B, H, dh]; g: [B, H, 4 dh]."""
     c, n, h, m = carry
-    gr = torch.einsum("bhd,hdk->bhk", h, r)
-    zt, it, ft, ot = torch.chunk((gx + gr).float(), 4, dim=-1)
+    zt, it, ft, ot = torch.chunk(g.float(), 4, dim=-1)
     log_f = -_softplus(-ft)
     m2 = torch.maximum(log_f + m, it)
     ip = torch.exp(it - m2)
@@ -59,24 +59,32 @@ def _slstm_cell(carry: tuple, gx: torch.Tensor, r: torch.Tensor
 
 def slstm_scan_plain(gx: torch.Tensor, r: torch.Tensor, carry: tuple, *,
                      save: bool = False):
-    """Plain torch version of the kernel: ``_slstm_cell`` a position (the
+    """Plain torch version of the kernel: one step a position (the
     reference's ``lax.scan``).  ``(ys, carry')``, and with ``save`` the
     backward's ``(g, cs, ns, ms)``."""
-    L = gx.shape[1]
-    ys, saved = [], ([], [], [], [])
-    for t in range(L):
-        if save:        # the cell's own gate inputs, the same ops
-            saved[0].append(
-                gx[:, t] + torch.einsum("bhd,hdk->bhk", carry[2], r))
-        carry, y = _slstm_cell(carry, gx[:, t], r)
-        ys.append(y)
-        if save:
-            for s, x in zip(saved[1:], (carry[0], carry[1], carry[3])):
-                s.append(x)
-    ys = torch.stack(ys, dim=1)
-    if not save:
-        return ys, carry
-    return ys, carry, tuple(torch.stack(s, dim=1) for s in saved)
+    B, L = gx.shape[:2]
+    c, n, h, m = carry
+    f32 = torch.float32
+    ys = gx.new_empty((B, L) + tuple(h.shape[1:]), dtype=h.dtype)
+    if save:    # the cell's own gate inputs, and its c, n and m
+        saved = (gx.new_empty(gx.shape, dtype=torch.promote_types(
+            gx.dtype, h.dtype)),) + tuple(
+            gx.new_empty((B, L) + tuple(x.shape[1:]),
+                         dtype=torch.promote_types(f32, x.dtype))
+            for x in (c, n, m))
+
+    def run(steps):                     # positions 0 .. steps - 1
+        cy = carry
+        for t in range(steps):
+            g = gx[:, t] + torch.einsum("bhd,hdk->bhk", cy[2], r)
+            cy, y = _cell_of_gates(cy, g)
+            ys[:, t] = y
+            if save:
+                for s, x in zip(saved, (g, cy[0], cy[1], cy[3])):
+                    s[:, t] = x
+        return cy
+    carry = recurrence(run, L, gx.device)
+    return (ys, carry, saved) if save else (ys, carry)
 
 
 def _check(gx, r, carry) -> None:
@@ -119,7 +127,7 @@ def slstm_scan(gx: torch.Tensor, r: torch.Tensor, carry: tuple, *,
     call."""
     _check(gx, r, carry)
     dev = gx.device
-    if dev.type == "cpu":
+    if plain_device(gx):
         return slstm_scan_plain(gx, r, carry, save=save)
     if needs_grad(gx, r, *carry):
         raise NotImplementedError(

@@ -51,6 +51,7 @@ import ctypes
 
 import torch
 
+from ...trace_hooks import plain_device, recurrence
 from .. import aligned16, needs_grad
 from ..build import load_library
 from ..scar_eval.kernel import blocked_cumsum
@@ -94,39 +95,59 @@ def ssd_scan_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def part(t, i):
         return t[:, :, i * c:(i + 1) * c]
 
-    cums = [blocked_cumsum(part(af, i).movedim(-1, 0)).movedim(0, -1)
-            for i in range(nc)]
-    s_in, state = [], qf.new_zeros((B, H, N, P))
-    for i in range(nc):                   # the state entering each chunk
-        s_in.append(state)
-        cum, total = cums[i], cums[i][..., -1:]
-        k_dec = part(kf, i) * torch.exp(total - cum)[..., None]
-        state = (state * torch.exp(total)[..., None]
-                 + k_dec.transpose(-1, -2) @ part(vf, i))
-    ds_out, dstate = [None] * nc, qf.new_zeros((B, H, N, P))
-    for i in reversed(range(nc)):         # the gradient of the state leaving
-        ds_out[i] = dstate
-        cum, total = cums[i], cums[i][..., -1:]
-        q_dec = part(qf, i) * torch.exp(cum)[..., None]
-        dstate = (dstate * torch.exp(total)[..., None]
-                  + q_dec.transpose(-1, -2) @ part(dof, i))
+    # every chunk's prefix sums of a at once, each in its own association
+    cums = blocked_cumsum(af.reshape(B, H, nc, c).movedim(-1, 0)).movedim(
+        0, -1)                                               # [B, H, nc, c]
+    s_in = qf.new_empty((B, H, nc, N, P))    # the state entering each chunk
+
+    def states(n):                           # chunks 0 .. n - 1
+        state = qf.new_zeros((B, H, N, P))
+        for i in range(n):
+            s_in[:, :, i] = state
+            cum = cums[:, :, i]
+            total = cum[..., -1:]
+            k_dec = part(kf, i) * torch.exp(total - cum)[..., None]
+            state = (state * torch.exp(total)[..., None]
+                     + k_dec.transpose(-1, -2) @ part(vf, i))
+        return state
+    recurrence(states, nc, v.device)
+    ds_out = qf.new_empty((B, H, nc, N, P))  # that of the state leaving it
+
+    def dstates(n):                          # chunks nc - 1 .. nc - n
+        dstate = qf.new_zeros((B, H, N, P))
+        for i in reversed(range(nc - n, nc)):
+            ds_out[:, :, i] = dstate
+            cum = cums[:, :, i]
+            total = cum[..., -1:]
+            q_dec = part(qf, i) * torch.exp(cum)[..., None]
+            dstate = (dstate * torch.exp(total)[..., None]
+                      + q_dec.transpose(-1, -2) @ part(dof, i))
+        return dstate
+    recurrence(dstates, nc, v.device)
     tril = torch.ones((c, c), dtype=torch.bool, device=v.device).tril()
-    dqs, dks, dvs = [], [], []
-    for i in range(nc):
-        qc, kc, vc, doc = (part(t, i) for t in (qf, kf, vf, dof))
-        cum, total = cums[i], cums[i][..., -1:]
-        rel = cum[..., :, None] - cum[..., None, :]
-        gate = torch.where(tril, torch.exp(torch.where(tril, rel, 0.0)), 0.0)
-        g_do = (doc @ vc.transpose(-1, -2)) * gate            # [t, s]
-        g_qk = (qc @ kc.transpose(-1, -2)) * gate
-        tail = torch.exp(total - cum)[..., None]
-        dqs.append(g_do @ kc
-                   + torch.exp(cum)[..., None] * (doc @ s_in[i].transpose(
-                       -1, -2)))
-        dks.append(g_do.transpose(-1, -2) @ qc
-                   + tail * (vc @ ds_out[i].transpose(-1, -2)))
-        dvs.append(g_qk.transpose(-1, -2) @ doc + tail * (kc @ ds_out[i]))
-    dq, dk, dv = (torch.cat(t, dim=2) for t in (dqs, dks, dvs))
+    dq, dk = qf.new_empty((B, H, L, N)), qf.new_empty((B, H, L, N))
+    dv = qf.new_empty((B, H, L, P))
+
+    def grads(n):                            # chunks 0 .. n - 1
+        for i in range(n):
+            rows = slice(i * c, (i + 1) * c)
+            qc, kc, vc, doc = (t[:, :, rows] for t in (qf, kf, vf, dof))
+            cum = cums[:, :, i]
+            total = cum[..., -1:]
+            rel = cum[..., :, None] - cum[..., None, :]
+            gate = torch.where(tril, torch.exp(torch.where(tril, rel, 0.0)),
+                               0.0)
+            g_do = (doc @ vc.transpose(-1, -2)) * gate        # [t, s]
+            g_qk = (qc @ kc.transpose(-1, -2)) * gate
+            tail = torch.exp(total - cum)[..., None]
+            dq[:, :, rows] = (g_do @ kc + torch.exp(cum)[..., None]
+                              * (doc @ s_in[:, :, i].transpose(-1, -2)))
+            dk[:, :, rows] = (g_do.transpose(-1, -2) @ qc
+                              + tail * (vc @ ds_out[:, :, i].transpose(-1,
+                                                                      -2)))
+            dv[:, :, rows] = (g_qk.transpose(-1, -2) @ doc
+                              + tail * (kc @ ds_out[:, :, i]))
+    recurrence(grads, nc, v.device)
     r = (qf * dq).sum(-1) - (kf * dk).sum(-1)                  # [B, H, L]
     da = torch.flip(torch.cumsum(torch.flip(r, [-1]), -1), [-1])
     dq, dk, dv = (t.transpose(1, 2).to(v.dtype) for t in (dq, dk, dv))
@@ -162,7 +183,7 @@ def ssd_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the states, dq, dk / dv and da)."""
     _check_bwd(q, k, v, a, do, chunk, dden, "ssd_scan_bwd")
     dev = v.device
-    if dev.type == "cpu":
+    if plain_device(v):
         return ssd_scan_bwd_plain(q, k, v, a, do, chunk=chunk, dden=dden)
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan_bwd: no kernel for {dev}")
@@ -225,7 +246,7 @@ def ssd_wide_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     da; bf16 on the tensor cores, float32 on the CUDA cores)."""
     _check_bwd(q, k, v, a, do, chunk, dden, "ssd_wide_bwd")
     dev = v.device
-    if dev.type == "cpu":
+    if plain_device(v):
         return ssd_scan_bwd_plain(q, k, v, a, do, chunk=chunk, dden=dden)
     if dev.type != "cuda":
         raise ValueError(f"ssd_wide_bwd: no kernel for {dev}")
@@ -345,7 +366,7 @@ def scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
     """
     if not needs_grad(q, k, v, a):
         return ssd_scan(q, k, v, a, chunk=chunk, norm=norm)
-    if v.device.type != "cpu":
+    if not plain_device(v):
         N, P, c = q.shape[-1], v.shape[-1], min(chunk, v.shape[1])
         beyond = _beyond(N, P, c, v.dtype)
         if beyond:

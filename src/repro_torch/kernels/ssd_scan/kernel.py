@@ -24,12 +24,13 @@ splitting every float32-held operand into three bf16 terms.
 head, chunk), each chunk handing its state on to the next, or, for heads
 wider than 64 (xLSTM's N = P = 256), one block per (batch, head, chunk, 64
 state columns); one count per launch) and takes the plain version only for
-tensors on the CPU; a CUDA tensor never falls back.  The kernels read any
-batch, sequence and head strides (last dimension contiguous), so Mamba-2's
-q and k, broadcast over heads (head stride 0), go in without a copy.  The
-bf16 kernels take N up to 256 and chunks up to 256 rows, and their
-``cp.async`` loads need 16-byte aligned pointers and N, P and strides that
-are multiples of 8 elements; the float32 kernel takes N and P up to 128.
+tensors on the CPU or ``meta`` (a trace); a CUDA tensor never falls back.
+The kernels read any batch, sequence and head strides (last dimension
+contiguous), so Mamba-2's q and k, broadcast over heads (head stride 0),
+go in without a copy.  The bf16 kernels take N up to 256 and chunks up to
+256 rows, and their ``cp.async`` loads need 16-byte aligned pointers and
+N, P and strides that are multiples of 8 elements; the float32 kernel
+takes N and P up to 128.
 The wrapper raises otherwise.  For bf16 the wrapper allocates the float32
 workspace of the states entering chunks ``1 .. L / chunk - 1`` and the
 zeroed int32 ticket counter and ready flags.
@@ -46,6 +47,7 @@ import ctypes
 
 import torch
 
+from ...trace_hooks import plain_device, recurrence
 from .. import needs_grad
 from ..build import load_library
 from ..scar_eval.kernel import blocked_cumsum
@@ -84,24 +86,33 @@ def ssd_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     af = a3.float().transpose(1, 2)                          # [B, H, L]
     B, H, _, N = qf.shape
     P = vf.shape[-1]
-    state = qf.new_zeros((B, H, N, P))
+    nc = L // c
+    # every chunk's prefix sums of a at once, each in its own association
+    cums = blocked_cumsum(af.reshape(B, H, nc, c).movedim(-1, 0)).movedim(
+        0, -1)                                               # [B, H, nc, c]
     tril = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
-    outs = []
-    for c0 in range(0, L, c):
-        qc, kc, vc = (t[:, :, c0:c0 + c] for t in (qf, kf, vf))
-        cum = blocked_cumsum(af[:, :, c0:c0 + c].movedim(-1, 0)).movedim(
-            0, -1)
-        total = cum[..., -1:]
-        rel = cum[..., :, None] - cum[..., None, :]
-        # exp only on the causal triangle: above it rel > 0 may overflow
-        gate = torch.where(tril, torch.exp(torch.where(tril, rel, 0.0)), 0.0)
-        intra = ((qc @ kc.transpose(-1, -2)) * gate) @ vc
-        inter = (qc * torch.exp(cum)[..., None]) @ state
-        outs.append(intra + inter)
-        k_dec = kc * torch.exp(total - cum)[..., None]
-        state = (state * torch.exp(total)[..., None]
-                 + k_dec.transpose(-1, -2) @ vc)
-    out = torch.cat(outs, dim=2).transpose(1, 2).to(v.dtype)  # [B, L, H, P]
+    out = qf.new_empty((B, H, L, P))
+
+    def run(n):                 # chunks 0 .. n - 1, each its rows of out
+        state = qf.new_zeros((B, H, N, P))
+        for i in range(n):
+            rows = slice(i * c, (i + 1) * c)
+            qc, kc, vc = (t[:, :, rows] for t in (qf, kf, vf))
+            cum = cums[:, :, i]
+            total = cum[..., -1:]
+            rel = cum[..., :, None] - cum[..., None, :]
+            # exp only on the causal triangle: above it rel > 0 may overflow
+            gate = torch.where(tril, torch.exp(torch.where(tril, rel, 0.0)),
+                               0.0)
+            intra = ((qc @ kc.transpose(-1, -2)) * gate) @ vc
+            inter = (qc * torch.exp(cum)[..., None]) @ state
+            out[:, :, rows] = intra + inter
+            k_dec = kc * torch.exp(total - cum)[..., None]
+            state = (state * torch.exp(total)[..., None]
+                     + k_dec.transpose(-1, -2) @ vc)
+        return state
+    recurrence(run, nc, v.device)
+    out = out.transpose(1, 2).to(v.dtype)                    # [B, L, H, P]
     return out[:, :, 0] if three else out
 
 
@@ -140,7 +151,7 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     _check(q, k, v, a, chunk)
     dev = v.device
-    if dev.type == "cpu":
+    if plain_device(q):
         return ssd_scan_plain(q, k, v, a, chunk=chunk, norm=norm)
     if needs_grad(q, k, v, a):
         # the kernel's output has no grad_fn: a gradient would be lost

@@ -75,11 +75,10 @@ def _moe_dims(cfg: ArchConfig, ctx: BlockCtx) -> MoEDims:
 
 def attn_block_init(gen: torch.Generator, cfg: ArchConfig, ctx: BlockCtx,
                     dtype, kind: BlockKind = BlockKind.ATTN) -> Params:
-    dev = gen.device
     p: Params = {
-        "ln1": rmsnorm_init(cfg.d_model, dtype, dev),
+        "ln1": rmsnorm_init(cfg.d_model, dtype),
         "attn": attn_init(gen, _attn_dims(cfg, ctx), dtype),
-        "ln2": rmsnorm_init(cfg.d_model, dtype, dev),
+        "ln2": rmsnorm_init(cfg.d_model, dtype),
     }
     if kind == BlockKind.MOE:
         p["moe"] = moe_init(gen, _moe_dims(cfg, ctx), dtype)
@@ -89,11 +88,11 @@ def attn_block_init(gen: torch.Generator, cfg: ArchConfig, ctx: BlockCtx,
     elif cfg.mlp != MLPKind.NONE:
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp.value, dtype)
     if kind == BlockKind.CROSS_ATTN:
-        p["ln_x"] = rmsnorm_init(cfg.d_model, dtype, dev)
+        p["ln_x"] = rmsnorm_init(cfg.d_model, dtype)
         p["xattn"] = attn_init(gen, _attn_dims(cfg, ctx), dtype)
         # float32 whatever the model's type; tanh(0) = 0: at init the cross
         # branch adds nothing, as in the reference
-        p["xgate"] = torch.zeros((), dtype=torch.float32, device=dev)
+        p["xgate"] = torch.zeros((), dtype=torch.float32)
     return p
 
 
@@ -198,16 +197,15 @@ def _mamba_dims(cfg: ArchConfig):
 def mamba2_init(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
     d_inner, H, N, P, K = _mamba_dims(cfg)
     d = cfg.d_model
-    dev = gen.device
     conv_dim = d_inner + 2 * N
     return {
-        "ln": rmsnorm_init(d, dtype, dev),
+        "ln": rmsnorm_init(d, dtype),
         "in_proj": dense_init(gen, d, 2 * d_inner + 2 * N + H, dtype),
-        "conv_w": (torch.randn((K, conv_dim), generator=gen, device=dev)
+        "conv_w": (torch.randn((K, conv_dim), generator=gen)
                    / math.sqrt(K)).to(dtype),
-        "A_log": torch.zeros((H,), dtype=torch.float32, device=dev),
-        "D": torch.ones((H,), dtype=torch.float32, device=dev),
-        "dt_bias": torch.zeros((H,), dtype=torch.float32, device=dev),
+        "A_log": torch.zeros((H,), dtype=torch.float32),
+        "D": torch.ones((H,), dtype=torch.float32),
+        "dt_bias": torch.zeros((H,), dtype=torch.float32),
         "out_proj": dense_init(gen, d_inner, d, dtype),
     }
 
@@ -296,7 +294,7 @@ def _chunk_of(cfg: ArchConfig) -> int:
 def mlstm_init(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
     d = cfg.d_model
     return {
-        "ln": rmsnorm_init(d, dtype, gen.device),
+        "ln": rmsnorm_init(d, dtype),
         "wq": dense_init(gen, d, d, dtype),
         "wk": dense_init(gen, d, d, dtype),
         "wv": dense_init(gen, d, d, dtype),
@@ -368,9 +366,9 @@ def slstm_init(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
     H = cfg.n_heads
     dh = d // H
     return {
-        "ln": rmsnorm_init(d, dtype, gen.device),
+        "ln": rmsnorm_init(d, dtype),
         "wx": dense_init(gen, d, 4 * d, dtype, bias=True),
-        "r": (torch.randn((H, dh, 4 * dh), generator=gen, device=gen.device)
+        "r": (torch.randn((H, dh, 4 * dh), generator=gen)
               / math.sqrt(dh)).to(dtype),
         "out": dense_init(gen, d, d, dtype),
     }

@@ -46,18 +46,19 @@ from repro_torch.kernels.ssd_scan import scan, ssd_scan
 Params = dict
 
 
+# The init functions put their leaves on torch's default device, which
+# ``init_params`` sets to its own ``device`` while it draws.
 def _init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
                 scale: Optional[float] = None) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return (torch.randn((d_in, d_out), generator=gen, device=gen.device)
-            * scale).to(dtype)
+    return (torch.randn((d_in, d_out), generator=gen) * scale).to(dtype)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                bias: bool = False) -> Params:
     p = {"w": _init_dense(gen, d_in, d_out, dtype)}
     if bias:
-        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+        p["b"] = torch.zeros((d_out,), dtype=dtype)
     return p
 
 
@@ -68,8 +69,8 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def rmsnorm_init(d: int, dtype, device) -> Params:
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def rmsnorm_init(d: int, dtype) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype)}
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -310,14 +311,13 @@ class MoEDims:
 
 def moe_init(gen: torch.Generator, dims: MoEDims, dtype) -> Params:
     E, d, f = dims.n_experts, dims.d_model, dims.d_ff
-    dev = gen.device
     p = {
         "router": _init_dense(gen, d, dims.n_routed, torch.float32),
-        "wi": (torch.randn((E, d, f), generator=gen, device=dev)
+        "wi": (torch.randn((E, d, f), generator=gen)
                / math.sqrt(d)).to(dtype),
-        "wg": (torch.randn((E, d, f), generator=gen, device=dev)
+        "wg": (torch.randn((E, d, f), generator=gen)
                / math.sqrt(d)).to(dtype),
-        "wo": (torch.randn((E, f, d), generator=gen, device=dev)
+        "wo": (torch.randn((E, f, d), generator=gen)
                / math.sqrt(f)).to(dtype),
     }
     if dims.n_shared:

@@ -34,6 +34,7 @@ from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.launch.platform import device_upload, resolve_device
 from repro_torch.optim import adamw
 from repro_torch.optim.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.trace_hooks import recurrence
 from .config import ArchConfig
 from .transformer import ModelDims, decode_step, forward, loss_fn, prefill
 
@@ -111,14 +112,18 @@ def make_train_step(cfg: ArchConfig, dims: ModelDims, opt: adamw.AdamWConfig,
                      for i in range(accum_steps)]
             acc = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
                                                  device=p.device), params)
-            losses = []
-            for mb in micro:
-                loss_i, g = grads_of(params, mb)
-                acc = tree_map(lambda a, gg: a + gg.to(acc_dtype), acc, g)
-                losses.append(loss_i)
+            losses = torch.empty((accum_steps,), device=device)
+
+            def accumulate(n):      # the first n microbatches
+                for i in range(n):
+                    loss_i, g = grads_of(params, micro[i])
+                    tree_map(lambda a, gg: a.add_(gg.to(acc_dtype)), acc, g)
+                    del g       # not held while the next microbatch runs
+                    losses[i] = loss_i
+            recurrence(accumulate, accum_steps, device)
             grads = tree_map(lambda g, p: (g / accum_steps).to(p.dtype), acc,
                              params)
-            loss = torch.stack(losses).mean()
+            loss = losses.mean()
         if par is not None:
             return _sharded_update(params, opt_state, grads, loss)
         new_params, new_state = adamw.apply_updates(opt, params, grads,

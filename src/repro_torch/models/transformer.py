@@ -105,8 +105,10 @@ def _dtype(dtype) -> torch.dtype:
 
 def init_params(cfg: ArchConfig, dims: ModelDims, *,
                 generator: torch.Generator,
-                dtype=torch.bfloat16, shard=None) -> Params:
-    """Random weights drawn from ``generator``, on the generator's device.
+                dtype=torch.bfloat16, shard=None, device=None) -> Params:
+    """Random weights drawn from ``generator``, on ``device`` (default: the
+    generator's; ``meta`` with a CPU generator gives the shapes and types
+    alone, as ``launch.cells.param_shapes`` takes them).
 
     Draws are made on the device (a CUDA generator for the card), in the
     reference's order of layers, but torch's normal stream is not JAX's:
@@ -119,8 +121,13 @@ def init_params(cfg: ArchConfig, dims: ModelDims, *,
     never lies on one rank); the draws are those of the unsharded call.
     """
     dtype = _dtype(dtype)
-    dev = generator.device
     ctx = make_ctx(cfg, dims, "full", torch.zeros((1,), dtype=torch.long))
+    with torch.device(generator.device if device is None else device):
+        return _init_params(cfg, dims, generator, dtype, shard, ctx)
+
+
+def _init_params(cfg: ArchConfig, dims: ModelDims, generator: torch.Generator,
+                 dtype: torch.dtype, shard, ctx: BlockCtx) -> Params:
     pattern = cfg.block_pattern
     cut = shard if shard is not None else (lambda path, tree: tree)
     layers = [[cut(("layers", si, pi),
@@ -129,11 +136,11 @@ def init_params(cfg: ArchConfig, dims: ModelDims, *,
               for si in range(cfg.n_super_blocks)]
     params: Params = {
         "embed": cut(("embed",), (torch.randn(
-            (dims.vocab_pad, cfg.d_model), generator=generator, device=dev)
+            (dims.vocab_pad, cfg.d_model), generator=generator)
             * 0.02).to(dtype)),
         "layers": layers,
         "final_ln": cut(("final_ln",),
-                        rmsnorm_init(cfg.d_model, dtype, dev)),
+                        rmsnorm_init(cfg.d_model, dtype)),
     }
     if BlockKind.SHARED_ATTN in pattern:
         params["shared_attn"] = cut(("shared_attn",), block_init(
