@@ -245,6 +245,26 @@ package.  Phases, each printed as it runs:
    dot FLOPs with the recompute, ``hfu`` and ``mfu`` at phase 14's step
    times.  ``python3 chip_smoke.py --dryrun-phase`` runs it alone
    (training both models itself)
+18. sequence parallelism, the model-major experts and gradients through a
+   KV-cache mask: (a) two ranks on the card at model = 2 (gloo):
+   qwen2.5-32b at its published widths, depth cut (trained at
+   ``SP_TRAIN_LAYERS``, served in float32 at ``SP_SERVE_LAYERS``), batch
+   4 x 1 024, a train step and a prefill with and without Megatron-SP, the
+   SP run held to the other (first loss, grad norm, logits, and the
+   summed gradients of the leaves not sharded over 'model' within
+   ``SP_LEAF_REL``), and
+   minitron-8b (``SP_DECODE_LAYERS`` layers) greedy decode with SP giving
+   the tokens without it; (b) arctic-480b at its published widths, 1
+   layer, bf16 prefill in the default and the model-major expert layout,
+   held to each other (``MM_LOGIT_REL``), each rank's peak memory; (c)
+   ``flash_attention_bwd`` under a cache mask (``q_offset`` 768, Sq 256,
+   Skv 1 024, ``kv_len`` 900) at zamba2's and qwen2.5-32b's head shapes,
+   bf16 and float32, against ``attention_bwd_plain``; its time, bound and
+   the backward of ``F.scaled_dot_product_attention`` under the same
+   boolean mask; then ``attn_apply`` with a cache at qwen2.5-32b's widths
+   differentiated through the kernels (one launch of each), held to the
+   plain path.  ``python3 chip_smoke.py --seq-parallel-phase`` runs it
+   alone
 8. summary: the script's wall time to here and phase 17's, a JSON line
    of the portfolio, multimodel, serving, sync witness, VLM, training,
    distributed and dry-run numbers,
@@ -303,9 +323,16 @@ ATTN_D128 = {"qwen2-moe-a2.7b": (4, 1024, 16, 16, 128),
 # phase 16's shapes of a rank: the attention of a tensor-parallel rank at
 # tp = 2 (half the query and KV heads; minitron-8b's 16 over 4 is also its
 # tp = 2 training shape), the mLSTM scan of a data-parallel rank at dp = 2
-# (two of the batch's four rows)
+# (two of the batch's four rows); and phase 18's: qwen2.5-32b's 20 query
+# heads over 4 KV heads (its tp = 2 serving and training shape, bf16 and
+# float32, with and without SP) and arctic-480b's 28 over 4 (a GQA group
+# of 7, its tp = 2 prefill in both expert layouts)
 ATTN_TP2 = {"qwen2-moe-a2.7b": (4, 1024, 8, 8, 128),
-            "minitron-8b": (4, 1024, 16, 4, 128)}
+            "minitron-8b": (4, 1024, 16, 4, 128),
+            "qwen2.5-32b": (4, 1024, 20, 4, 128),
+            "arctic-480b": (4, 1024, 28, 4, 128)}
+# phase 18's float32 prefill runs qwen2.5-32b's tp = 2 shape in float32
+ATTN_TP2_F32 = ("qwen2.5-32b",)
 XLSTM_SSD_DP2 = (2, 1024, 4, 256, 256)
 # and the attention of an FSDP rank at data = 2 (phase 16 (e)): qwen2.5-32b's
 # 40 query heads over 8 KV heads on two of the batch's four rows, its
@@ -1475,8 +1502,11 @@ def new_shapes_phase(g, dev, smi) -> dict:
     """Phase 2e: the kernels at the new models' shapes, random inputs:
     ``ssd_scan`` at xlstm-350m's mLSTM widths with its normaliser in the
     same launch, ``flash_attention`` at head_dim 128 (qwen2-moe-a2.7b's MHA,
-    minitron-8b's GQA).  Each output within 2e-2 of the largest plain
-    output; times, bounds and, for attention, SDPA on the same inputs."""
+    minitron-8b's GQA; the tensor-parallel ranks' shapes of phases 16
+    and 18, qwen2.5-32b's also in float32, and the FSDP rank's).  Each
+    bf16 output within 2e-2 of the largest plain output, float32
+    elementwise within 2e-5; times, bounds and, for attention, SDPA on
+    the same inputs."""
     from repro_torch.kernels.flash_attention import (attention_plain,
                                                      flash_attention)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
@@ -1559,6 +1589,19 @@ def new_shapes_phase(g, dev, smi) -> dict:
         print(f"flash_attention {arch} at a tp = 2 rank's heads "
               f"q {(B, S, Hq, D)} over {Hkv} KV heads: max |kernel - "
               f"plain| {err!r} (within 2e-2 of max |plain|)")
+        del q, k, v, out, ref
+        if arch not in ATTN_TP2_F32:
+            continue
+        f32 = torch.float32
+        q, k, v = (randn((B, S, h, D), g, f32, dev) for h in (Hq, Hkv, Hkv))
+        out = flash_attention(q, k, v, causal=True)
+        ref = attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = kernel_err(out, ref, f32, f"flash_attention at {arch}'s tp = "
+                         "2 shape, float32")
+        rec["flash_attention_tp2"][arch]["max_abs_err_float32"] = err
+        print(f"flash_attention {arch} at a tp = 2 rank's heads, float32: "
+              f"max |kernel - plain| {err!r} (rtol = atol = 2e-5)")
         del q, k, v, out, ref
     rec["flash_attention_fsdp"] = {}
     for arch, (B, S, Hq, Hkv, D) in ATTN_FSDP.items():
@@ -2481,10 +2524,13 @@ def vlm_phase(dev, smi) -> dict:
 # flash case is minitron-8b's training shape at tp = 2 (a rank's 16 query
 # heads over 4 KV heads, phase 16); the third is qwen2.5-32b's training
 # shape at data = 2 (a rank's two of four rows, 40 query heads over 8 KV
-# heads, phase 16 (e))
+# heads, phase 16 (e)); the fourth qwen2.5-32b's training shape at tp = 2
+# (a rank's 20 query heads over 4 KV heads, phase 18 (a), with and without
+# SP)
 FLASH_BWD_CASES = ((4, 1024, 32, 32, 80, True, True),
                    (4, 1024, 16, 4, 128, True, True),
                    (2, 1024, 40, 8, 128, True, True),
+                   (4, 1024, 20, 4, 128, True, True),
                    (2, 256, 8, 2, 128, True, True),
                    (2, 256, 8, 2, 128, True, False),
                    (2, 100, 4, 4, 64, False, False),
@@ -2559,16 +2605,23 @@ def lm_counts() -> dict:
     return {name: fn.launches for name, fn in lm_kernels().items()}
 
 
-def flash_bwd_bound_ms(q, k, causal) -> tuple[float, str]:
-    """``flash_attention_bwd``'s least time: q, k, v, o and dO read and dQ,
+def flash_bwd_bound_ms(q, k, causal, q_offset: int = 0,
+                       kv_len=None) -> tuple[float, str]:
+    """``flash_attention_bwd``'s least time: q, o and dO read and dQ
+    written once, the k and v rows the mask lets any query see read once,
     dK and dV written once; five products of the visible (query, key)
     pairs (S, dP, dV, dQ, dK), two operations a multiply-add, at the peak
     rate of the inputs' type."""
     B, S, Hq, D = q.shape
     Skv, Hkv = k.shape[1:3]
-    pairs = S * (S + 1) // 2 if causal else S * Skv
+    kv_end = Skv if kv_len is None else min(Skv, kv_len)
+    if causal:
+        pairs = int(np.minimum(kv_end, np.arange(S) + q_offset + 1).sum())
+        kv_rows = min(kv_end, S + q_offset)
+    else:
+        pairs, kv_rows = S * kv_end, kv_end
     es = q.element_size()
-    nbytes = es * (4 * B * S * Hq * D + 4 * B * Skv * Hkv * D)
+    nbytes = es * (4 * B * S * Hq * D + 2 * B * (kv_rows + Skv) * Hkv * D)
     flops = 10 * B * Hq * D * pairs
     peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -4057,6 +4110,545 @@ def dryrun_phase(dev, smi, trained=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: Megatron sequence parallelism, the model-major expert layout and
+# gradients through a KV-cache mask
+# ---------------------------------------------------------------------------
+
+SP_ARG = "--seq-parallel-phase"
+SP_ARCH = "qwen2.5-32b"
+SP_TRAIN_LAYERS = 1          # AdamW's 22 B a parameter, two ranks a card
+SP_SERVE_LAYERS = 2
+SP_DECODE_ARCH = "minitron-8b"
+SP_DECODE_LAYERS = 8
+SP_GEN = 8
+MM_ARCH = "arctic-480b"
+MM_LAYERS = 1
+# the default and the model-major layouts' bf16 logits: max |mm - default|
+# <= MM_LOGIT_REL * max |default| (each rounds the experts' sums to bf16
+# at another point: the default layout adds two bf16 halves of d_ff)
+MM_LOGIT_REL = 2e-2
+# SP against the same run without it: float32 logits relative to the
+# largest, as phase 16 holds tp = 2 against one rank
+SP_LOGIT_REL = 1e-3
+# and the summed bf16 gradient of each leaf that no spec shards over
+# 'model' (the norm scales): |sp - tp| / |tp| in L2.  SP sums the two
+# ranks' blocks where tp = 2 sums the whole sequence on each rank, a bf16
+# rounding apart (2^-8 of an entry at most); a rank's block alone, not
+# summed over 'model', is about half the sum (off by 0.5 or more)
+SP_LEAF_REL = 1e-2
+# (B, Sq, Skv, Hq, Hkv, D): zamba2-2.7b's and qwen2.5-32b's heads
+CACHE_BWD_SHAPES = {"zamba2-2.7b": (4, 256, 1024, 32, 32, 80),
+                    SP_ARCH: (4, 256, 1024, 40, 8, 128)}
+CACHE_MASK = {"q_offset": 768, "kv_len": 900}
+
+
+def _sp_par(cfg, mesh, batch, **kw):
+    from repro_torch.distributed import tensor_parallel as tpl
+    return tpl.make_parallel(cfg, mesh, batch, **kw)
+
+
+def _drawn_shards(cfg, dims, par, dev, dtype, seed) -> dict:
+    """Seeded weights of the rank's shards drawn where they live, a leaf
+    (an expert at a time) after another: arctic's layer would need its
+    26.8 GB of bf16 experts, and more in float32, drawn whole on each rank
+    before its cut.  Norm scales 1, biases 0, the embedding N(0, 0.02),
+    every other leaf N(0, 1 / rows).  Both layouts of (b) run on these."""
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.launch.cells import param_shapes
+    from repro_torch.optim.tree import tree_flatten_with_paths, \
+        tree_unflatten
+    shapes = param_shapes(cfg, dims, dtype, lambda path, tree:
+                          tpl.shard_params(cfg, tree, par, path))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    leaves = []
+    for path, t in tree_flatten_with_paths(shapes):
+        name = path.split("/")[-1]
+        out = torch.empty(t.shape, dtype=t.dtype, device=dev)
+        if name == "scale":
+            out.fill_(1.0)
+        elif name == "b" or out.numel() == 0:
+            out.zero_()
+        else:
+            scale = 0.02 if name == "embed" else 1 / math.sqrt(
+                max(t.shape[-2] if t.dim() > 1 else 1, 1))
+            for part in (out if out.dim() == 3 else (out,)):
+                part.copy_(torch.randn(part.shape, generator=g, device=dev)
+                           * scale)
+        leaves.append(out)
+    return tree_unflatten(shapes, leaves)
+
+
+def _replicated_grads(cfg, dims, params, batch, par, dev) -> dict:
+    """The gradients of the leaves that no spec shards over 'model' (the
+    norm scales), summed over the ranks as the train step sums them
+    (``loss_and_grads``, then ``reduce_grads``): ``{path: float32 on the
+    host}``."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.models.steps import batch_to_device, loss_and_grads
+    from repro_torch.optim.tree import tree_flatten_with_paths, tree_leaves
+    _, grads = loss_and_grads(cfg, dims, params, batch_to_device(batch, dev),
+                              remat=True, par=par)
+    specs = shd.param_specs(cfg, grads)
+    grads = tpl.reduce_grads(grads, specs, par)
+    keep = tree_leaves(shd.tree_map_specs(
+        lambda g, s: "model" not in shd.P(*s).axes(), grads, specs))
+    return {p: g.float().cpu() for (p, g), k in zip(
+        tree_flatten_with_paths(grads), keep) if k}
+
+
+def _replicated_agree(got: dict, want: dict) -> dict:
+    """SP's replicated gradients against tp = 2's: each leaf's relative L2
+    difference (the worst) and the norm of all of them on each side."""
+    check(want and got.keys() == want.keys(), f"replicated gradient "
+          f"leaves {sorted(got)} against {sorted(want)}")
+    norm = {p: float(torch.linalg.vector_norm(g)) for p, g in want.items()}
+    check(all(n > 0 for n in norm.values()), f"a replicated gradient is "
+          f"zero under tp = 2: {norm}")
+    rel = {p: float(torch.linalg.vector_norm(got[p] - want[p])) / norm[p]
+           for p in want}
+    worst = max(rel, key=rel.get)
+
+    def total(tree):
+        return math.sqrt(sum(float(torch.sum(torch.square(g)))
+                             for g in tree.values()))
+    return {"leaves": len(rel), "rel_max": rel[worst], "worst": worst,
+            "norm_sp": total(got), "norm_tp": total(want),
+            "bit_equal": all(torch.equal(got[p], want[p]) for p in want)}
+
+
+def sp_train(dev) -> dict:
+    """(a) qwen2.5-32b, ``SP_TRAIN_LAYERS`` layers at published widths, tp
+    = 2: one bf16 AdamW step without and with sequence parallelism on the
+    same seeded weights and batch (loss, grad norm, time, peak memory,
+    launches, collectives); SP's loss and grad norm held to the other's,
+    and before the step each run's summed gradients of the replicated
+    leaves (``_replicated_grads``) held to each other within
+    ``SP_LEAF_REL``."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.launch.mesh import RankMesh, make_mesh
+    from repro_torch.models import ModelDims, get_arch
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(get_arch(SP_ARCH), n_layers=SP_TRAIN_LAYERS)
+    dims = ModelDims.create(cfg, DIST_WORLD)
+    mesh = RankMesh(make_mesh((1, DIST_WORLD), ("data", "model")))
+    batch = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0).batch_at(0)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+    out = {"layers": SP_TRAIN_LAYERS}
+    replicated = {}
+    for sp in (False, True):
+        par = _sp_par(cfg, mesh, TRAIN_BATCH, seq_parallel=sp)
+        check(par.sp == sp, f"{SP_ARCH} 1 x 2 seq_parallel={sp}: par.sp "
+              f"{par.sp}")
+        torch.cuda.empty_cache()
+        params = _dist_params(cfg, dims, par, dev, torch.bfloat16)
+        replicated[sp] = _replicated_grads(cfg, dims, params, batch, par,
+                                           dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state, _ = tpl.init_opt_state(opt, params, par)
+        step = make_train_step(cfg, dims, opt, remat=True, device=dev,
+                               par=par)
+        zero_lm_counts()
+        _dist_sync(dev)
+        t0 = time.perf_counter()
+        (params, state, m), stats = _coll_delta(
+            lambda: step(params, state, batch))
+        rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        _dist_sync(dev)
+        rec["step_s"] = time.perf_counter() - t0
+        rec["launches_step"] = lm_counts()
+        rec["coll_train_step"] = stats
+        rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        check(rec["launches_step"]["flash_attention"] == 2 * cfg.n_layers
+              and rec["launches_step"]["flash_attention_bwd"]
+              == cfg.n_layers, f"{SP_ARCH} sp={sp} training launches "
+              f"{rec['launches_step']}")
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
+              f"{SP_ARCH} sp={sp} step: {rec}")
+        out["sp" if sp else "tp"] = rec
+        del params, state, m, step
+        torch.cuda.empty_cache()
+    sp, tp = out["sp"], out["tp"]
+    check("sp_reduce_scatter" in sp["coll_train_step"]
+          and "sp_reduce_scatter" not in tp["coll_train_step"],
+          f"SP collectives {sorted(sp['coll_train_step'])}")
+    out["loss_rel"] = abs(sp["loss"] - tp["loss"]) / abs(tp["loss"])
+    out["grad_norm_rel"] = abs(sp["grad_norm"] - tp["grad_norm"]) / \
+        tp["grad_norm"]
+    check(out["loss_rel"] <= DIST_LOSS_REL
+          and out["grad_norm_rel"] <= DIST_GNORM_REL,
+          f"{SP_ARCH} SP step against tp = 2 alone: {out}")
+    out["replicated_grads"] = _replicated_agree(replicated[True],
+                                                replicated[False])
+    check(out["replicated_grads"]["rel_max"] <= SP_LEAF_REL,
+          f"{SP_ARCH} SP's summed gradients of the replicated leaves "
+          f"against tp = 2's: {out['replicated_grads']}")
+    _dist_sync(dev)
+    return out
+
+
+def sp_serve(dev) -> dict:
+    """(a) qwen2.5-32b, ``SP_SERVE_LAYERS`` layers, float32 prefill of batch
+    4 x 1 024 without and with SP (logits held); minitron-8b,
+    ``SP_DECODE_LAYERS`` layers, bf16 prefill and ``SP_GEN`` greedy tokens
+    without and with SP (the same tokens but on an exactly tied row)."""
+    from repro_torch.launch.mesh import RankMesh, make_mesh
+    from repro_torch.models import ModelDims, get_arch
+    from repro_torch.models.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.testing import synth_batch
+    mesh = RankMesh(make_mesh((1, DIST_WORLD), ("data", "model")))
+    out = {}
+    cfg = dataclasses.replace(get_arch(SP_ARCH), n_layers=SP_SERVE_LAYERS,
+                              dtype="float32")
+    dims = ModelDims.create(cfg, DIST_WORLD)
+    batch = synth_batch(cfg, batch=4, seq=1024, seed=0, device=dev)
+    batch.pop("labels")
+    logits = {}
+    with torch.inference_mode():
+        for sp in (False, True):
+            par = _sp_par(cfg, mesh, 4, seq_parallel=sp)
+            params = _dist_params(cfg, dims, par, dev, torch.float32)
+            zero_lm_counts()
+            _dist_sync(dev)
+            t0 = time.perf_counter()
+            (last, _), stats = _coll_delta(lambda: make_prefill_step(
+                cfg, dims, 1024, par=par)(params, batch))
+            _dist_sync(dev)
+            key = "sp" if sp else "tp"
+            out[f"prefill_{key}"] = {
+                "s": time.perf_counter() - t0, "launches": lm_counts(),
+                "coll": stats}
+            check(out[f"prefill_{key}"]["launches"]["flash_attention"]
+                  == cfg.n_layers, f"{SP_ARCH} prefill sp={sp} launches "
+                  f"{out[f'prefill_{key}']['launches']}")
+            logits[key] = last.float().cpu()
+            del params
+            torch.cuda.empty_cache()
+    agree = logit_agreement(logits["sp"], logits["tp"])
+    del agree["plain_top2_gap"]
+    out["prefill_f32_sp_vs_tp"] = agree
+    check(agree["max_abs"] <= SP_LOGIT_REL * agree["max_logit"],
+          f"{SP_ARCH} float32 SP prefill against tp = 2 alone: {agree}")
+    cfg = dataclasses.replace(get_arch(SP_DECODE_ARCH),
+                              n_layers=SP_DECODE_LAYERS)
+    dims = ModelDims.create(cfg, DIST_WORLD)
+    batch = synth_batch(cfg, batch=4, seq=1024, seed=0, device=dev)
+    batch.pop("labels")
+    runs = {}
+    with torch.inference_mode():
+        for sp in (False, True):
+            par = _sp_par(cfg, mesh, 4, seq_parallel=sp)
+            params = _dist_params(cfg, dims, par, dev, torch.bfloat16)
+            zero_lm_counts()
+            _dist_sync(dev)
+            t0 = time.perf_counter()
+            runs[sp] = _greedy(make_prefill_step(cfg, dims, 1024 + SP_GEN,
+                                                 par=par),
+                               make_decode_step(cfg, dims, par=par), params,
+                               batch, SP_GEN)
+            _dist_sync(dev)
+            key = "sp" if sp else "tp"
+            out[f"decode_{key}"] = {"s": time.perf_counter() - t0,
+                                    "launches": lm_counts(),
+                                    "coll_decode_step": runs[sp][3]}
+            check(out[f"decode_{key}"]["launches"]["flash_attention"]
+                  == cfg.n_layers, f"{SP_DECODE_ARCH} sp={sp} launches "
+                  f"{out[f'decode_{key}']['launches']}")
+            del params
+            torch.cuda.empty_cache()
+    (tok_sp, top2_sp, _, c_dec), (tok_tp, top2_tp, _, _) = runs[True], \
+        runs[False]
+    check("sp_reduce_scatter" in c_dec, f"SP decode step collectives "
+          f"{sorted(c_dec)}")
+    parted = _tokens_agree(tok_sp, tok_tp, top2_sp, top2_tp)
+    out["decode_tokens"] = {"sp": tok_sp, "tp": tok_tp, "parted": parted}
+    check(all(p["tied"] for p in parted.values()),
+          f"{SP_DECODE_ARCH} SP tokens {tok_sp} against {tok_tp}: rows "
+          f"{parted} part off a tie")
+    _dist_sync(dev)
+    return out
+
+
+def mm_serve(dev) -> dict:
+    """(b) arctic-480b at its published widths, ``MM_LAYERS`` layer, tp = 2:
+    a bf16 prefill of batch 4 x 1 024 in the default expert layout (every
+    expert on the rank's d_ff columns) and in the model-major one (the
+    rank's 64 experts whole, brought there by one all-to-all a leaf), on
+    the same seeded weights; logits held to each other, peak memory and
+    time of each."""
+    from repro_torch.launch.mesh import RankMesh, make_mesh
+    from repro_torch.models import ModelDims, get_arch
+    from repro_torch.models.steps import make_prefill_step
+    from repro_torch.models.testing import synth_batch
+    cfg = dataclasses.replace(get_arch(MM_ARCH), n_layers=MM_LAYERS)
+    dims = ModelDims.create(cfg, DIST_WORLD)
+    mesh = RankMesh(make_mesh((1, DIST_WORLD), ("data", "model")))
+    batch = synth_batch(cfg, batch=4, seq=1024, seed=0, device=dev)
+    batch.pop("labels")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"layers": MM_LAYERS}
+    par = _sp_par(cfg, mesh, 4)
+    with torch.inference_mode():
+        params = _drawn_shards(cfg, dims, par, dev, torch.bfloat16, 0)
+        out["expert_gb_rank"] = sum(
+            t.numel() * t.element_size()
+            for n, t in params["layers"][0][0]["moe"].items()
+            if n != "router") / 1e9
+        out["params_gib_rank"] = torch.cuda.memory_allocated(dev) / 2 ** 30
+        logits = {}
+        for layout in ("default", "model_major"):
+            par = _sp_par(cfg, mesh, 4, expert_axes=layout)
+            check(par.model_major == (layout == "model_major"),
+                  f"{MM_ARCH} expert_axes={layout}: {par.model_major}")
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero_lm_counts()
+            _dist_sync(dev)
+            t0 = time.perf_counter()
+            (last, _), stats = _coll_delta(lambda: make_prefill_step(
+                cfg, dims, 1024, par=par)(params, batch))
+            _dist_sync(dev)
+            out[layout] = {"prefill_s": time.perf_counter() - t0,
+                           "peak_gib": torch.cuda.max_memory_allocated(dev)
+                           / 2 ** 30, "launches": lm_counts(),
+                           "coll": stats}
+            check(out[layout]["launches"]["flash_attention"] == MM_LAYERS,
+                  f"{MM_ARCH} {layout} launches {out[layout]['launches']}")
+            logits[layout] = last.float().cpu()
+            torch.cuda.empty_cache()
+    check(out["model_major"]["coll"]["expert_all_to_all"]["calls"]
+          == 3 * MM_LAYERS and "expert_all_to_all" not in out["default"][
+              "coll"], f"{MM_ARCH} all-to-alls: {out['model_major']['coll']}")
+    agree = logit_agreement(logits["model_major"], logits["default"])
+    del agree["plain_top2_gap"]
+    out["model_major_vs_default"] = agree
+    check(bool(torch.isfinite(logits["model_major"]).all())
+          and agree["max_abs"] <= MM_LOGIT_REL * agree["max_logit"],
+          f"{MM_ARCH} model-major bf16 logits against the default "
+          f"layout's: {agree}")
+    del params
+    torch.cuda.empty_cache()
+    _dist_sync(dev)
+    return out
+
+
+def sp_rank(rank: int, parts: str = "ab") -> dict:
+    """Phase 18's rank: (a) and (b), each part with its wall time."""
+    from repro_torch.distributed import collectives as coll
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank, "backend": coll.backend()}
+    for key, part, fn in (("train sp", "a", sp_train),
+                          ("serve sp", "a", sp_serve),
+                          ("serve mm", "b", mm_serve)):
+        if part in parts:
+            t0 = time.perf_counter()
+            out[key] = fn(dev)
+            out[key]["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def flash_bwd_masked_record(q, k, v, o, do, lse, err, smi) -> dict:
+    """``flash_attention_bwd`` under ``CACHE_MASK`` timed: kernel and plain
+    per call (CUDA events), the bound of this mask's work, and the backward
+    of ``F.scaled_dot_product_attention`` under the same boolean mask."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_plain,
+                                                     flash_attention_bwd)
+    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse=lse,
+                                             **CACHE_MASK))
+    plain_ms = cuda_ms(lambda: attention_bwd_plain(q, k, v, o, do,
+                                                   **CACHE_MASK), reps=5)
+    b_ms, b_by = flash_bwd_bound_ms(q, k, True, **CACHE_MASK)
+    Sq, Skv = q.shape[1], k.shape[1]
+    kv_pos = torch.arange(Skv, device=q.device)
+    q_pos = torch.arange(Sq, device=q.device) + CACHE_MASK["q_offset"]
+    mask = (kv_pos[None, :] < CACHE_MASK["kv_len"]) & (
+        kv_pos[None, :] <= q_pos[:, None])
+    lq, lk, lv = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    lout = torch.nn.functional.scaled_dot_product_attention(
+        lq, lk, lv, attn_mask=mask, enable_gqa=lq.shape[1] != lk.shape[1])
+    ldo = do.transpose(1, 2)
+    lib = torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True)
+    ref = attention_bwd_plain(q, k, v, o, do, **CACHE_MASK)
+    lib_err = max((x.transpose(1, 2).float() - y.float()).abs().max().item()
+                  for x, y in zip(lib, ref))
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        lout, (lq, lk, lv), ldo, retain_graph=True))
+    del lout, lib
+    print(f"flash_attention_bwd under a cache mask (q {tuple(q.shape)} over "
+          f"k/v {tuple(k.shape)} bf16, causal, {CACHE_MASK}): per call (CUDA "
+          f"events, median of 25) kernel {ms:.6f} ms, plain {plain_ms:.6f} "
+          f"ms; bound {b_ms:.6f} ms ({b_by}); the backward of "
+          f"F.scaled_dot_product_attention under the same boolean mask "
+          f"{lib_ms:.6f} ms (max |sdpa - plain| {lib_err:.4g}); on {smi}")
+    return {"shape": [q.shape[0], Sq, Skv, q.shape[2], k.shape[2],
+                      q.shape[3]], **CACHE_MASK, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
+def cache_grad_layer(g, dev) -> dict:
+    """``attn_apply`` at qwen2.5-32b's widths (40 query heads over 8 kv,
+    head_dim 128, bf16) writing 256 new rows into a 1 024-row cache at
+    600 and differentiated through it: the kernels' launches (one forward,
+    one backward, counted from 0), and the gradients of x, the weights and
+    the cache's earlier rows held to the plain path's (``attention_plain``
+    under autograd) within ``LM_TOL`` bf16 of their largest."""
+    from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.models import layers
+    B, S, L, idx = 4, 256, 1024, 600
+    d, n_q, n_kv, hd = 5120, 40, 8, 128
+    dims = layers.AttnDims(d_model=d, n_q=n_q, n_kv=n_kv, hd=hd)
+    dt = torch.bfloat16
+    p = {n: {"w": randn((d, m), g, dt, dev) / math.sqrt(d)} for n, m in (
+        ("wq", n_q * hd), ("wk", n_kv * hd), ("wv", n_kv * hd))}
+    p["wo"] = {"w": randn((n_q * hd, d), g, dt, dev) / math.sqrt(n_q * hd)}
+    x = randn((B, S, d), g, dt, dev)
+    cache = {n: randn((B, L, n_kv, hd), g, dt, dev) for n in ("k", "v")}
+    dout = randn((B, S, d), g, dt, dev)
+    positions = torch.arange(idx, idx + S, device=dev)[None]
+
+    def run():
+        leaves = {"x": x.clone().requires_grad_(),
+                  **{n: p[n]["w"].clone().requires_grad_() for n in p},
+                  **{f"cache_{n}": t.clone().requires_grad_()
+                     for n, t in cache.items()}}
+        out, _ = layers.attn_apply(
+            {n: {"w": leaves[n]} for n in p}, leaves["x"], dims,
+            causal=True, theta=1e6, positions=positions,
+            cache={n: leaves[f"cache_{n}"].clone() for n in cache},
+            cache_index=idx)
+        out.backward(dout)
+        return {n: t.grad for n, t in leaves.items()}
+    zero_lm_counts()
+    got = run()
+    launches = lm_counts()
+    check(launches["flash_attention"] == 1
+          and launches["flash_attention_bwd"] == 1,
+          f"attn_apply with a cache, differentiated: launches {launches}")
+    real = layers.attention
+
+    def plain(q, k, v, **kw):
+        return attention_plain(q, k, v, **kw)
+    layers.attention = plain
+    try:
+        want = run()
+    finally:
+        layers.attention = real
+    errs = {n: kernel_err_of_max(got[n], want[n], f"attn_apply cache grad "
+                                 f"d{n}", dt) for n in got}
+    check(not got["cache_k"][:, idx:idx + S].any()
+          and bool(got["cache_k"][:, :idx].any()),
+          "attn_apply cache grad: the overwritten rows must get none, the "
+          "earlier rows some")
+    print(f"attn_apply with a cache at {SP_ARCH}'s widths (x [{B}, {S}, "
+          f"{d}] written at {idx} of {L}, bf16), differentiated: launches "
+          f"{launches}; max |kernel path - plain path| by gradient "
+          f"{ {n: round(e, 6) for n, e in errs.items()} }")
+    return {"launches": launches, "max_abs_err": errs}
+
+
+def seq_parallel_phase(dev, smi, parts: str = "ab") -> dict:
+    """Phase 18: (c) in this process, then (a) and (b) on ``DIST_WORLD``
+    spawned ranks sharing the card; the parent checks the ranks agree."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_plain,
+                                                     flash_attention,
+                                                     flash_attention_bwd,
+                                                     lse_buffer)
+    from repro_torch.launch.mesh import backend_for, spawn
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(18)
+    out = {"cache_mask": {}}
+    for arch, (B, Sq, Skv, Hq, Hkv, D) in CACHE_BWD_SHAPES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            q, do = (randn((B, Sq, Hq, D), g, dt, dev) for _ in range(2))
+            k, v = (randn((B, Skv, Hkv, D), g, dt, dev) for _ in range(2))
+            lse = lse_buffer(q) if dt == torch.bfloat16 else None
+            o = flash_attention(q, k, v, lse=lse, **CACHE_MASK)
+            what = (f"flash_attention_bwd {arch} {(B, Sq, Skv, Hq, Hkv, D)} "
+                    f"{CACHE_MASK} {dt}")
+
+            def call():
+                return flash_attention_bwd(q, k, v, o, do, lse=lse,
+                                           **CACHE_MASK)
+            got = call()
+            ref = attention_bwd_plain(q, k, v, o, do, **CACHE_MASK)
+            err = hold_grads(got, ref, dt, what)
+            repeat_bits(call, got, what)
+            kv_len = CACHE_MASK["kv_len"]
+            check(not got[1][:, kv_len:].any() and not got[2][:, kv_len:]
+                  .any(), f"{what}: keys past kv_len got a gradient")
+            print(f"{what}: max |kernel - plain| {err!r}, a second call the "
+                  "same bits, no gradient past kv_len")
+            if arch == SP_ARCH and dt == torch.bfloat16:
+                out["cache_mask"] = flash_bwd_masked_record(
+                    q, k, v, o, do, lse, err, smi)
+    out["cache_layer"] = cache_grad_layer(g, dev)
+    torch.cuda.empty_cache()
+    gib = 2 ** 30
+    print(f"  this process holds {torch.cuda.memory_allocated() / gib:.3f} "
+          f"GiB allocated, {torch.cuda.memory_reserved() / gib:.3f} GiB "
+          "reserved of the card while the ranks run")
+    backend = backend_for(torch.device("cuda"), DIST_WORLD)
+    t0 = time.perf_counter()
+    ranks = spawn(sp_rank, DIST_WORLD, parts, timeout_s=DIST_WALL_S,
+                  backend=backend)
+    out["ranks_wall_s"] = time.perf_counter() - t0
+    r0 = ranks[0]
+    if "a" in parts:
+        for r in ranks:
+            for m in ("loss", "grad_norm"):
+                check(r["train sp"]["sp"][m] == r0["train sp"]["sp"][m],
+                      f"SP training: ranks' {m} differ")
+            check(r["serve sp"]["decode_tokens"]["sp"]
+                  == r0["serve sp"]["decode_tokens"]["sp"],
+                  "SP decode: ranks' tokens differ")
+    for r in ranks:
+        print(f"  rank {r['rank']}: " + json.dumps(
+            {k: v for k, v in r.items() if k != "rank"}))
+    out["ranks"] = ranks
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  {smi}; {DIST_WORLD} ranks share the card (correctness runs, "
+          f"not scaling figures); backend {r0['backend']}; ranks' wall "
+          f"{out['ranks_wall_s']:.1f} s, phase {out['phase_s']:.1f} s")
+    return out
+
+
+def sp_launches(sp: dict, name: str) -> dict:
+    """Phase 18's launches of LM kernel ``name`` by path (rank 0's for the
+    ranks' runs)."""
+    if name not in lm_counts():
+        return {}
+    out = {}
+    layer = sp.get("cache_layer", {}).get("launches", {})
+    out["train_attn_apply_kv_cache_layer"] = layer.get(name, 0)
+    r = sp.get("ranks", [{}])[0]
+    if "train sp" in r:
+        for key in ("tp", "sp"):
+            out[f"train_{SP_ARCH}_{SP_TRAIN_LAYERS}_layer_tp2_{key}_step_"
+                "rank0"] = r["train sp"][key]["launches_step"][name]
+    if "serve sp" in r:
+        for key in ("tp", "sp"):
+            out[f"serve_{SP_ARCH}_{SP_SERVE_LAYERS}_layers_tp2_{key}_"
+                "prefill_f32_rank0"] = r["serve sp"][f"prefill_{key}"][
+                "launches"][name]
+            out[f"serve_{SP_DECODE_ARCH}_{SP_DECODE_LAYERS}_layers_tp2_"
+                f"{key}_prefill_and_{SP_GEN - 1}_decode_steps_rank0"] = r[
+                "serve sp"][f"decode_{key}"]["launches"][name]
+    if "serve mm" in r:
+        for key in ("default", "model_major"):
+            out[f"serve_{MM_ARCH}_{MM_LAYERS}_layer_tp2_{key}_prefill_"
+                "rank0"] = r["serve mm"][key]["launches"][name]
+    return {k: v for k, v in out.items() if v}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing to measure")
@@ -4111,6 +4703,12 @@ def main() -> None:
             print(f"  [{name}] {line}")
     if sys.argv[1:] == [DRYRUN_ARG]:
         print(json.dumps(dryrun_phase(dev, smi)))
+        return
+    if sys.argv[1:2] == [SP_ARG]:
+        phase("18 sequence parallelism, model-major experts, gradients "
+              "through a KV-cache mask")
+        sp = seq_parallel_phase(dev, smi, *sys.argv[2:3])
+        print(json.dumps({k: v for k, v in sp.items() if k != "ranks"}))
         return
 
     phase("2a kernel: scar_eval vs scar_eval_window_plain")
@@ -4877,11 +5475,18 @@ def main() -> None:
           "cells on the card, phase 14's steps' hfu and mfu")
     dry = dryrun_phase(dev, smi, trained)
 
+    phase("18 sequence parallelism and the model-major experts on two "
+          "ranks, gradients through a KV-cache mask")
+    seqp = seq_parallel_phase(dev, smi)
+
     phase("8 summary")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s to the "
-          f"summary (phase 17 {dry['phase_s']:.1f} s)")
+          f"summary (phase 17 {dry['phase_s']:.1f} s, phase 18 "
+          f"{seqp['phase_s']:.1f} s)")
     print(json.dumps({"distributed": {k: v for k, v in dist.items()
                                       if k != "ranks"}, "dryrun": dry,
+                      "seq_parallel": {k: v for k, v in seqp.items()
+                                       if k != "ranks"},
                       "portfolio": portfolio, "multimodel": pod,
                       "serve": served, "sync_witness": witness,
                       "vlm": {k: v for k, v in vlm.items()
@@ -4972,7 +5577,8 @@ def main() -> None:
             name],
         **trained["kernels"][name],
         **({"shapes": {"qwen2.5-32b data=2": trained["kernels"][
-            "flash_attention_bwd_fsdp"]}} if name == "flash_attention_bwd"
+            "flash_attention_bwd_fsdp"]},
+            "cache_mask": seqp["cache_mask"]} if name == "flash_attention_bwd"
            else {}),
         "launches_by_path": {
             "train_zamba2_step": trained["zamba2_full_width"][
@@ -5023,6 +5629,7 @@ def main() -> None:
          "batched product")))]
     for k in kernels:
         k["launches_by_path"].update(dist_launches(dist, k["name"]))
+        k["launches_by_path"].update(sp_launches(seqp, k["name"]))
         k["launches_by_path"].update({
             path: counts[k["name"]] for path, counts in dry[
                 "launches"].items() if k["name"] in counts})

@@ -109,6 +109,7 @@ def collective_stats(kind: str, size: float, group: int) -> tuple[float,
 # the port's collectives (``distributed.collectives``, by operation) as
 # HLO kinds
 _KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+          "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
           "broadcast": "broadcast", "send_recv": "collective-permute"}
 
 
@@ -221,8 +222,10 @@ class CostTrace(TorchDispatchMode):
     def collective(self, op: str, nbytes: int, group: int) -> None:
         """``trace_hooks.collective``: one counted collective."""
         kind = _KINDS[op]
-        # the result's size: an all-gather's is every rank's block
-        size = nbytes * group if kind == "all-gather" else nbytes
+        # the result's size: an all-gather's is every rank's block, a
+        # reduce-scatter's one block of what the rank hands it
+        size = (nbytes * group if kind == "all-gather"
+                else nbytes / group if kind == "reduce-scatter" else nbytes)
         operand, link = collective_stats(kind, float(size), group)
         self.result.add_collective(kind, operand, link, group, 1.0)
 

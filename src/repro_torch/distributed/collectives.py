@@ -19,8 +19,9 @@ import torch.distributed as dist
 
 from repro_torch import trace_hooks
 
-__all__ = ["GLOO_CUDA_OPS", "all_gather", "all_reduce", "backend",
-           "broadcast", "reset_stats", "send_recv", "stats"]
+__all__ = ["GLOO_CUDA_OPS", "all_gather", "all_reduce", "all_to_all",
+           "backend", "broadcast", "reduce_scatter", "reset_stats",
+           "send_recv", "stats"]
 
 # The operations gloo takes on CUDA tensors (it copies them through
 # pinned host memory itself), float32 and bf16, on the card's torch 2.11:
@@ -89,6 +90,54 @@ def all_gather(t: torch.Tensor, axis,
     order = sorted(axis.ranks)
     out = [out[order.index(r)] for r in axis.ranks]
     return [o.to(t.device) for o in out] if staged else out
+
+
+def _group_order(axis) -> list[int]:
+    """For each position of the axis's process group (ascending world
+    ranks), the axis index of the rank there."""
+    return [axis.ranks.index(r) for r in sorted(axis.ranks)]
+
+
+def reduce_scatter(t: torch.Tensor, axis, dim: int, sizes: list[int],
+                   label: str = "reduce_scatter") -> torch.Tensor:
+    """The sum of every rank's ``t`` over ``axis`` (a ``launch.mesh.Axis``),
+    cut along ``dim`` into blocks of ``sizes`` (in the axis's index order,
+    summing to ``t.shape[dim]``): this rank's block.  Gloo has no
+    reduce-scatter for CUDA tensors, so the sum is an all-reduce and the
+    block a narrow of it, as ``tensor_parallel.FSDP``'s backward does;
+    counted (and traced) as the reduce-scatter of ``t`` it stands for."""
+    staged = _staged("all_reduce", t, axis.group)
+    _count(label, t, staged, "reduce_scatter", axis.size)
+    full = t.clone(memory_format=torch.contiguous_format)
+    if staged:
+        host = full.cpu()
+        dist.all_reduce(host, group=axis.group)
+        full.copy_(host)
+    else:
+        dist.all_reduce(full, group=axis.group)
+    lo, n = sum(sizes[:axis.rank]), sizes[axis.rank]
+    return full.narrow(dim, lo, n).contiguous()
+
+
+def all_to_all(t: torch.Tensor, axis,
+               label: str = "all_to_all") -> torch.Tensor:
+    """``t``'s dim 0 in ``axis.size`` equal chunks, chunk ``j`` sent to the
+    axis's rank ``j``; the result's chunk ``j`` is the one rank ``j`` sent
+    here.  Staged through the host for CUDA tensors on gloo."""
+    group = axis.group
+    staged = t.is_cuda and backend(group) == "gloo"
+    _count(label, t, staged, "all_to_all", axis.size)
+    order = _group_order(axis)
+    src = (t.cpu() if staged else t).contiguous()
+    if order != sorted(order):          # chunks into the group's order
+        chunks = src.chunk(axis.size)
+        src = torch.cat([chunks[j] for j in order])
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    if order != sorted(order):
+        got = out.chunk(axis.size)
+        out = torch.cat([got[order.index(j)] for j in range(axis.size)])
+    return out.to(t.device) if staged else out
 
 
 def broadcast(t: torch.Tensor, src: int, axis) -> torch.Tensor:

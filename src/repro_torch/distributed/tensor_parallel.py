@@ -27,6 +27,26 @@ ranks computes that function too:
   ``torch.distributed.nn.functional.all_reduce`` sums the gradient in its
   backward too, which after a row-parallel product would scale every
   upstream gradient by the TP degree;
+* Megatron sequence parallelism (``Parallel.sp``, the reference's
+  ``make_specs(seq_parallel=True)``: its ``act`` spec splits the sequence
+  over ``model`` between blocks): the residual stream, norms and residual
+  adds hold the rank's block of the sequence (``split_sizes``, the last
+  blocks shorter or empty, as GSPMD pads; a decode step's one position
+  sits on rank 0).  ``gather_seq`` (all-gather along the sequence,
+  reduce-scatter of the gradient) takes ``copy_to``'s place before a
+  column-parallel product and ``scatter_seq`` (reduce-scatter, all-gather
+  of the gradient) ``reduce_from``'s after a row-parallel one; the
+  replicated leaves' gradients (norms, gates, the MoE router) are then
+  each rank's part and ``reduce_grads`` sums them over ``model``;
+* the model-major expert layout (``Parallel.model_major``, the
+  reference's ``expert_axes="model_major"``, arctic-480b: the one MoE arch
+  in ``FSDP_ARCHS``): each model rank runs ``E / tp`` experts whole on the
+  tokens dispatched to them, where the default layout runs every expert
+  on the rank's ``d_ff`` columns.  The parameters keep their specs, so a
+  layer's expert weights, as the FSDP gather leaves them (``[E, d, f /
+  tp]``), are brought to ``[E / tp, d, f]`` by one all-to-all over
+  ``model`` a leaf (``expert_major``; the gradient goes back by the
+  reverse all-to-all);
 * FSDP's operator (``FSDP.gather``, an ``autograd.Function``): a layer
   leaf's ``(data, model)`` block all-gathered over ``data`` into the
   tp-rank's Megatron shard just before its super-block runs; backward,
@@ -34,8 +54,8 @@ ranks computes that function too:
   reduce-scatter: gloo has none, so an all-reduce and a narrow).  Each
   rank holds only its blocks between steps, and its optimizer moments are
   those blocks' (``zero_specs``);
-* vocab-parallel embedding, logits and cross-entropy
-  (``embed_lookup``, ``logits``, ``cross_entropy_terms``);
+* vocab-parallel embedding and cross-entropy (``embed_lookup``,
+  ``cross_entropy_terms``; the head is a column-parallel product);
 * the data-parallel pieces: a rank's rows of a global batch
   (``local_rows``, accumulation-aware), rows gathered back
   (``gather_rows``), gradients summed over the batch axes (an FSDP
@@ -44,8 +64,10 @@ ranks computes that function too:
   ``grad_norm``).
 
 Collectives go through ``distributed.collectives`` (counted, FSDP's under
-``fsdp_all_gather`` and ``fsdp_all_reduce``; staged through the host where
-gloo cannot take a CUDA tensor).
+``fsdp_all_gather`` and ``fsdp_all_reduce``, sequence parallelism's under
+``sp_all_gather`` and ``sp_reduce_scatter``, the expert layout's under
+``expert_all_to_all``; staged through the host where gloo cannot take a
+CUDA tensor).
 """
 from __future__ import annotations
 
@@ -61,10 +83,11 @@ from . import collectives as coll
 from . import sharding as shd
 
 __all__ = ["FSDP", "Parallel", "copy_to", "cross_entropy_terms",
-           "embed_lookup", "gather_leaf", "gather_rows", "gather_tree",
-           "grad_norm", "init_opt_state", "local_rows", "logits",
-           "make_parallel", "reduce_from", "reduce_grads", "shard_leaf",
-           "shard_params", "shard_tree", "split_sizes", "zero_specs"]
+           "embed_lookup", "expert_major", "gather_leaf", "gather_rows",
+           "gather_seq", "gather_tree", "grad_norm", "init_opt_state",
+           "local_rows", "make_parallel", "reduce_from", "reduce_grads",
+           "scatter_seq", "seq_block", "shard_leaf", "shard_params",
+           "shard_tree", "split_sizes", "zero_specs"]
 
 
 def split_sizes(n: int, k: int) -> list[int]:
@@ -92,6 +115,10 @@ class Parallel:
     # for every other arch), and the names of the batch axes
     fsdp: Axis = dataclasses.field(default_factory=Axis)
     dp_names: tuple = ()
+    # Megatron sequence parallelism over the tp axis, and the model-major
+    # expert layout (``make_parallel``)
+    sp: bool = False
+    model_major: bool = False
 
     @property
     def member(self) -> bool:
@@ -124,22 +151,46 @@ class Parallel:
                     reduce="data" in self.dp_names, n_experts=n_experts)
 
 
-def make_parallel(cfg: ArchConfig, mesh: RankMesh, batch: int) -> Parallel:
+# the blocks sequence parallelism runs (attention and its MoE and cross
+# variants); the scans of the other kinds need the whole sequence, and no
+# published tp-style config has them
+_SP_BLOCKS = {"attn", "moe", "cross_attn"}
+
+
+def make_parallel(cfg: ArchConfig, mesh: RankMesh, batch: int,
+                  seq_parallel: bool = False,
+                  expert_axes: str = "default") -> Parallel:
     """The rank's ``Parallel`` for ``cfg`` at global batch ``batch`` on
     ``mesh``.  The FSDP archs' layer weights are sharded over ``data`` as
     well as ``model``: at a ``data`` axis above 1 each super-block gathers
     its weights over ``data`` before it runs (``FSDP``); at 1 FSDP is
-    tensor parallelism."""
+    tensor parallelism.
+
+    ``seq_parallel`` and ``expert_axes`` are ``sharding.make_specs``'
+    options, read by the same rules: sequence parallelism where
+    ``model`` is not a batch axis (it then splits the sequence over the
+    tensor-parallel axis; a ``dp``-style arch has none, and runs as
+    without it), the model-major layout for a MoE arch in
+    ``FSDP_ARCHS``.  Neither changes a parameter's spec."""
+    if expert_axes not in ("default", "model_major"):
+        raise ValueError(f"expert_axes {expert_axes!r}: want 'default' or "
+                         "'model_major'")
     spec = mesh.spec
     style = shd.style_for(cfg)
     shape = dict(zip(spec.axis_names, spec.shape))
     dp_axes = shd._dp_axes(spec.axis_names, batch, shape, style)
     fsdp = (mesh.axis("data") if cfg.name in shd.FSDP_ARCHS
             and style == "tp" else Axis())
-    return Parallel(cfg=cfg, mesh=mesh,
-                    tp=mesh.axis("model") if style == "tp" else Axis(),
-                    dp=mesh.axes(dp_axes), data=mesh.axis("data"),
-                    fsdp=fsdp, dp_names=tuple(dp_axes))
+    tp = mesh.axis("model") if style == "tp" else Axis()
+    sp = bool(seq_parallel) and "model" not in dp_axes and tp.size > 1
+    if sp and not {k.value for k in cfg.block_pattern} <= _SP_BLOCKS:
+        raise ValueError(f"{cfg.name}: sequence parallelism runs attention, "
+                         "MoE and cross-attention blocks only")
+    model_major = (expert_axes == "model_major" and cfg.moe is not None
+                   and cfg.name in shd.FSDP_ARCHS and tp.size > 1)
+    return Parallel(cfg=cfg, mesh=mesh, tp=tp, dp=mesh.axes(dp_axes),
+                    data=mesh.axis("data"), fsdp=fsdp,
+                    dp_names=tuple(dp_axes), sp=sp, model_major=model_major)
 
 
 # ---------------------------------------------------------------------------
@@ -431,6 +482,108 @@ class _GatherLast(torch.autograd.Function):
         return g[..., lo:lo + n].contiguous(), None, None
 
 
+class _GatherSeq(torch.autograd.Function):
+    """Every rank's block of the sequence (dim 1) joined; backward, the
+    gradient summed over the axis and cut back to the rank's block (a
+    reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, axis: Axis, sizes: tuple):
+        ctx.args = (axis, sizes)
+        return _gather_dim(x, 1, axis, list(sizes), label="sp_all_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, sizes = ctx.args
+        return coll.reduce_scatter(g, axis, 1, list(sizes),
+                                   label="sp_reduce_scatter"), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Partial sums over the whole sequence reduce-scattered to the rank's
+    block; backward, the blocks' gradients all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, axis: Axis, sizes: tuple):
+        ctx.args = (axis, sizes)
+        return coll.reduce_scatter(x, axis, 1, list(sizes),
+                                   label="sp_reduce_scatter")
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, sizes = ctx.args
+        return _gather_dim(g.contiguous(), 1, axis, list(sizes),
+                           label="sp_all_gather"), None, None
+
+
+class _SeqBlock(torch.autograd.Function):
+    """A replicated sequence's rank block; backward, the blocks'
+    gradients all-gathered (each rank's positions' share)."""
+
+    @staticmethod
+    def forward(ctx, x, axis: Axis, sizes: tuple):
+        ctx.args = (axis, sizes)
+        return x.narrow(1, sum(sizes[:axis.rank]),
+                        sizes[axis.rank]).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, sizes = ctx.args
+        return _gather_dim(g.contiguous(), 1, axis, list(sizes),
+                           label="sp_all_gather"), None, None
+
+
+def gather_seq(x: torch.Tensor, tp: Axis, sizes) -> torch.Tensor:
+    """Before a column-parallel product under sequence parallelism: the
+    whole sequence from the ranks' blocks (``sizes``, their lengths)."""
+    return _GatherSeq.apply(x, tp, tuple(sizes))
+
+
+def scatter_seq(x: torch.Tensor, tp: Axis, sizes) -> torch.Tensor:
+    """After a row-parallel product under sequence parallelism: the
+    partial sums added up, the rank's block of the sequence kept."""
+    return _ScatterSeq.apply(x, tp, tuple(sizes))
+
+
+def seq_block(x: torch.Tensor, tp: Axis, sizes) -> torch.Tensor:
+    """The rank's block of a sequence every rank holds whole (an input
+    the stack begins from)."""
+    return _SeqBlock.apply(x, tp, tuple(sizes))
+
+
+class _ExpertMajor(torch.autograd.Function):
+    """``[E, .., f / tp, ..]`` (every expert, the rank's ``f`` columns at
+    ``dim``) to ``[E / tp, .., f, ..]`` (the rank's experts whole) by one
+    all-to-all over the axis; backward, the reverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, w, axis: Axis, dim: int):
+        ctx.args = (axis, dim)
+        got = coll.all_to_all(w, axis, label="expert_all_to_all")
+        # chunk j: rank j's columns of this rank's experts
+        return torch.cat(got.chunk(axis.size), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim = ctx.args
+        # chunk j: this rank's experts' gradient on rank j's columns
+        got = coll.all_to_all(torch.cat(g.chunk(axis.size, dim)), axis,
+                              label="expert_all_to_all")
+        return got, None, None
+
+
+def expert_major(w: torch.Tensor, tp: Axis, dim: int,
+                 f: int) -> torch.Tensor:
+    """An expert leaf of every expert on the rank's columns of ``f``
+    (``d_ff``, along ``dim``) as the rank's block of the experts, whole.
+    The experts are padded to a multiple of tp (``ModelDims``); ``f`` must
+    split evenly too (the published configs' do)."""
+    if w.shape[0] % tp.size or f % tp.size:
+        raise ValueError(f"model-major experts: {w.shape[0]} experts and "
+                         f"d_ff {f} over {tp.size} ranks must split evenly")
+    return _ExpertMajor.apply(w, tp, dim)
+
+
 def copy_to(x: torch.Tensor, tp: Optional[Axis]) -> torch.Tensor:
     """Before a column-parallel product (no-op without an axis)."""
     return x if tp is None else _CopyToTP.apply(x, tp.group)
@@ -447,29 +600,29 @@ def gather_last(x: torch.Tensor, tp: Axis, full: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# vocab-parallel embedding, logits and cross-entropy
+# vocab-parallel embedding and cross-entropy
 # ---------------------------------------------------------------------------
 
 def embed_lookup(tokens: torch.Tensor, embed: torch.Tensor, tied: bool,
-                 tp: Axis, vocab: int, d_model: int) -> torch.Tensor:
+                 tp: Axis, vocab: int, d_model: int,
+                 sp: Optional[tuple] = None) -> torch.Tensor:
     """The embedding of ``tokens`` from the rank's block of ``embed``:
     tied (``P("model", None)``, rows of the vocab) the rank's rows looked
     up and the partial sums added; untied (``P(None, "model")``, columns of
-    d_model) the rank's columns gathered along d."""
+    d_model) the rank's columns gathered along d.  Under sequence
+    parallelism (``sp``, the blocks' lengths) the rank's block of the
+    sequence: the tied sums reduce-scattered, the untied rows cut from the
+    gathered ones."""
     if not tied:
-        return gather_last(torch.nn.functional.embedding(tokens, embed), tp,
-                           d_model)
+        x = gather_last(torch.nn.functional.embedding(tokens, embed), tp,
+                        d_model)
+        return seq_block(x, tp, sp) if sp else x
     lo, n = _span(vocab, tp)
     mine = (tokens >= lo) & (tokens < lo + n)
     local = torch.nn.functional.embedding(
         torch.where(mine, tokens - lo, torch.zeros_like(tokens)), embed)
-    return reduce_from(local * mine[..., None].to(local.dtype), tp)
-
-
-def logits(x: torch.Tensor, w: torch.Tensor, tp: Axis) -> torch.Tensor:
-    """The rank's vocab columns of ``x @ w`` (``w`` its block of
-    ``[d, vocab]``)."""
-    return copy_to(x, tp) @ w.to(x.dtype)
+    local = local * mine[..., None].to(local.dtype)
+    return scatter_seq(local, tp, sp) if sp else reduce_from(local, tp)
 
 
 def cross_entropy_terms(logits_local: torch.Tensor, labels: torch.Tensor,
@@ -529,11 +682,21 @@ def reduce_grads(grads: Any, pspecs: Any, par: Parallel) -> Any:
     """Gradients summed over the batch axes (each rank's loss is its rows'
     share of the global mean, so the sum is the global gradient); an FSDP
     leaf's (``Parallel.fsdp_leaf``) over the batch axes but 'data', which
-    its reduce-scatter has summed already."""
+    its reduce-scatter has summed already.  Under sequence parallelism a
+    leaf not sharded over 'model' is summed over it first: each rank's is
+    its block of the sequence's share (a norm, a gate) or its experts'
+    (the router)."""
     own: list[torch.Tensor] = []
     rest: list[torch.Tensor] = []
-    shd.tree_map_specs(lambda g, s: (own if par.fsdp_leaf(s) else rest)
-                       .append(g), grads, pspecs)
+    local: list[torch.Tensor] = []
+
+    def sort(g, s):
+        (own if par.fsdp_leaf(s) else rest).append(g)
+        if par.sp and "model" not in shd.P(*s).axes():
+            local.append(g)
+    shd.tree_map_specs(sort, grads, pspecs)
+    if par.sp and local:
+        _flat_reduce(local, par.tp)
     if par.dp.size > 1 and rest:
         _flat_reduce(rest, par.dp)
     others = par.mesh.axes(tuple(n for n in par.dp_names if n != "data"))

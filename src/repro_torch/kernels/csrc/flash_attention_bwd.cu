@@ -1,10 +1,13 @@
-// flash_attention_bwd: the gradient of flash_attention (the training mask).
+// flash_attention_bwd: the gradient of flash_attention under its mask.
 //
 // New in the port: the TPU package has no backward Pallas kernel; it
 // differentiates the model layer's `_sdpa` (src/repro/models/layers.py:94)
 // with jax.grad.  This kernel computes that gradient for the forward of
-// flash_attention.cu with q_offset = 0 and kv_len = Skv (causal: query row
-// i sees kv rows j <= i; or no mask).  Per query head, in float32:
+// flash_attention.cu under the same mask: query row i sees kv row j when
+// j < kv_len and, if causal, j <= i + q_offset (the training mask is
+// q_offset = 0, kv_len = Skv; a KV cache's is any q_offset and kv_len
+// <= Skv).  Keys at kv_len and beyond get zero dK and dV.  Per query head,
+// in float32:
 //
 //   P     = exp(q k^T * scale - lse)        lse: the row's log-sum-exp
 //                                           (bf16: the forward kernel's;
@@ -43,7 +46,8 @@
 //    item's prologue, stored for the second kernel.
 //  * attn_bwd_dkv_wgmma, per (batch, kv head, 128 kv rows): K and V once;
 //    for each query head of the group and each 64-row query tile that can
-//    see the block (causal: from the block's first row on), Q, dO and the
+//    see the block (causal: from the first row that sees it on; none for a
+//    block at or past kv_len), Q, dO and the
 //    tile's lse and delta through the ring; S^T = K Q^T and dP^T = V dO^T,
 //    P^T and dS^T in registers with kv rows, and dV += P^T dO,
 //    dK += dS^T Q with P^T and dS^T as register A operands (dO and Q read
@@ -98,7 +102,7 @@ struct Args {
   int B, Hq, Hkv, Sq, Skv, D;
   // batch, head, sequence strides (elements)
   long long qs[3], ks[3], vs[3], os[3], dos[3], dqs[3], dks[3], dvs[3];
-  int causal;
+  int causal, q_offset, kv_len;
   float scale;
 };
 
@@ -150,7 +154,7 @@ __device__ __forceinline__ float row_sum16(float x) {
 }
 
 __device__ __forceinline__ bool visible(const Args& a, int qpos, int kpos) {
-  return kpos < a.Skv && (!a.causal || kpos <= qpos);
+  return kpos < a.kv_len && (!a.causal || kpos <= qpos + a.q_offset);
 }
 
 size_t smem_bytes(int D, int score_tiles) {
@@ -200,7 +204,8 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq(Args a) {
     if (co == 0) sDelta[ro] = part;
   }
 
-  const int kv_end = a.causal ? min(a.Skv, q0 + nq) : a.Skv;
+  const int kv_end =
+      a.causal ? min(a.kv_len, q0 + nq + a.q_offset) : a.kv_len;
   const int rg = tid / 16, cg = tid % 16;
   float s[4][4], dp[4][4];
 
@@ -336,7 +341,12 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dkv(Args a) {
     const float* DO = static_cast<const float*>(a.dO) + b * a.dos[0] +
                       h * a.dos[1];
     const long long stat0 = ((long long)b * a.Hq + h) * a.Sq;
-    for (int q0 = a.causal ? k0 : 0; q0 < a.Sq; q0 += kB) {
+    // the query tiles that see the block: none past kv_len; causal, from
+    // the tile holding the first row that sees key k0 on
+    const int q_first = k0 >= a.kv_len ? a.Sq
+                        : a.causal     ? max(k0 - a.q_offset, 0) / kB * kB
+                                       : 0;
+    for (int q0 = q_first; q0 < a.Sq; q0 += kB) {
       const int nq = min(kB, a.Sq - q0);
       __syncthreads();
       load_tile(sQ, Q + q0 * a.qs[2], a.qs[2], nq, D);
@@ -451,7 +461,7 @@ struct TcArgs {
   float* delta;                      // [B, Hq, ld], written by the dQ kernel
   int ld;                            // Sq rounded up to 64
   long long os[3], dos[3], dqs[3], dks[3], dvs[3];
-  int B, Hq, Hkv, Sq, Skv, D, causal;
+  int B, Hq, Hkv, Sq, Skv, D, causal, q_offset, kv_len;
   float scale, scale_log2;           // scale, scale * log2(e)
 };
 
@@ -556,7 +566,8 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
         const int b = (item % BH) / a.Hq, h = item % a.Hq;
         const int hk = h / (a.Hq / a.Hkv);
         const int q0 = (n_qb - 1 - item / BH) * kWide;
-        const int kv_hi = a.causal ? min(a.Skv, q0 + kWide) : a.Skv;
+        const int kv_hi =
+            a.causal ? min(a.kv_len, q0 + kWide + a.q_offset) : a.kv_len;
         const int n_tiles = (kv_hi + kNarrow - 1) / kNarrow;
         if (it > 0) mbar_wait(bar_q_empty, (it - 1) & 1);
         mbar_expect_tx(bar_q_full, 2 * S::kWideTile);
@@ -595,7 +606,8 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
       const int b = (item % BH) / a.Hq, h = item % a.Hq;
       const int q0 = (n_qb - 1 - item / BH) * kWide;
-      const int kv_hi = a.causal ? min(a.Skv, q0 + kWide) : a.Skv;
+      const int kv_hi =
+          a.causal ? min(a.kv_len, q0 + kWide + a.q_offset) : a.kv_len;
       const int n_tiles = (kv_hi + kNarrow - 1) / kNarrow;
       const int r0 = q0 + 64 * cw;       // this warpgroup's first row
       const int row_a = r0 + 16 * warp + g, row_b = row_a + 8;
@@ -640,8 +652,8 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       // dS of tile t from S (sc) and dP (dp) into df
       auto probs = [&](int t) {
         const int k0 = t * kNarrow;
-        const bool edge = k0 + kNarrow > a.Skv ||
-                          (a.causal && k0 + kNarrow - 1 > r0);
+        const bool edge = k0 + kNarrow > a.kv_len ||
+                          (a.causal && k0 + kNarrow - 1 > r0 + a.q_offset);
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -649,7 +661,8 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
             const int i = e / 2, col = k0 + 8 * j + 2 * t4 + (e & 1);
             const int row = i ? row_b : row_a;
             const bool vis =
-                !edge || (col < a.Skv && (!a.causal || col <= row));
+                !edge || (col < a.kv_len &&
+                          (!a.causal || col <= row + a.q_offset));
             const float p = ex2(fmaf(sc[4 * j + e], c2, -lse2[i]));
             dp[4 * j + e] = vis ? p * (dp[4 * j + e] - delta[i]) : 0.f;
           }
@@ -759,9 +772,11 @@ attn_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
       for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
         const int b = (item % BH) / a.Hkv, hk = item % a.Hkv;
         const int k0 = item / BH * kWide;
-        // causal: the query tiles from the block's first row on see it
-        const int first = a.causal ? min(k0 / kNarrow, n_qt) : 0;
-        const int per_head = n_qt - first;
+        // causal: the query tiles from the first row that sees the
+        // block's first key on; none for a block at or past kv_len
+        const int first =
+            a.causal ? min(max(k0 - a.q_offset, 0) / kNarrow, n_qt) : 0;
+        const int per_head = k0 >= a.kv_len ? 0 : n_qt - first;
         if (it > 0) mbar_wait(bar_kv_empty, (it - 1) & 1);
         mbar_expect_tx(bar_kv_full, 2 * S::kWideTile);
         for (int c = 0; c < S::kBoxes; ++c) {
@@ -807,8 +822,9 @@ attn_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
     for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
       const int b = (item % BH) / a.Hkv, hk = item % a.Hkv;
       const int k0 = item / BH * kWide;
-      const int first = a.causal ? min(k0 / kNarrow, n_qt) : 0;
-      const int per_head = n_qt - first;
+      const int first =
+          a.causal ? min(max(k0 - a.q_offset, 0) / kNarrow, n_qt) : 0;
+      const int per_head = k0 >= a.kv_len ? 0 : n_qt - first;
       const int n_tiles = group * per_head;
       const int r0 = k0 + 64 * cw;       // this warpgroup's first kv row
       const int row_a = r0 + 16 * warp + g, row_b = row_a + 8;
@@ -819,8 +835,8 @@ attn_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
       auto probs = [&](int t) {
         const float* ls = sStat + ((cnt + t) % kStages) * 128;
         const int qb = (first + t % per_head) * kNarrow;
-        const bool edge = qb + kNarrow > a.Sq ||
-                          (a.causal && qb < r0 + 63);
+        const bool edge = qb + kNarrow > a.Sq || r0 + 64 > a.kv_len ||
+                          (a.causal && qb + a.q_offset < r0 + 63);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int cl = 8 * j + 2 * t4;
@@ -831,7 +847,8 @@ attn_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
             const int col = qb + cl + (e & 1);
             const int row = e < 2 ? row_a : row_b;
             const bool vis =
-                !edge || (col < a.Sq && (!a.causal || row <= col));
+                !edge || (col < a.Sq && row < a.kv_len &&
+                          (!a.causal || row <= col + a.q_offset));
             const float p = ex2(fmaf(st[4 * j + e], c2,
                                      -(e & 1 ? l2.y : l2.x) * kLog2e));
             st[4 * j + e] = vis ? p : 0.f;
@@ -1011,6 +1028,8 @@ int launch_bf16(const Args& a, const float* lse, int ld, cudaStream_t s) {
   t.Skv = a.Skv;
   t.D = a.D;
   t.causal = a.causal;
+  t.q_offset = a.q_offset;
+  t.kv_len = a.kv_len;
   t.scale = a.scale;
   t.scale_log2 = a.scale * kLog2e;
   if (a.D <= 16) return launch_tc<16>(a, t, s);
@@ -1031,9 +1050,11 @@ extern "C" int flash_attention_bwd_max_d() { return kMaxD; }
 // unread), and stats is a scratch of B * Hq * ld values (delta).  Strides
 // are in elements, three per tensor (batch, head, sequence), in the order
 // q, k, v, o, dO, dQ, dK, dV.  bf16 needs strides multiples of 8 and 16 B
-// aligned pointers.  Launches on `stream` and returns cudaGetLastError() (0
-// on success; cudaErrorInvalidValue for inputs the kernel does not take;
-// 10000 when the TMA maps cannot be made).
+// aligned pointers.  The mask: query row i sees kv row j when j < kv_len
+// (1 <= kv_len <= Skv) and, if causal, j <= i + q_offset (q_offset >= 0).
+// Launches on `stream` and returns cudaGetLastError() (0 on success;
+// cudaErrorInvalidValue for inputs the kernel does not take; 10000 when
+// the TMA maps cannot be made).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, void* dq, void* dk, void* dv, float* stats,
@@ -1041,10 +1062,12 @@ extern "C" int flash_attention_bwd_launch(
     int Skv, int D, const long long* qs, const long long* ks,
     const long long* vs, const long long* os, const long long* dos,
     const long long* dqs, const long long* dks, const long long* dvs,
-    int causal, float scale, void* stream) {
+    int causal, int q_offset, int kv_len, float scale, void* stream) {
   if (D < 1 || D > kMaxD || Hkv < 1 || Hq % Hkv || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Hq == 0 || Sq == 0 || Skv == 0) return (int)cudaGetLastError();
+  if (q_offset < 0 || kv_len < 1 || kv_len > Skv)
+    return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
   a.k = k;
@@ -1073,6 +1096,8 @@ extern "C" int flash_attention_bwd_launch(
     a.dvs[i] = dvs[i];
   }
   a.causal = causal;
+  a.q_offset = q_offset;
+  a.kv_len = kv_len;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch(a, s);

@@ -31,11 +31,13 @@ holds ``cost``, ``collectives``, ``memory`` (the trace's),
 ``compile_s``.  A 1 x 1 mesh traces the one-device path (``par=None``),
 with no world.
 
-The port's mesh execution has no Megatron sequence parallelism and no
-model-major expert layout (``distributed.sharding`` has them as specs
-only), so ``build_cell`` raises ``NotImplementedError`` for the
-``seq_parallel`` and ``expert_axes="model_major"`` overrides rather than
-trace another program.  ``long_500k`` keeps the whole KV cache on each
+The ``seq_parallel`` and ``expert_axes="model_major"`` overrides go to
+``tensor_parallel.make_parallel``, as the reference's go to
+``make_specs``: the traced rank runs Megatron sequence parallelism (its
+collectives under ``sp_all_gather`` / ``sp_reduce_scatter``, traced as
+all-gathers and reduce-scatters) and the model-major expert layout (one
+all-to-all a expert leaf, ``expert_all_to_all``).  ``long_500k`` keeps
+the whole KV cache on each
 rank: the port's execution does not shard the cache over the sequence
 (the record's ``note`` says so; ``analytic_memory`` reckons the
 reference's sharded cache).
@@ -203,21 +205,11 @@ def build_cell(cell: cellmod.Cell, mesh: MeshSpec,
     (``rank_mesh``, from ``fake_world``; None: the one-device path) and its
     arguments on ``meta``.
 
-    ``overrides`` (perf-iteration knobs, the reference's): remat_policy,
-    q_chunk, moe_group, moe_capacity, accum_steps, kv_dtype; seq_parallel
-    and expert_axes="model_major" raise ``NotImplementedError``.
+    ``overrides`` (perf-iteration knobs, the reference's): seq_parallel,
+    expert_axes, remat_policy, q_chunk, moe_group, moe_capacity,
+    accum_steps, kv_dtype.
     """
     ov = overrides or {}
-    if ov.get("seq_parallel"):
-        raise NotImplementedError(
-            "seq_parallel: the port has no Megatron sequence-parallel "
-            "execution (distributed.sharding.make_specs gives its specs "
-            "only)")
-    if ov.get("expert_axes", "default") != "default":
-        raise NotImplementedError(
-            f"expert_axes={ov['expert_axes']!r}: the port has no "
-            "model-major expert execution (distributed.sharding.make_specs "
-            "gives its specs only)")
     cfg = get_arch(cell.arch)
     if "q_chunk" in ov:
         cfg = dataclasses.replace(cfg, attn_q_chunk=ov["q_chunk"])
@@ -230,7 +222,10 @@ def build_cell(cell: cellmod.Cell, mesh: MeshSpec,
     tp = mesh.devices.shape[-1] if shd.style_for(cfg) == "tp" else 1
     dims = ModelDims.create(cfg, tp=tp)
     par = (None if rank_mesh is None
-           else tpl.make_parallel(cfg, rank_mesh, cell.batch))
+           else tpl.make_parallel(cfg, rank_mesh, cell.batch,
+                                  seq_parallel=ov.get("seq_parallel", False),
+                                  expert_axes=ov.get("expert_axes",
+                                                     "default")))
     shard = (None if par is None else
              lambda path, tree: tpl.shard_params(cfg, tree, par, path))
     params = cellmod.param_shapes(cfg, dims, torch.bfloat16, shard)

@@ -4,10 +4,11 @@ Runs named optimization variants on the three chosen cells, re-traces
 them (``launch.dryrun.run_cell``), re-reckons the roofline terms with the
 card's figures (``analysis.roofline``) and appends hypothesis ->
 before/after records to ``hillclimb_results.jsonl`` in the working
-directory, resuming by (arch, shape, variant).  A variant the port cannot
-run (Megatron sequence parallelism, the model-major expert layout: specs
-only in the port) is written with its ``error``, as the reference writes
-any failing row.
+directory, resuming by (arch, shape, variant).  Every variant runs on
+the port's execution (Megatron sequence parallelism and the model-major
+expert layout included: ``dryrun.build_cell`` hands them to
+``tensor_parallel.make_parallel``); a row that fails is written with its
+``error``, as the reference writes any failing row.
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.hillclimb
 """

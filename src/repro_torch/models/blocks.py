@@ -52,6 +52,11 @@ class BlockCtx:
     # an FSDP arch's data axis above 1 (``tensor_parallel.FSDP``): the
     # stack gathers each super-block's weights over it before it runs
     fsdp: Optional[object] = None
+    # Megatron sequence parallelism over ``tp``: the lengths of the ranks'
+    # blocks of the sequence (``positions`` is the whole sequence's), the
+    # residual stream holding this rank's; and the model-major experts
+    sp: Optional[tuple] = None
+    model_major: bool = False
 
 
 def _attn_dims(cfg: ArchConfig, ctx: BlockCtx) -> AttnDims:
@@ -107,19 +112,21 @@ def attn_block_apply(p: Params, x: torch.Tensor, ctx: BlockCtx,
         p["attn"], h, _attn_dims(cfg, ctx), causal=not cfg.encoder_only,
         theta=cfg.rope_theta, positions=ctx.positions,
         q_chunk=cfg.attn_q_chunk, cache=self_cache,
-        cache_index=ctx.cache_index, tp=ctx.tp)
+        cache_index=ctx.cache_index, tp=ctx.tp, sp=ctx.sp)
     x = x + out
     new_cache = {"self": new_self} if new_self is not None else None
     if kind == BlockKind.CROSS_ATTN:
         x = _cross_attn(p, x, ctx, cache, new_cache)
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind == BlockKind.MOE:
-        y = moe_apply(p["moe"], h, _moe_dims(cfg, ctx), tp=ctx.tp)
+        y = moe_apply(p["moe"], h, _moe_dims(cfg, ctx), tp=ctx.tp,
+                      sp=ctx.sp, model_major=ctx.model_major)
         if cfg.moe.dense_residual:
-            y = y + mlp_apply(p["dense_mlp"], h, "swiglu", tp=ctx.tp)
+            y = y + mlp_apply(p["dense_mlp"], h, "swiglu", tp=ctx.tp,
+                              sp=ctx.sp)
         x = x + y
     elif cfg.mlp != MLPKind.NONE:
-        x = x + mlp_apply(p["mlp"], h, cfg.mlp.value, tp=ctx.tp)
+        x = x + mlp_apply(p["mlp"], h, cfg.mlp.value, tp=ctx.tp, sp=ctx.sp)
     return x, new_cache
 
 
@@ -154,7 +161,7 @@ def _cross_attn(p: Params, x: torch.Tensor, ctx: BlockCtx,
                                                             dims.hd)
     xout, _ = attn_apply(p["xattn"], h, dims, causal=False, theta=0.0,
                          positions=ctx.positions, q_chunk=cfg.attn_q_chunk,
-                         kv=(ck, cv), tp=ctx.tp)
+                         kv=(ck, cv), tp=ctx.tp, sp=ctx.sp)
     promoted = torch.promote_types(x.dtype, xout.dtype)
     if promoted != x.dtype:
         raise TypeError(

@@ -11,6 +11,11 @@ Under tensor parallelism (``tp``, a ``launch.mesh.Axis``; None at tp =
 operators of ``distributed.tensor_parallel``: ``copy_to`` on the input of
 the column-parallel products, ``reduce_from`` on the row-parallel
 output, where the reference's sharding constraint returns to replicated.
+Under sequence parallelism (``sp``: the lengths of the ranks' blocks of
+the sequence) a layer takes and returns the rank's block: ``gather_seq``
+on the input and ``scatter_seq`` on the output take the two operators'
+places, and everything between them (RoPE positions, the causal mask,
+the MoE router and its dispatch groups) sees the gathered sequence.
 
 Two layer functions run the port's CUDA kernels on CUDA tensors:
 
@@ -203,7 +208,8 @@ def attn_apply(p: Params, x: torch.Tensor, dims: AttnDims, *, causal: bool,
                theta: float, positions: torch.Tensor, q_chunk: int = 0,
                kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
                cache: Optional[Params] = None,
-               cache_index: Optional[int] = None, tp=None
+               cache_index: Optional[int] = None, tp=None,
+               sp: Optional[tuple] = None
                ) -> tuple[torch.Tensor, Optional[Params]]:
     """Self- or cross-attention with an optional KV cache.
 
@@ -217,16 +223,17 @@ def attn_apply(p: Params, x: torch.Tensor, dims: AttnDims, *, causal: bool,
       ``cache_index``, and x attends over the cache up to
       ``cache_index + S``.
     Returns (out, the cache or None).  Under ``tp``, ``dims`` holds the
-    rank's head counts (and ``kv`` its heads).
+    rank's head counts (and ``kv`` its heads); under ``sp`` x and out are
+    the rank's block of the sequence, ``positions`` the whole sequence's.
     """
+    x = _col_in(x, tp, sp)
     B, S, _ = x.shape
-    x = _tp().copy_to(x, tp) if tp is not None else x
     q = dense(p["wq"], x).reshape(B, S, dims.n_q, dims.hd)
     if kv is not None:
         q = rope(q, positions, theta) if theta > 0 else q
         out = sdpa_chunked(q, *kv, causal=False, q_chunk=q_chunk or S)
         return _row_out(p["wo"], out.reshape(B, S, dims.n_q * dims.hd),
-                        tp), None
+                        tp, sp), None
     k = dense(p["wk"], x).reshape(B, S, dims.n_kv, dims.hd)
     v = dense(p["wv"], x).reshape(B, S, dims.n_kv, dims.hd)
     if theta > 0:
@@ -242,7 +249,7 @@ def attn_apply(p: Params, x: torch.Tensor, dims: AttnDims, *, causal: bool,
     else:
         out = sdpa_chunked(q, k, v, causal=causal, q_chunk=q_chunk or S)
     out = out.reshape(B, S, dims.n_q * dims.hd)
-    return _row_out(p["wo"], out, tp), cache
+    return _row_out(p["wo"], out, tp, sp), cache
 
 
 def _tp():
@@ -250,10 +257,26 @@ def _tp():
     return tensor_parallel
 
 
-def _row_out(p: Params, h: torch.Tensor, tp) -> torch.Tensor:
+def _col_in(x: torch.Tensor, tp, sp: Optional[tuple]) -> torch.Tensor:
+    """The input of column-parallel products: under ``tp`` through
+    ``copy_to``, under ``sp`` the whole sequence gathered."""
+    if tp is None:
+        return x
+    return _tp().gather_seq(x, tp, sp) if sp else _tp().copy_to(x, tp)
+
+
+def _row_sum(y: torch.Tensor, tp, sp: Optional[tuple]) -> torch.Tensor:
+    """Partial sums of a row-parallel product added up over ``tp``; under
+    ``sp`` only the rank's block of the sequence is kept."""
+    if tp is None:
+        return y
+    return _tp().scatter_seq(y, tp, sp) if sp else _tp().reduce_from(y, tp)
+
+
+def _row_out(p: Params, h: torch.Tensor, tp,
+             sp: Optional[tuple] = None) -> torch.Tensor:
     """A row-parallel product; under ``tp`` the partial sums added up."""
-    y = dense(p, h)
-    return _tp().reduce_from(y, tp) if tp is not None else y
+    return _row_sum(dense(p, h), tp, sp)
 
 
 # ---------------------------------------------------------------------------
@@ -270,13 +293,11 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, kind: str,
             "wo": dense_init(gen, d_ff, d, dtype)}
 
 
-def mlp_apply(p: Params, x: torch.Tensor, kind: str, tp=None
-              ) -> torch.Tensor:
-    """The MLP; under ``tp`` on the rank's ``d_ff`` columns."""
-    if tp is None:
-        return _mlp_partial(p, x, kind)
-    return _tp().reduce_from(_mlp_partial(p, _tp().copy_to(x, tp), kind),
-                             tp)
+def mlp_apply(p: Params, x: torch.Tensor, kind: str, tp=None,
+              sp: Optional[tuple] = None) -> torch.Tensor:
+    """The MLP; under ``tp`` on the rank's ``d_ff`` columns (under ``sp``
+    over the gathered sequence, returning the rank's block)."""
+    return _row_sum(_mlp_partial(p, _col_in(x, tp, sp), kind), tp, sp)
 
 
 def _mlp_partial(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -344,7 +365,8 @@ def router_top_k(logits: torch.Tensor, k: int
     return vals[..., :k], idx[..., :k]
 
 
-def moe_apply(p: Params, x: torch.Tensor, dims: MoEDims, tp=None
+def moe_apply(p: Params, x: torch.Tensor, dims: MoEDims, tp=None,
+              sp: Optional[tuple] = None, model_major: bool = False
               ) -> torch.Tensor:
     """Top-k capacity-based MoE over flattened tokens.
 
@@ -361,8 +383,17 @@ def moe_apply(p: Params, x: torch.Tensor, dims: MoEDims, tp=None
     layout at a data axis of 1), and its shared experts' columns; the
     partial outputs are added up once.  The routing weights enter the
     rank's share through ``copy_to``, so the router's gradient sums every
-    rank's experts.
+    rank's experts.  ``model_major`` (the FSDP arch's
+    ``expert_axes="model_major"``) brings the rank's experts whole out of
+    the every-expert, ``d_ff``-column layout
+    (``tensor_parallel.expert_major``) and runs those.  Under ``sp`` the
+    router and the dispatch groups see the gathered sequence; nothing
+    passes ``copy_to`` (the gathered input's backward sums the ranks'
+    parts, the router's gradient included, which ``reduce_grads`` then
+    sums over the ranks).
     """
+    if sp:
+        x = _tp().gather_seq(x, tp, sp)
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     T = xt.shape[0]
@@ -377,7 +408,7 @@ def moe_apply(p: Params, x: torch.Tensor, dims: MoEDims, tp=None
     weights, sel = router_top_k(logits, k)                    # [T, k]
     weights = torch.softmax(weights, dim=-1)
 
-    if tp is not None:
+    if tp is not None and not sp:
         xt = _tp().copy_to(xt, tp)
         weights = _tp().copy_to(weights, tp)
     sel_g = sel.reshape(G, g, k)
@@ -394,23 +425,28 @@ def moe_apply(p: Params, x: torch.Tensor, dims: MoEDims, tp=None
     slot = F.one_hot(slot_idx + 1, cap + 1)[..., 1:].float()  # [.., E, cap]
     dispatch = (onehot[..., None] * slot).sum(dim=2)          # [G, g, E, cap]
     combine = (w_g[..., None, None] * onehot[..., None] * slot).sum(dim=2)
-    e_local = p["wi"].shape[0]
+    wi, wg, wo = p["wi"], p["wg"], p["wo"]
+    if model_major:
+        em = _tp().expert_major
+        f = dims.d_ff
+        wi, wg, wo = em(wi, tp, 2, f), em(wg, tp, 2, f), em(wo, tp, 1, f)
+    e_local = wi.shape[0]
     if e_local != E:          # this rank's block of the experts
         lo = tp.rank * e_local
         dispatch = dispatch[:, :, lo:lo + e_local]
         combine = combine[:, :, lo:lo + e_local]
 
     xs = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), x_g)
-    h = torch.einsum("gecd,edf->gecf", xs, p["wi"].to(x.dtype))
-    hg = torch.einsum("gecd,edf->gecf", xs, p["wg"].to(x.dtype))
+    h = torch.einsum("gecd,edf->gecf", xs, wi.to(x.dtype))
+    hg = torch.einsum("gecd,edf->gecf", xs, wg.to(x.dtype))
     h = silu(hg) * h
-    ys = torch.einsum("gecf,efd->gecd", h, p["wo"].to(x.dtype))
+    ys = torch.einsum("gecf,efd->gecd", h, wo.to(x.dtype))
     out = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ys)
     out = out.reshape(B, S, d)
     if dims.n_shared:
         out = out + _mlp_partial(p["shared"], xt.reshape(B, S, d),
                                  "swiglu")
-    return _tp().reduce_from(out, tp) if tp is not None else out
+    return _row_sum(out, tp, sp)
 
 
 # ---------------------------------------------------------------------------

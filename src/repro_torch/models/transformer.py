@@ -14,8 +14,11 @@ the blocks run on the rank's heads, ``d_ff`` columns, experts and vocab
 columns with the Megatron collectives between them; an FSDP arch at a
 ``data`` axis above 1 holds each layer's weights as ``(data, model)``
 blocks, and the stack gathers a super-block's over ``data`` just before
-it runs and lets them go after (``tensor_parallel.FSDP``); ``par=None``
-is the one-device path.
+it runs and lets them go after (``tensor_parallel.FSDP``).  Under
+sequence parallelism (``par.sp``) the stack's input is the rank's block
+of the sequence (the embedding reduce-scattered), the blocks keep it so
+between their layers, and the logits and the loss gather the sequence
+back before the head.  ``par=None`` is the one-device path.
 
 Caches mirror the layer list (``cache[super_block][position]``).  Prefill
 and decode write the attention KV caches in place and replace each Mamba-2
@@ -41,7 +44,7 @@ from torch.utils import checkpoint as ckpt
 
 from .blocks import BlockCtx, block_apply, block_cache, block_init
 from .config import ArchConfig, BlockKind
-from .layers import dense_init, rmsnorm, rmsnorm_init
+from .layers import _col_in, dense_init, rmsnorm, rmsnorm_init
 
 Params = dict
 
@@ -82,7 +85,9 @@ def make_ctx(cfg: ArchConfig, dims: ModelDims, mode: str,
              max_cache_len: int = 0, par=None) -> BlockCtx:
     """The blocks' context; with ``par`` at tp > 1 the head counts are the
     rank's (the padded counts over tp) and ``tp`` its axis; ``fsdp`` the
-    FSDP axis's context where layer weights are sharded over ``data``."""
+    FSDP axis's context where layer weights are sharded over ``data``;
+    ``sp`` the sequence's blocks over tp (``positions`` holds the whole
+    sequence) under sequence parallelism."""
     tp = par.tp_axis if par is not None else None
     n = tp.size if tp is not None else 1
     return BlockCtx(cfg=cfg, mode=mode, positions=positions,
@@ -91,7 +96,18 @@ def make_ctx(cfg: ArchConfig, dims: ModelDims, mode: str,
                     n_kv_pad=dims.n_kv_pad // n, expert_pad=dims.expert_pad,
                     max_cache_len=max_cache_len, tp=tp,
                     fsdp=(par.fsdp_ctx(dims.expert_pad) if par is not None
-                          else None))
+                          else None),
+                    sp=_sp_sizes(par, positions.shape[-1]),
+                    model_major=par is not None and par.model_major)
+
+
+def _sp_sizes(par, seq: int) -> Optional[tuple]:
+    """The lengths of the ranks' blocks of a sequence of ``seq`` under
+    sequence parallelism, else None."""
+    if par is None or not par.sp:
+        return None
+    from repro_torch.distributed.tensor_parallel import split_sizes
+    return tuple(split_sizes(seq, par.tp.size))
 
 
 def _dtype(dtype) -> torch.dtype:
@@ -155,18 +171,30 @@ def _init_params(cfg: ArchConfig, dims: ModelDims, generator: torch.Generator,
 # forward (full sequence: prefill) and the training loss
 # ---------------------------------------------------------------------------
 
+def _inputs(cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """The batch's tokens [B, S] (or frames [B, S, d])."""
+    if cfg.frontend_stub and "frames" in batch:
+        return batch["frames"]
+    return batch["tokens"]
+
+
 def _embed(cfg: ArchConfig, params: Params, batch: dict, dims=None,
-           tp=None) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+           tp=None, sp: Optional[tuple] = None
+           ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The stack's input in the model's type, and the batch's
     ``cross_ctx`` (the VLM's context, in its own type) or None.  ``tp``:
-    the rank's block of the embedding (``tensor_parallel.embed_lookup``)."""
+    the rank's block of the embedding (``tensor_parallel.embed_lookup``);
+    ``sp``: the sequence's blocks, of which the rank's is returned."""
     if cfg.frontend_stub and "frames" in batch:
         x = batch["frames"]
+        if sp:
+            from repro_torch.distributed import tensor_parallel as tpl
+            x = tpl.seq_block(x, tp, sp)
     elif tp is not None:
         from repro_torch.distributed import tensor_parallel as tpl
         x = tpl.embed_lookup(batch["tokens"], params["embed"],
                              cfg.tie_embeddings, tp, dims.vocab_pad,
-                             cfg.d_model)
+                             cfg.d_model, sp=sp)
     else:
         # a gather; its backward sums repeated tokens in a fixed order on
         # the card (a sort, not float atomics), so training reruns bit for
@@ -177,15 +205,26 @@ def _embed(cfg: ArchConfig, params: Params, batch: dict, dims=None,
 
 
 def _logits(cfg: ArchConfig, params: Params, x: torch.Tensor, dims=None,
-            tp=None) -> torch.Tensor:
+            tp=None, sp: Optional[tuple] = None,
+            last_only: bool = False) -> torch.Tensor:
     """Logits over the whole (padded) vocab; under ``tp`` each rank's
-    vocab columns, gathered."""
-    x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
+    vocab columns, gathered; ``last_only``: the last position's alone.
+    Under ``sp`` x is the rank's block of the sequence: normed there, the
+    sequence (or its last position, from the rank that holds it)
+    gathered before the head."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]["w"]
-    if tp is not None:
-        from repro_torch.distributed import tensor_parallel as tpl
-        return tpl.gather_last(tpl.logits(x, w, tp), tp, dims.vocab_pad)
-    return x @ w.to(x.dtype)
+    if last_only and sp:            # the last non-empty block's last row
+        owner = max(r for r, n in enumerate(sp) if n)
+        x = x[:, -1:] if tp.rank == owner else x[:, :0]
+        sp = tuple(int(r == owner) for r in range(len(sp)))
+    elif last_only:
+        x = x[:, -1:]
+    x = _col_in(rmsnorm(params["final_ln"], x, cfg.norm_eps), tp, sp)
+    y = x @ w.to(x.dtype)
+    if tp is None:
+        return y
+    from repro_torch.distributed import tensor_parallel as tpl
+    return tpl.gather_last(y, tp, dims.vocab_pad)
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -273,8 +312,9 @@ def forward(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
     the filled cache or None); ``last_only``: the last position's logits
     alone ([B, 1, vocab])."""
     tp = par.tp_axis if par is not None else None
-    x, cross = _embed(cfg, params, batch, dims, tp)
-    B, S = x.shape[:2]
+    B, S = _inputs(cfg, batch).shape[:2]
+    sp = _sp_sizes(par, S)
+    x, cross = _embed(cfg, params, batch, dims, tp, sp)
     positions = torch.arange(S, device=x.device)[None, :]
     ctx = make_ctx(cfg, dims, "full", positions, cross_ctx=cross,
                    max_cache_len=max_cache_len or S, par=par)
@@ -285,8 +325,7 @@ def forward(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
         # prefill fills positions [0, S) of the attention caches
         ctx = dataclasses.replace(ctx, cache_index=0)
     x, cache = _run_stack(cfg, params, x, ctx, cache)
-    return _logits(cfg, params, x[:, -1:] if last_only else x, dims,
-                   tp), cache
+    return _logits(cfg, params, x, dims, tp, sp, last_only), cache
 
 
 def _chunk_loss(xc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor
@@ -303,9 +342,10 @@ def _chunk_loss(xc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor
 def _chunk_loss_tp(xc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor,
                    tp, vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
     """``_chunk_loss`` from the rank's vocab columns
-    (``tensor_parallel.cross_entropy_terms``)."""
+    (``tensor_parallel.cross_entropy_terms``); ``xc`` is the head's
+    column-parallel input (``layers._col_in``)."""
     from repro_torch.distributed import tensor_parallel as tpl
-    terms = tpl.cross_entropy_terms(tpl.logits(xc, w, tp).float(), lc, tp,
+    terms = tpl.cross_entropy_terms((xc @ w.to(xc.dtype)).float(), lc, tp,
                                     vocab)
     mask = (lc >= 0).float()
     return (terms * mask).sum(), mask.sum()
@@ -326,17 +366,23 @@ def loss_fn(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
     With ``par`` the batch is the rank's rows and the loss its share of
     the global mean (its rows' sum over the global count of labels), so
     that the shares, and their gradients, sum over the batch axes to the
-    global mean's (``tensor_parallel.reduce_grads``).
+    global mean's (``tensor_parallel.reduce_grads``).  Under sequence
+    parallelism the normed rank blocks are gathered into the whole
+    sequence before the chunks, so the loss is the same on every rank.
     """
     tp = par.tp_axis if par is not None else None
-    x, cross = _embed(cfg, params, batch, dims, tp)
-    B, S = x.shape[:2]
+    S = _inputs(cfg, batch).shape[1]
+    sp = _sp_sizes(par, S)
+    x, cross = _embed(cfg, params, batch, dims, tp, sp)
     positions = torch.arange(S, device=x.device)[None, :]
     ctx = make_ctx(cfg, dims, "full", positions, cross_ctx=cross,
                    max_cache_len=S, par=par)
     x, _ = _run_stack(cfg, params, x, ctx, None, remat=remat,
                       remat_policy=remat_policy)
     x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
+    if sp:
+        from repro_torch.distributed import tensor_parallel as tpl
+        x = tpl.gather_seq(x, tp, sp)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]["w"]
     labels = batch["labels"]
     c = min(loss_chunk, S)
@@ -347,7 +393,10 @@ def loss_fn(cfg: ArchConfig, dims: ModelDims, params: Params, batch: dict,
                                 labels[:, i:i + c], w, use_reentrant=False)
                 for i in range(0, S, c)]
     else:
-        sums = [ckpt.checkpoint(_chunk_loss_tp, x[:, i:i + c],
+        # the head's input: gathered above under SP, else a chunk at a
+        # time through ``copy_to``
+        sums = [ckpt.checkpoint(_chunk_loss_tp, x[:, i:i + c] if sp
+                                else _col_in(x[:, i:i + c], tp, None),
                                 labels[:, i:i + c], w, tp, dims.vocab_pad,
                                 use_reentrant=False)
                 for i in range(0, S, c)]
@@ -393,11 +442,12 @@ def decode_step(cfg: ArchConfig, dims: ModelDims, params: Params,
     from the cache prefill filled; ``cross_ctx`` is read only by a cache
     without them, as in the reference."""
     tp = par.tp_axis if par is not None else None
+    sp = _sp_sizes(par, 1)          # the one position on the first rank
     x, cross = _embed(cfg, params, {"tokens": tokens,
-                                    "cross_ctx": cross_ctx}, dims, tp)
-    positions = torch.full((x.shape[0], 1), index, dtype=torch.long,
+                                    "cross_ctx": cross_ctx}, dims, tp, sp)
+    positions = torch.full((tokens.shape[0], 1), index, dtype=torch.long,
                            device=x.device)
     ctx = make_ctx(cfg, dims, "decode", positions, cache_index=index,
                    cross_ctx=cross, par=par)
     x, cache = _run_stack(cfg, params, x, ctx, cache)
-    return _logits(cfg, params, x, dims, tp)[:, 0], cache
+    return _logits(cfg, params, x, dims, tp, sp)[:, 0], cache

@@ -51,7 +51,8 @@ def recurrence(run: Callable[[int], Any], trips: int,
 
 
 def collective(op: str, nbytes: int, group: int) -> None:
-    """A collective ``op`` (``all_reduce``, ``all_gather``, ``broadcast``,
-    ``send_recv``) of ``nbytes`` bytes a rank over ``group`` ranks."""
+    """A collective ``op`` (``all_reduce``, ``all_gather``,
+    ``reduce_scatter``, ``all_to_all``, ``broadcast``, ``send_recv``) of
+    ``nbytes`` bytes a rank hands it over ``group`` ranks."""
     if TRACE is not None:
         TRACE.collective(op, nbytes, group)

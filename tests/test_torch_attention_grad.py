@@ -11,8 +11,8 @@ float32 throughout, ``max |port - other| <= 1e-5 * max |other|`` per gradient:
 both sides sum the same products in other orders (the reads are about 3e-7).
 
 Also: ``FlashAttentionFn`` / ``attention`` (what the model layer calls with
-a gradient required) give those gradients; a mask the backward does not
-cover raises; a kernel call on tensors off the CPU that require grad
+a gradient required) give those gradients (under a KV cache's mask:
+``tests/test_torch_attention_cache_grad.py``); a kernel call on tensors off the CPU that require grad
 raises instead of returning an output autograd cannot see (the ``meta``
 device stands in for the card here); without a gradient the layer calls
 the forward kernel as serving does.  The ``cuda``-marked cases hold the
@@ -189,16 +189,6 @@ def test_model_layer_takes_the_function_only_with_a_gradient():
     with torch.no_grad():
         assert TL.sdpa_chunked(*leaves, causal=True, q_chunk=16).grad_fn \
             is None
-
-
-@pytest.mark.parametrize("kw", [{"q_offset": 3}, {"kv_len": 20}])
-def test_grad_with_a_cache_mask_raises(kw):
-    q, k, v, _ = (torch.tensor(x, requires_grad=True)
-                  for x in inputs(5, 1, 32, 2, 2, 16))
-    with pytest.raises(NotImplementedError, match="q_offset = 0"):
-        attention(q, k, v, **kw)
-    with torch.no_grad():                    # serving: allowed
-        attention(q, k, v, **kw)
 
 
 def test_kernel_call_off_the_cpu_that_requires_grad_raises():

@@ -11,9 +11,13 @@
   port's backward recomputes (``TRAIN``, ``_train_gap``; ROADMAP
   section 3).
 * Collectives: rank 0 of a fake world against rank 0 of a real gloo run
-  of the same reduced cells on a 2 x 2 mesh (``torch_dryrun_worker``).
+  of the same reduced cells on a 2 x 2 mesh (``torch_dryrun_worker``),
+  also under the ``seq_parallel`` and ``expert_axes="model_major"``
+  overrides, whose records show their reduce-scatters and all-to-alls;
+  sequence parallelism leaves a rank's dot FLOPs as they were.
 * The CLI (one record, resumed, the skip list) and the hill-climb's rows
-  for the executions the port does not have.
+  that use those overrides, traced on a small mesh (terms, no error,
+  resumed).
 """
 import concurrent.futures
 import json
@@ -230,6 +234,9 @@ CASES = [{"arch": a, "full_name": f, "shape": s}
 
 _BY_KIND = {"all_reduce": "all-reduce", "fsdp_all_reduce": "all-reduce",
             "all_gather": "all-gather", "fsdp_all_gather": "all-gather",
+            "sp_all_gather": "all-gather",
+            "sp_reduce_scatter": "reduce-scatter",
+            "expert_all_to_all": "all-to-all",
             "broadcast": "broadcast", "send_recv": "collective-permute"}
 
 
@@ -242,21 +249,17 @@ def _by_kind(stats: dict) -> dict:
     return out
 
 
-def test_fake_ranks_count_the_collectives_of_real_ranks(monkeypatch):
-    """A tensor-parallel config and an FSDP one (qwen2.5-32b reduced under
-    its own name, so its layers gather over 'data'), trained and
-    prefilled: rank 0's calls and bytes, by label, on a fake world of 4
-    equal those of rank 0 of 4 gloo ranks; the trace's records per kind
-    agree with them."""
-    real = spawn(W.run, 4, CASES, timeout_s=240)[0]
+def _fake_against_real(monkeypatch, cases, real):
+    """Each case traced on a fake world: its counts by label `==` the real
+    rank's, its record's by kind `==` them; the real labels."""
     monkeypatch.setattr(cells, "SHAPES", {**cells.SHAPES, **W.SHAPES})
-    for case, want in zip(CASES, real):
+    for case, want in zip(cases, real):
         cfg = W.config(case["arch"], case["full_name"])
         for mod in (cells, dryrun):
             monkeypatch.setattr(mod, "get_arch", lambda n, cfg=cfg: cfg)
         coll.reset_stats()
         rec = dryrun.run_cell(cells.Cell(case["arch"], case["shape"]),
-                              W.MESH, "2x2")
+                              W.MESH, "2x2", case.get("overrides"))
         got = coll.stats()
         assert not dist.is_initialized()
         assert got == want, case
@@ -267,7 +270,17 @@ def test_fake_ranks_count_the_collectives_of_real_ranks(monkeypatch):
             c[1] += d["operand"]
         assert traced == _by_kind(want), case
         assert want, case
-    kinds = {k for s in real for k in s}
+    return {k for s in real for k in s}
+
+
+def test_fake_ranks_count_the_collectives_of_real_ranks(monkeypatch):
+    """A tensor-parallel config and an FSDP one (qwen2.5-32b reduced under
+    its own name, so its layers gather over 'data'), trained and
+    prefilled: rank 0's calls and bytes, by label, on a fake world of 4
+    equal those of rank 0 of 4 gloo ranks; the trace's records per kind
+    agree with them."""
+    real = spawn(W.run, 4, CASES, timeout_s=240)[0]
+    kinds = _fake_against_real(monkeypatch, CASES, real)
     assert {"all_reduce", "all_gather", "fsdp_all_gather",
             "fsdp_all_reduce"} <= kinds
 
@@ -308,26 +321,84 @@ def test_cli_writes_a_record_resumes_and_lists_the_skips(tmp_path, capsys):
     assert "[dryrun] xlstm-350m x decode_32k" not in runs[1]
 
 
-def test_hillclimb_rows_without_the_ports_execution_record_it(
+OVERRIDE_CASES = [
+    {"arch": "qwen2.5-32b", "full_name": True, "shape": s,
+     "overrides": {"seq_parallel": True}} for s in ("train_s32",
+                                                     "prefill_s32")] + [
+    {"arch": "arctic-480b", "full_name": True, "shape": "train_s32",
+     "overrides": ov} for ov in ({"expert_axes": "model_major"},
+                                 {"expert_axes": "model_major",
+                                  "seq_parallel": True})]
+
+
+def test_override_cells_trace_on_a_fake_world_as_real_ranks_run_them(
+        monkeypatch):
+    """The ``seq_parallel`` and ``expert_axes="model_major"`` overrides of
+    reduced qwen2.5-32b and arctic-480b (under their published names: FSDP
+    over 'data'), trained and prefilled on a fake 2 x 2 world: rank 0's
+    collectives by label `==` rank 0 of 4 gloo ranks running the same
+    steps, and the records show the reduce-scatters of sequence
+    parallelism and the model-major all-to-alls."""
+    real = spawn(W.run, 4, OVERRIDE_CASES, timeout_s=240)[0]
+    kinds = _fake_against_real(monkeypatch, OVERRIDE_CASES, real)
+    assert {"sp_all_gather", "sp_reduce_scatter",
+            "expert_all_to_all"} <= kinds
+    sp_only = real[1]                   # qwen's SP prefill
+    assert "all_reduce" not in sp_only
+
+
+@pytest.mark.parametrize("shape", ["train_s32", "prefill_s32"])
+def test_seq_parallel_leaves_a_ranks_dot_flops(monkeypatch, shape):
+    """Rank 0 of a 2 x 2 fake world multiplies the same products with the
+    sequence split over 'model' between blocks as without: every product
+    runs on the gathered sequence.  Its collectives are not the same."""
+    cfg = W.config("qwen2.5-32b", True)
+    monkeypatch.setattr(cells, "SHAPES", {**cells.SHAPES, **W.SHAPES})
+    for mod in (cells, dryrun):
+        monkeypatch.setattr(mod, "get_arch", lambda n: cfg)
+    cell = cells.Cell("qwen2.5-32b", shape)
+    plain, sp = (dryrun.run_cell(cell, W.MESH, "2x2", ov)
+                 for ov in (None, {"seq_parallel": True}))
+    assert sp["cost"]["dot_flops"] == plain["cost"]["dot_flops"] > 0
+    assert "reduce-scatter:g2" in sp["collectives"]["by_group"]
+    assert "reduce-scatter:g2" not in plain["collectives"]["by_group"]
+
+
+def test_hillclimb_rows_with_sp_and_model_major_write_terms_and_resume(
         monkeypatch, tmp_path):
-    """Rows asking for Megatron-SP or the model-major expert layout are
-    written with the ``NotImplementedError`` that names the missing
-    execution; a second run resumes past them."""
+    """The 10 rows asking for Megatron-SP or the model-major expert
+    layout, on the configs reduced under their published names, their
+    shapes cut and a 2 x 2 mesh for the production one: each row written
+    with its three roofline terms and no ``error``, and later runs resume
+    past the rows written.  The rows run at train 4 x 32 and decode 4 over
+    a 64-row cache, but ``sp+grad_check``, whose ``accum_steps=16`` needs
+    16 rows a data rank: it runs in the second pass, at train 32 x 16."""
     rows = [r for r in hillclimb.PLAN if r[3].get("seq_parallel")
             or r[3].get("expert_axes") == "model_major"]
     assert len(rows) == 10
-    monkeypatch.setattr(hillclimb, "PLAN", rows)
+    by_name = {a: W.config(a, True) for a in {r[0] for r in rows}}
+    monkeypatch.setattr(hillclimb, "make_production_mesh", lambda: W.MESH)
+    for mod in (cells, dryrun):
+        monkeypatch.setattr(mod, "get_arch", lambda n: by_name[n])
     path = tmp_path / "hill.jsonl"
-    hillclimb.main(str(path))
-    hillclimb.main(str(path))
+    deep = [r for r in rows if r[3].get("accum_steps")]
+    for plan, train in (([r for r in rows if r not in deep], (32, 4)),
+                        (rows, (16, 32)), (rows, (16, 32))):
+        monkeypatch.setattr(hillclimb, "PLAN", plan)
+        monkeypatch.setattr(cells, "SHAPES", {
+            **cells.SHAPES,
+            "train_4k": dict(kind="train", seq=train[0], batch=train[1]),
+            "decode_32k": dict(kind="decode", seq=64, batch=4)})
+        hillclimb.main(str(path))
     got = [json.loads(line) for line in path.read_text().splitlines()]
+    assert len(deep) == 1
     assert [(r["arch"], r["variant"]) for r in got] == [
-        (r[0], r[2]) for r in rows]
+        (r[0], r[2]) for r in rows if r not in deep] + [
+        (deep[0][0], deep[0][2])]
     for r in got:
-        assert r["error"].startswith("NotImplementedError")
-        assert ("sequence-parallel" in r["error"]
-                if r["overrides"].get("seq_parallel")
-                else "model-major" in r["error"])
+        assert "error" not in r, r
+        assert all(r[k] > 0 for k in ("compute_s", "memory_s",
+                                      "collective_s")), r
     assert not dist.is_initialized()
 
 
@@ -344,11 +415,3 @@ def test_dry_run_modules_import_neither_jax_nor_repro():
     subprocess.run([sys.executable, "-c", code], env=env, check=True,
                    timeout=120)
 
-
-def test_seq_parallel_and_model_major_are_refused_before_tracing():
-    mesh = make_mesh((1, 1), ("data", "model"))
-    for ov, what in (({"seq_parallel": True}, "sequence-parallel"),
-                     ({"expert_axes": "model_major"}, "model-major")):
-        with pytest.raises(NotImplementedError, match=what):
-            dryrun.build_cell(cells.Cell("arctic-480b", "train_4k"), mesh,
-                              ov)

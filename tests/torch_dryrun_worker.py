@@ -8,7 +8,8 @@ each case takes ``launch.dryrun.build_cell``'s step and arguments (rank
 shapes on the CPU (tokens and labels below the vocab), runs the step once
 and returns ``distributed.collectives.stats()`` of it.  A training step is
 made again for the CPU with the accumulation depth and optimizer
-``build_cell`` chose.
+``build_cell`` chose.  A case's ``overrides`` (``seq_parallel``,
+``expert_axes``) go to ``build_cell`` and ``make_parallel``.
 """
 from __future__ import annotations
 
@@ -67,7 +68,8 @@ def run(rank: int, cases: list) -> list:
     for case in cases:
         cfg = use(case)
         cell = cells.Cell(case["arch"], case["shape"])
-        fn, args = dryrun.build_cell(cell, MESH, {}, mesh)
+        ov = case.get("overrides", {})
+        fn, args = dryrun.build_cell(cell, MESH, ov, mesh)
         args = _values(args, torch.Generator().manual_seed(rank), cfg.vocab)
         if cell.kind == "train":
             tp = MESH.axis_size("model") if shd.style_for(cfg) == "tp" else 1
@@ -77,7 +79,10 @@ def run(rank: int, cases: list) -> list:
             fn = make_train_step(
                 cfg, ModelDims.create(cfg, tp), opt, remat=True,
                 accum_steps=dryrun.accum_steps_for(cell, MESH),
-                device="cpu", par=tpl.make_parallel(cfg, mesh, cell.batch))
+                device="cpu", par=tpl.make_parallel(
+                    cfg, mesh, cell.batch,
+                    seq_parallel=ov.get("seq_parallel", False),
+                    expert_axes=ov.get("expert_axes", "default")))
         coll.reset_stats()
         fn(*args)
         out.append(coll.stats())

@@ -79,7 +79,9 @@ def _first(mesh: RankMesh) -> bool:
 def _setup(c: dict, mesh: RankMesh):
     cfg = case_config(c)
     dims = case_dims(c)
-    par = tpl.make_parallel(cfg, mesh, c["batch"])
+    par = tpl.make_parallel(cfg, mesh, c["batch"],
+                            seq_parallel=c.get("seq_parallel", False),
+                            expert_axes=c.get("expert_axes", "default"))
     whole = params_from_numpy(cfg, numpy_tree(cfg, c["seed"], dims=dims),
                               device="cpu", dtype=torch.float32)
     return cfg, dims, par, tpl.shard_params(cfg, whole, par)
