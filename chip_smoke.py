@@ -67,9 +67,15 @@ package.  Phases, each printed as it runs:
    sLSTM recurrence, forward and backward) against ``slstm_scan_plain`` /
    ``slstm_scan_bwd_plain``, over sweeps (float32 and bf16; N and P of 48
    and 80; at xlstm-350m's shape slow decay and the mLSTM's strided
-   views; a decode step, a batch over two clusters, a dp = 2 rank's two
-   rows of xlstm-350m's batch, xlstm-350m's training shapes last), each output within 2e-2 (bf16) or 2e-5 (float32) of its
-   largest plain entry and a second call the same bits; times at
+   views; a decode step, a batch over two clusters, one and two full
+   tiles of 8 rows, dh 128 and 20, a stage cut at L, gx a column slice
+   of a wider projection (the same bits as from a copy), a dp = 2 rank's
+   two rows of xlstm-350m's batch, xlstm-350m's training shapes last, the
+   sLSTM's also in float32), each output within 2e-2 (bf16) or 2e-5
+   (float32) of its
+   largest plain entry and a second call the same bits; the bf16 sLSTM
+   cell alone (r = 0) with its carries of every position within
+   float32's 2e-5 of the largest plain entry; times at
    xlstm-350m's shapes beside the bound and the plain version, device
    times and each launch's part profiled in a new process
 3. paper package: the ten Table II scenarios on the 6x6 ``het_cross`` MCM,
@@ -1650,7 +1656,12 @@ def new_shapes_phase(g, dev, smi) -> dict:
 # xlstm-350m's training shape (its mLSTM's scan with the normaliser; its
 # sLSTM over batch 4 x 1024), the L = 1 cases are decode steps (B = 1 and
 # 128: xlstm-350m's long_500k and decode_32k steps, phase 17), 9 batch rows
-# take two clusters a head; N and P of 48 and 80 are multiples of 16 but
+# take two clusters a head, 8 and 16 rows one and two full tiles of the
+# tensor-core product's N = 8, dh 128 a cluster of 4, dh 20 (float32) a
+# unit tile cut at dh and L = 40 a stream stage cut at L, and xlstm-350m's
+# shape also in float32, "views" gx a column slice of a wider projection
+# (strides the kernel's TMA reads as they are); N and P of 48 and 80 are
+# multiples of 16 but
 # not of the bf16 kernels' 64-column boxes; the B = 2 cases are a dp = 2
 # rank's half of xlstm-350m's training batch (phase 16)
 WIDE_BWD_CASES = ((1, 64, 2, 16, 16, 16, True, False, ""),
@@ -1666,7 +1677,16 @@ WIDE_BWD_CASES = ((1, 64, 2, 16, 16, 16, True, False, ""),
 SLSTM_CASES = ((2, 16, 4, 16, False), (3, 64, 2, 256, False),
                (9, 32, 2, 64, True), (4, 1, 4, 256, True),
                (1, 1, 4, 256, True), (128, 1, 4, 256, True),
-               (2, 1024, 4, 256, True), (4, 1024, 4, 256, True))
+               (8, 64, 2, 256, True), (16, 48, 2, 256, True),
+               (4, 96, 4, 128, True), (2, 40, 2, 20, False),
+               (4, 64, 4, 256, True, "views"),
+               (4, 1024, 4, 256, False), (2, 1024, 4, 256, True),
+               (4, 1024, 4, 256, True))
+# The bf16 cell's carries against the plain version's at float32's
+# tolerance (LM_TOL[float32] of the largest plain entry): at r = 0 h r is
+# exactly 0 and the gate inputs are gx itself, so c, n and m after every
+# position depend on the cell alone (xlstm-350m's shape)
+SLSTM_CELL_CASE = (4, 1024, 4, 256)
 PROFILE_XLSTM_ARG = "--profile-xlstm-kernels"
 
 
@@ -1703,10 +1723,15 @@ def wide_bwd_inputs(g, dev, B, L, H, N, P, norm, dt, kind=""):
     return q, k, v, a, do, dden
 
 
-def slstm_inputs(g, dev, B, L, H, dh, dt):
+def slstm_inputs(g, dev, B, L, H, dh, dt, kind=""):
     """sLSTM inputs as the model makes them (r / sqrt(dh), a carry from
-    earlier positions) and random gradients of ys and of the carry out."""
-    gx = randn((B, L, H, 4 * dh), g, dt, dev)
+    earlier positions) and random gradients of ys and of the carry out;
+    with ``kind`` "views" gx is columns [64, 64 + 4 dh) of a [B, L, H,
+    4 dh + 128] projection."""
+    if kind == "views":
+        gx = randn((B, L, H, 4 * dh + 128), g, dt, dev)[..., 64:64 + 4 * dh]
+    else:
+        gx = randn((B, L, H, 4 * dh), g, dt, dev)
     r = (randn((H, dh, 4 * dh), g, torch.float32, dev)
          / math.sqrt(dh)).to(dt)
     f32 = torch.float32
@@ -1767,6 +1792,40 @@ def profile_xlstm_kernels() -> None:
     print(json.dumps(out))
 
 
+def slstm_cell_check(g, dev) -> dict:
+    """``SLSTM_CELL_CASE`` in bf16 at r = 0: the forward's saved c, n, m of
+    every position and its carry out, each within ``LM_TOL[float32]`` of
+    its largest plain entry; the largest error of each over that entry,
+    and the largest elementwise relative error over the entries above 1e-3
+    of it."""
+    from repro_torch.kernels.slstm import slstm_scan, slstm_scan_plain
+    B, L, H, dh = SLSTM_CELL_CASE
+    bf, f32 = torch.bfloat16, torch.float32
+    gx = randn((B, L, H, 4 * dh), g, bf, dev)
+    r = torch.zeros((H, dh, 4 * dh), dtype=bf, device=dev)
+    carry = (randn((B, H, dh), g, f32, dev),
+             randn((B, H, dh), g, f32, dev).abs() + 0.5,
+             randn((B, H, dh), g, bf, dev), randn((B, H, dh), g, f32, dev))
+    _, c1, saved = slstm_scan(gx, r, carry, save=True)
+    _, p_c1, p_saved = slstm_scan_plain(gx, r, carry, save=True)
+    out = {}
+    pairs = [(w, saved[i], p_saved[i]) for i, w in ((1, "c"), (2, "n"),
+                                                     (3, "m"))]
+    pairs += [(w, c1[i], p_c1[i]) for i, w in ((0, "c'"), (1, "n'"),
+                                               (3, "m'"))]
+    for name, k, p in pairs:
+        what = f"slstm cell {SLSTM_CELL_CASE} bf16 r = 0, {name}"
+        err = kernel_err_of_max(k, p, what, f32)
+        big = p.abs().max()
+        keep = p.abs() > 1e-3 * big
+        out[name] = {"of_largest": err / big.item(), "elementwise": (
+            (k - p).abs()[keep] / p.abs()[keep]).max().item()}
+    print(f"slstm cell {SLSTM_CELL_CASE} bf16 at r = 0 (the cell alone), "
+          f"the carries of every position against the plain version's, "
+          f"each within {LM_TOL[f32]} of its largest plain entry: {out}")
+    return out
+
+
 def xlstm_kernels_phase(g, dev, smi) -> dict:
     """Phase 2f: xLSTM's training kernels against their plain versions
     over the sweeps (each call repeated and held to the same bits), then
@@ -1802,10 +1861,16 @@ def xlstm_kernels_phase(g, dev, smi) -> dict:
             q, k, v, a, do, chunk=c, dden=dden), reps=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del q, k, v, a, do, dden, got, ref
-    for B, L, H, dh, bf in SLSTM_CASES:
+    from repro_torch.kernels.slstm.kernel import _tma_ready
+    for B, L, H, dh, bf, *kind in SLSTM_CASES:
         dt = torch.bfloat16 if bf else torch.float32
-        gx, r, carry, dys, dcarry = slstm_inputs(g, dev, B, L, H, dh, dt)
-        what = f"slstm {(B, L, H, dh)} {dt}"
+        kind = kind[0] if kind else ""
+        gx, r, carry, dys, dcarry = slstm_inputs(g, dev, B, L, H, dh, dt,
+                                                 kind)
+        what = f"slstm {(B, L, H, dh)} {dt}" + (f" ({kind})" if kind else "")
+        check(kind != "views" or (not gx.is_contiguous()
+                                  and _tma_ready(gx) is gx),
+              f"{what}: gx is not a strided view that TMA reads as it is")
 
         def fwd():
             ys, c1, saved = slstm_scan(gx, r, carry, save=True)
@@ -1815,6 +1880,11 @@ def xlstm_kernels_phase(g, dev, smi) -> dict:
         p_ys, p_c1 = slstm_scan_plain(gx, r, carry)
         err_f = of_largest(got[:5], (p_ys, *p_c1), dt, what)
         repeat_bits(fwd, got, what)
+        if kind == "views":             # the same bits from a copy of gx
+            ys2, c2, s2 = slstm_scan(gx.contiguous(), r, carry, save=True)
+            check(all(torch.equal(x, y) for x, y in zip(got, (
+                ys2, *c2, *s2))), f"{what}: other bits than from a "
+                  "contiguous gx")
 
         def bwd(fn=slstm_scan_bwd):
             dgx, dr, dc = fn(saved[0], r, carry, saved[1:], ys, dys, dcarry)
@@ -1830,6 +1900,7 @@ def xlstm_kernels_phase(g, dev, smi) -> dict:
               "bits")
     rec["slstm"] = {"max_abs_err": err_f}
     rec["slstm_bwd"] = {"max_abs_err": err_b}
+    rec["slstm"]["cell_f32_err"] = slstm_cell_check(g, dev)
     for name, fn, plain, back in (
             ("slstm", lambda: slstm_scan(gx, r, carry),
              lambda: slstm_scan_plain(gx, r, carry), False),
@@ -5621,12 +5692,18 @@ def main() -> None:
          "rank-1 term), float32 on the CUDA cores"),
         ("slstm", "slstm", "src/repro/models/blocks.py:333 (_slstm_cell "
          "under lax.scan at :369; no TPU kernel)",
-         "a cluster of 8 CTAs a head, r resident, h exchanged through "
-         "distributed shared memory"),
+         "redesigned for Hopper: a cluster of 8 CTAs a head, bf16 r held "
+         "in registers and multiplied on the tensor cores (mma.sync), h "
+         "handed on point to point by st.async onto mbarriers (no cluster "
+         "barrier a position), gx streamed in and the outputs stored by "
+         "TMA off the chain; float32 on the CUDA cores"),
         ("slstm_bwd", "slstm", "src/repro/models/blocks.py:333 "
          "(_slstm_cell's lax.scan, differentiated by jax.grad; no TPU "
-         "kernel)", "the reverse recurrence on the same clusters, dr one "
-         "batched product")))]
+         "kernel)", "redesigned for Hopper: the reverse recurrence on the "
+         "same clusters, dg r^T's partials on the tensor cores sent to "
+         "each unit's CTA by st.async and added in rank order, g, c, n, "
+         "m and dys streamed in and dgx out by TMA; dr one batched "
+         "product")))]
     for k in kernels:
         k["launches_by_path"].update(dist_launches(dist, k["name"]))
         k["launches_by_path"].update(sp_launches(seqp, k["name"]))

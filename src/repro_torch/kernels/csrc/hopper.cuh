@@ -4,8 +4,8 @@
 // maps (cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint so
 // no library links libcuda), and the SSD backward kernels' prefix sums,
 // release flags and transposed ldmatrix.  Included by flash_attention.cu,
-// flash_attention_bwd.cu, ssd_scan_bwd.cu and ssd_wide_bwd.cu; everything
-// is in an anonymous namespace, one copy per library.
+// flash_attention_bwd.cu, ssd_scan_bwd.cu, ssd_wide_bwd.cu and slstm.cu;
+// everything is in an anonymous namespace, one copy per library.
 //
 // Tiles are 128B-swizzled boxes of 64 bf16 columns (128 B rows, 1024 B
 // swizzle atoms, so a tile's base is 1024 B aligned); a head dim over 64 is

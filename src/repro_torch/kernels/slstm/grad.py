@@ -33,7 +33,8 @@ import torch
 
 from ...trace_hooks import plain_device, recurrence
 from .. import needs_grad
-from .kernel import (_DTYPES, _beyond, _check, _lib, _softplus, slstm_scan)
+from .kernel import (_DTYPES, _beyond, _check, _lib, _softplus, _tma_ready,
+                     slstm_scan)
 
 __all__ = ["SLSTMScanFn", "scan", "slstm_scan_bwd", "slstm_scan_bwd_plain"]
 
@@ -128,20 +129,20 @@ def slstm_scan_bwd(g, r, carry0, states, ys, dys, dcarry):
     B, L, H, four_dh = g.shape
     dh = four_dh // 4
     c0, n0, h0, m0 = (t.contiguous() for t in carry0)
-    cs, ns, ms = (t.contiguous() for t in states)
+    g, cs, ns, ms = (_tma_ready(t.contiguous()) for t in (g, *states))
     r = r.contiguous()
 
     def ptr(t):
-        return None if t is None else t.contiguous().data_ptr()
-    keep = [None if t is None else t.contiguous()
-            for t in (dys, *dcarry)]
+        return None if t is None else t.data_ptr()
+    keep = [None if t is None else t.contiguous() for t in dcarry]
+    keep.insert(0, None if dys is None else _tma_ready(dys.contiguous()))
     dgx = torch.empty((B, L, H, four_dh), dtype=g.dtype, device=dev)
     dc0, dn0, dm0 = (torch.empty_like(c0) for _ in range(3))
     dh0 = torch.empty_like(h0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().slstm_bwd_launch(
-            g.contiguous().data_ptr(), r.data_ptr(), c0.data_ptr(),
+            g.data_ptr(), r.data_ptr(), c0.data_ptr(),
             n0.data_ptr(), m0.data_ptr(), cs.data_ptr(), ns.data_ptr(),
             ms.data_ptr(), *(ptr(t) for t in keep), dgx.data_ptr(),
             dc0.data_ptr(), dn0.data_ptr(), dh0.data_ptr(), dm0.data_ptr(),

@@ -5,15 +5,20 @@ no Pallas kernel for it: its sLSTM block runs ``_slstm_cell``
 (``repro/models/blocks.py:333``) under ``lax.scan`` (``:369``).  The port's
 plain version, ``slstm_scan_plain``, is that loop in torch, one
 ``_slstm_cell`` a position; the kernel (``kernels/csrc/slstm.cu``) runs the
-whole sequence in one launch: a cluster of 8 CTAs a head, each holding its
-units' columns of r in shared memory, exchanging h through distributed
-shared memory once a step.
+whole sequence in one launch: a cluster of up to 8 CTAs a head and tile of
+8 batch rows, each holding its 32 units' columns of r (in registers, the
+product on the tensor cores, in bf16), handing h on to every CTA of the
+cluster point to point each position, gx streamed in and the outputs
+stored by TMA off the chain.
 
 Shapes (the model's layout): gx ``[B, L, H, 4 dh]`` in the model's type,
 r ``[H, dh, 4 dh]`` in h's type, carry ``(c, n, h, m)`` each ``[B, H,
 dh]`` (c, n and m float32, h in h's type).  Returns ``(ys, carry')``, ys
 ``[B, L, H, dh]`` in h's type.  The kernel takes gx, r and h of one type
-(float32 or bf16) and dh up to 256; the wrapper raises otherwise.
+(float32 or bf16) and dh up to 256, a multiple of 16 in bf16 and of 4 in
+float32; the wrapper raises otherwise.  TMA reads gx with its own strides
+where each is a multiple of 16 bytes and its base is 16-byte aligned; the
+wrapper copies it otherwise (``_tma_ready``).
 
 ``save=True`` (the training path, ``grad.SLSTMScanFn``) also returns what
 the backward reads: each position's gate inputs ``g = (gx + h r).float()``
@@ -33,7 +38,10 @@ from ..build import load_library
 __all__ = ["slstm_scan", "slstm_scan_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NAMES = {torch.float32: "float32", torch.bfloat16: "bf16"}
 MAX_DH = 256
+# dh's step: bf16's tensor-core k-steps of 16; float32's 16-byte rows (TMA)
+DH_STEP = {torch.bfloat16: 16, torch.float32: 4}
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -114,7 +122,24 @@ def _beyond(gx, r, carry) -> str:
         return "slstm: the kernel takes c, n and m in float32"
     if dh > MAX_DH:
         return f"slstm: the kernel takes dh <= {MAX_DH} (got {dh})"
+    step = DH_STEP[gx.dtype]
+    if dh % step:
+        return (f"slstm: the {_NAMES[gx.dtype]} kernel takes dh a multiple "
+                f"of {step} (got {dh})")
     return ""
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels' TMA reads it: last dimension contiguous, every
+    other stride a positive multiple of 16 bytes, base 16-byte aligned (a
+    contiguous copy otherwise)."""
+    es = t.element_size()
+    if (t.stride(-1) != 1 or t.data_ptr() % 16
+            or any(st <= 0 or st * es % 16 for st in t.stride()[:-1])):
+        t = t.contiguous()
+        if t.data_ptr() % 16:
+            t = t.clone()
+    return t
 
 
 def slstm_scan(gx: torch.Tensor, r: torch.Tensor, carry: tuple, *,
@@ -139,8 +164,7 @@ def slstm_scan(gx: torch.Tensor, r: torch.Tensor, carry: tuple, *,
     beyond = _beyond(gx, r, carry)
     if beyond:
         raise ValueError(beyond)
-    if gx.stride(-1) != 1:
-        gx = gx.contiguous()
+    gx = _tma_ready(gx)
     r = r.contiguous()
     c0, n0, h0, m0 = (t.contiguous() for t in carry)
     B, L, H, four_dh = gx.shape

@@ -29,6 +29,7 @@ import torch
 from repro_torch.kernels.slstm import (SLSTMScanFn, scan, slstm,
                                        slstm_scan, slstm_scan_bwd,
                                        slstm_scan_bwd_plain, slstm_scan_plain)
+from repro_torch.kernels.slstm.kernel import _tma_ready
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REL = 1e-5
@@ -185,11 +186,16 @@ def meta_call(dh, gx_dtype=torch.bfloat16, r_dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("dh, gx_dtype, match", [
     (512, torch.bfloat16, "dh <= 256"),
-    (16, torch.float32, "one type")])
+    (16, torch.float32, "one type"),
+    (24, torch.bfloat16, "bf16 kernel takes dh a multiple of 16"),
+    (18, torch.float32, "float32 kernel takes dh a multiple of 4")])
 def test_uncovered_grad_call_off_the_cpu_raises(dh, gx_dtype, match):
     """On the card a grad-requiring call the kernels do not take (dh over
-    256, gx and h of different types) raises instead of detaching."""
-    gx, r, carry = meta_call(dh, gx_dtype)
+    256, gx and h of different types, dh off the tensor-core k-steps of 16
+    in bf16 or off TMA's 16-byte rows in float32) raises instead of
+    detaching."""
+    r_dtype = (torch.bfloat16 if match == "one type" else gx_dtype)
+    gx, r, carry = meta_call(dh, gx_dtype, r_dtype)
     with pytest.raises(NotImplementedError, match=match):
         scan(gx, r, carry)
 
@@ -205,6 +211,49 @@ def test_covered_grad_call_off_the_cpu_takes_the_function():
         slstm_scan(gx, r, carry)
     with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
         slstm_scan(gx, r, carry)
+
+
+def _proj(dtype, width, cut, start=0):
+    """Column slice [start, start + cut) of a [2, 3, 2, width] projection:
+    strides (3 * 2 * width, 2 * width, width, 1)."""
+    proj = torch.arange(2 * 3 * 2 * width, dtype=torch.float32).reshape(
+        2, 3, 2, width).to(dtype)
+    return proj[..., start:start + cut]
+
+
+@pytest.mark.parametrize("dtype, width, cut, start", [
+    (torch.bfloat16, 64, 64, 0), (torch.bfloat16, 96, 64, 0),
+    (torch.bfloat16, 96, 64, 16), (torch.float32, 24, 16, 4)])
+def test_tma_ready_keeps_aligned_views(dtype, width, cut, start):
+    """A view whose strides are multiples of 16 bytes, with its base
+    16-byte aligned and its last dimension contiguous, is handed to TMA as
+    it is (the same storage and strides)."""
+    t = _proj(dtype, width, cut, start)
+    got = _tma_ready(t)
+    assert got is t
+
+
+@pytest.mark.parametrize("what", ["odd row stride", "offset base",
+                                  "strided last dim", "offset contiguous"])
+def test_tma_ready_copies_what_tma_cannot_read(what):
+    """A row stride off 16 bytes, a base off 16 bytes (a column slice
+    from an odd column, or a contiguous tensor at an element offset), or a
+    strided last dimension: a contiguous copy, 16-byte aligned, equal in
+    value."""
+    if what == "odd row stride":        # bf16 rows of 100 elements
+        t = _proj(torch.bfloat16, 100, 64)
+    elif what == "offset base":         # starts 2 bytes into a row
+        t = _proj(torch.bfloat16, 96, 64, 1)
+    elif what == "strided last dim":
+        t = _proj(torch.float32, 32, 32)[..., ::2]
+    else:                               # contiguous, 4 bytes in
+        t = torch.arange(1 + 2 * 3 * 16, dtype=torch.float32)[1:].view(
+            2, 3, 16)
+        assert t.is_contiguous() and t.data_ptr() % 16
+    got = _tma_ready(t)
+    assert got.is_contiguous() and got.data_ptr() % 16 == 0
+    assert got.data_ptr() != t.data_ptr()
+    assert torch.equal(got, t)
 
 
 def test_kernel_modules_import_neither_jax_nor_repro():
@@ -243,7 +292,10 @@ def _hold(got, want, dtype):
 @pytest.mark.parametrize("shape, dtype", [
     ((2, 16, 4, 16), torch.float32), ((2, 16, 4, 16), torch.bfloat16),
     ((3, 64, 2, 256), torch.float32), ((9, 32, 2, 64), torch.bfloat16),
-    ((4, 1, 4, 256), torch.bfloat16), ((4, 1024, 4, 256), torch.bfloat16)])
+    ((4, 1, 4, 256), torch.bfloat16), ((4, 1024, 4, 256), torch.bfloat16),
+    ((8, 64, 2, 256), torch.bfloat16), ((16, 48, 2, 256), torch.bfloat16),
+    ((4, 96, 4, 128), torch.bfloat16), ((2, 40, 2, 20), torch.float32),
+    ((4, 1024, 4, 256), torch.float32)])
 def test_cuda_kernels_match_plain(shape, dtype):
     """Forward (ys and the carry out) and backward (dgx, dr, the carry
     in's gradients, both fed the forward kernel's saved values) against
@@ -264,6 +316,24 @@ def test_cuda_kernels_match_plain(shape, dtype):
     _hold(got, bwd(slstm_scan_bwd_plain), dtype)
     assert all(torch.equal(x, y) for x, y in zip(got, bwd(slstm_scan_bwd)))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_reads_a_column_slice_of_a_projection():
+    """gx as columns [64, 64 + 4 dh) of a wider bf16 projection, which the
+    kernel's TMA reads with its own strides (no copy): within 2e-2 of the
+    plain version and the same bits as from a contiguous gx."""
+    gx, r, carry, _, _ = _cuda_inputs(4, 64, 4, 256, torch.bfloat16)
+    proj = torch.zeros((4, 64, 4, 4 * 256 + 128), dtype=gx.dtype,
+                       device=gx.device)
+    proj[..., 64:64 + 4 * 256] = gx
+    view = proj[..., 64:64 + 4 * 256]
+    assert not view.is_contiguous() and _tma_ready(view) is view
+    ys, c1 = slstm_scan(view, r, carry)
+    pys, pc1 = slstm_scan_plain(gx, r, carry)
+    _hold((ys, *c1), (pys, *pc1), torch.bfloat16)
+    ys2, c2 = slstm_scan(gx, r, carry)
+    assert all(torch.equal(x, y) for x, y in zip((ys, *c1), (ys2, *c2)))
 
 
 @pytest.mark.cuda
